@@ -1,0 +1,161 @@
+"""Weights into the port's modules: from the JAX package's flax params, from
+HF / ForCTC torch state dicts, or a seeded random init.
+
+The port's modules keep HF attribute names, so:
+  * flax Dense ``kernel`` -> ``weight = kernel.T``,
+  * flax Conv ``kernel [k, in/g, out]`` -> ``weight = transpose(2, 1, 0)``,
+  * flax LayerNorm/GroupNorm ``scale`` -> ``weight``,
+  * an HF state dict maps by stripping the encoder prefix, with the
+    weight-normed positional conv (wav2vec2/hubert ``single``) merged into a
+    plain weight: weight norm is a reparametrisation, not a function.
+
+A ``BackboneConfig`` gives an :class:`SSLBackbone` state dict; a
+``DACSConfig`` gives a :class:`DACSModel` one (backbone under ``backbone.``
+plus the heads). Values are fp32 CPU tensors; ``load_state_dict`` casts
+them to each module's dtype and device.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from .backbone import SSLBackbone
+from .config import BackboneConfig, DACSConfig
+from .dacs import DACSModel
+
+# ForCTC head names -> the port's DACSModel attributes
+_HEADS = {"lm_head": "lm_head", "dementia_head": "dementia_head",
+          "arbitrator": "arbitrator", "criterion_similar.fc": "similar_fc"}
+_ENCODER_PREFIXES = ("data2vec_audio.", "wav2vec2.", "hubert.", "unispeech_sat.", "")
+
+
+def _tensor(x) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", torch.float32).contiguous()
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(x, dtype=np.float32)))
+
+
+def _skeleton_keys(cfg: BackboneConfig | DACSConfig) -> list[str]:
+    with torch.device("meta"):
+        model = DACSModel(cfg) if isinstance(cfg, DACSConfig) else SSLBackbone(cfg)
+    return list(model.state_dict())
+
+
+# ---------------------------------------------------------------------------
+# flax params (the JAX package's DACSModel / SSLBackbone)
+# ---------------------------------------------------------------------------
+
+def _flatten(tree: Mapping, prefix: tuple[str, ...] = ()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def state_dict_from_flax(params: Mapping[str, Any],
+                         cfg: BackboneConfig | DACSConfig) -> dict[str, torch.Tensor]:
+    """Flax params (nested dict of arrays) -> the port's state dict.
+    ``layers_{i}`` / ``conv_layers_{i}`` become ``layers.{i}`` /
+    ``conv_layers.{i}``; SpecAugment's ``masked_spec_embed`` (training only)
+    is dropped."""
+    sd = {}
+    for path, value in _flatten(params):
+        if path[-1] == "masked_spec_embed":
+            continue
+        mods = [re.sub(r"^(conv_layers|layers)_(\d+)$", r"\1.\2", p) for p in path[:-1]]
+        leaf = path[-1]
+        w = np.asarray(value, dtype=np.float32)
+        if leaf == "kernel":
+            w = w.T if w.ndim == 2 else w.transpose(2, 1, 0)
+            leaf = "weight"
+        elif leaf == "scale":
+            leaf = "weight"
+        sd[".".join(mods + [leaf])] = _tensor(w)
+    want = set(_skeleton_keys(cfg))
+    if set(sd) != want:
+        raise KeyError(f"flax params do not match the port's model: missing "
+                       f"{sorted(want - set(sd))[:5]}, unexpected "
+                       f"{sorted(set(sd) - want)[:5]}")
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# HF / ForCTC torch state dicts (and the JAX package's `cli export-hf`)
+# ---------------------------------------------------------------------------
+
+def _merge_weight_norm(sd: Mapping[str, Any], prefix: str) -> torch.Tensor:
+    """torch weight_norm(g, v) -> effective conv weight [out, in/g, k]; both
+    the legacy ``weight_g/weight_v`` and ``parametrizations.weight.original*``
+    key styles."""
+    for g_key, v_key in ((f"{prefix}.weight_g", f"{prefix}.weight_v"),
+                         (f"{prefix}.parametrizations.weight.original0",
+                          f"{prefix}.parametrizations.weight.original1")):
+        if g_key in sd:
+            g = _tensor(sd[g_key]).double()
+            v = _tensor(sd[v_key]).double()
+            dims = tuple(i for i in range(v.dim()) if g.shape[i] == 1)
+            norm = v.square().sum(dim=dims, keepdim=True).sqrt()
+            return (g * v / norm.clamp_min(1e-12)).float()
+    return _tensor(sd[f"{prefix}.weight"])
+
+
+def state_dict_from_hf(sd: Mapping[str, Any],
+                       cfg: BackboneConfig | DACSConfig) -> dict[str, torch.Tensor]:
+    """HF encoder or ForCTC state dict -> the port's state dict. The encoder
+    prefix (``data2vec_audio.``, ``wav2vec2.``, ...) is found and stripped;
+    with a ``DACSConfig`` the ForCTC heads present in ``sd`` are carried too
+    (``criterion_similar.fc`` -> ``similar_fc``). Backbone keys must all be
+    there; heads the checkpoint lacks are left out, for the caller to keep
+    from an init."""
+    bcfg = cfg.backbone if isinstance(cfg, DACSConfig) else cfg
+    prefix = next((p for p in _ENCODER_PREFIXES
+                   if any(k.startswith(p + "feature_extractor.") for k in sd)), None)
+    if prefix is None:
+        raise ValueError("could not locate a speech encoder in the state_dict")
+    enc = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    out = {}
+    for key in _skeleton_keys(bcfg):
+        if key == "encoder.pos_conv_embed.conv.weight":
+            out[key] = _merge_weight_norm(enc, "encoder.pos_conv_embed.conv")
+        elif key in enc:
+            out[key] = _tensor(enc[key])
+        else:
+            raise KeyError(f"state_dict lacks encoder key {prefix + key!r}")
+    if not isinstance(cfg, DACSConfig):
+        return out
+    out = {f"backbone.{k}": v for k, v in out.items()}
+    for src, dst in _HEADS.items():
+        for leaf in ("weight", "bias"):
+            if f"{src}.{leaf}" in sd:
+                out[f"{dst}.{leaf}"] = _tensor(sd[f"{src}.{leaf}"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# seeded random init
+# ---------------------------------------------------------------------------
+
+def init_dacs_state_dict(cfg: DACSConfig,
+                         generator: torch.Generator) -> dict[str, torch.Tensor]:
+    """Seeded random DACSModel weights in fp32 on ``generator.device``:
+    normal(0, 1/sqrt(fan_in)) matmul and conv weights (flax's lecun scale),
+    zero biases, unit norm scales."""
+    with torch.device("meta"):
+        shapes = {k: v.shape for k, v in DACSModel(cfg).state_dict().items()}
+    dev = generator.device
+    sd = {}
+    for name, shape in shapes.items():
+        if name.endswith("bias"):
+            sd[name] = torch.zeros(shape, device=dev)
+        elif len(shape) == 1:
+            sd[name] = torch.ones(shape, device=dev)
+        else:
+            fan_in = int(np.prod(shape[1:]))
+            sd[name] = torch.empty(shape, device=dev).normal_(
+                0.0, fan_in ** -0.5, generator=generator)
+    return sd

@@ -1,0 +1,104 @@
+"""The port package stands alone: it imports with jax/flax/optax/orbax
+blocked and loads nothing of the JAX package; neither its sources nor
+chip_smoke.py import them; and its entry points never carry on quietly on
+the CPU when the default device (cuda) is missing."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import privacy_preserve_federated_asr_tpu_torch as port_pkg
+from privacy_preserve_federated_asr_tpu_torch import cli
+from privacy_preserve_federated_asr_tpu_torch.models import (
+    BackboneConfig,
+    DACSConfig,
+    init_dacs_state_dict,
+)
+from privacy_preserve_federated_asr_tpu_torch.serving import InferenceEngine, ServingConfig
+from test_torch_backbone import one_torch_thread  # noqa: F401
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = Path(port_pkg.__file__).parent
+BLOCKED = ("jax", "flax", "optax", "orbax")
+JAX_PKG = "privacy_preserve_federated_asr_tpu"
+
+_CHILD = f"""
+import importlib, pkgutil, sys
+for m in {BLOCKED!r}:
+    sys.modules[m] = None  # any import of it raises ImportError
+import privacy_preserve_federated_asr_tpu_torch as p
+names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+bad = [m for m in sys.modules if m == {JAX_PKG!r} or m.startswith({JAX_PKG + "."!r})]
+print(len(names), bad)
+"""
+
+
+def test_port_imports_with_jax_blocked():
+    res = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    n, bad = res.stdout.split(maxsplit=1)
+    assert int(n) >= 15 and bad.strip() == "[]", res.stdout
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_sources_import_no_jax():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 15
+    for f in files:
+        bad = _imported_roots(f) & {*BLOCKED, JAX_PKG}
+        assert not bad, f"{f.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_default_device_without_gpu_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = DACSConfig(backbone=BackboneConfig.tiny_for_tests())
+    sd = init_dacs_state_dict(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        InferenceEngine(cfg, sd)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["serve", "--model_type", "tiny", "--no_warmup"])
+    # the CPU is taken only when asked for
+    scfg = ServingConfig(batch_size=1, time_multiple=3200, compute_dtype="float32")
+    eng = InferenceEngine(cfg, sd, scfg=scfg, device="cpu")
+    assert eng.infer_batch([np.zeros(3200, np.float32)])[0].samples == 3200
+
+
+def test_copied_numpy_modules_match_jax_package(tmp_path):
+    """data/audio.py and data/tokenizer.py are copies, not imports: they
+    must keep giving the JAX package's answers."""
+    from scipy.io import wavfile
+
+    from privacy_preserve_federated_asr_tpu.data import audio as jax_audio
+    from privacy_preserve_federated_asr_tpu.data.tokenizer import CTCCharTokenizer as JaxTok
+    from privacy_preserve_federated_asr_tpu_torch.data import audio
+    from privacy_preserve_federated_asr_tpu_torch.data.tokenizer import CTCCharTokenizer
+
+    rng = np.random.default_rng(11)
+    x = rng.normal(0, 0.2, 5000).astype(np.float32)
+    for fn in ("normalize_input_values", "peak_normalize"):
+        np.testing.assert_array_equal(getattr(audio, fn)(x), getattr(jax_audio, fn)(x))
+    wav = tmp_path / "a.wav"
+    wavfile.write(wav, 8000, (x * 32767).astype(np.int16))
+    np.testing.assert_array_equal(audio.load_audio(str(wav)), jax_audio.load_audio(str(wav)))
+    tok, jtok = CTCCharTokenizer(), JaxTok()
+    assert tok.encode("HELLO WORLD'S") == jtok.encode("HELLO WORLD'S")
+    ids = rng.integers(0, 32, 200)
+    assert tok.decode(ids) == jtok.decode(ids)
+    assert tok.decode(ids, group_tokens=False) == jtok.decode(ids, group_tokens=False)
