@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path (privacy_preserve_federated_asr_tpu_torch)
-and holds its hand-written kernel against the plain version. It imports
-nothing of JAX or of the JAX package. Phases, in order; any failure raises
-and ends the run with a non-zero exit:
+Drives the port's serving path and its stage-0 training path
+(privacy_preserve_federated_asr_tpu_torch) and holds its hand-written
+kernels against their plain versions. It imports nothing of JAX or of the
+JAX package. Phases, in order; any failure raises and ends the run with a
+non-zero exit:
 
 1. header: the card (nvidia-smi), torch and CUDA versions, and the nvcc
-   build of the kernel in csrc/;
+   builds of the kernels in csrc/ (one nvcc process per source, together);
 2. kernel B1 (csrc/flash_fwd.cu) against ``attention_ref`` at the serving
    shapes (B=8, H=16, D=64; T=249 and T=1499; bf16 and fp32; mixed key
    lengths and one row with every key masked; dropout 0.1), and its time
@@ -25,21 +26,40 @@ and ends the run with a non-zero exit:
 4. end to end against the CPU: the same model cut to 4 layers at fp32 with
    injected numpy Gumbel noise, on the card and on the CPU (where attention
    is the plain version);
-5. one JSON line listing each kernel (launches on the main path, error
+5. kernel B2 (csrc/flash_bwd.cu) against ``attention_bwd_ref`` at the
+   training shapes (B=16, T=249 and B=8, T=1499; H=16, D=64; bf16 and fp32;
+   dropout 0 and 0.1; mixed key lengths and a zero-length row, the
+   cotangent zeroed on padded query rows and then whole), its time beside the plain
+   version's, the bound and SDPA's backward; B1's time at the training
+   shape with dropout 0.1;
+6. training at full width: ``cli train`` (``cli.main``) of data2vec-audio-
+   large DACS stage 0 in bf16, batch 16, on synthetic 4-5 s WAVs for 12
+   steps and one evaluation: 24 B1 and 24 B2 calls per step, the frozen
+   params bit-unchanged, every trainable one moved and all finite, a finite
+   evaluation; then the loss and grad norm (finite), step ms and utt/s over
+   further steps, and B1's and B2's share of one step's device time
+   (torch.profiler);
+7. one training step, card against CPU: the model cut to 4 layers at fp32,
+   attention dropout 0.1 from the same seeds on both;
+8. one JSON line listing each kernel (launches on the main paths, error
    against the plain version, times and bound), the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -71,6 +91,19 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def wall_ms(fn, iters: int, warmup: int = 1) -> float:
+    """Mean host-clock time of ``fn`` run to completion on the card (host
+    work included, unlike ``cuda_ms``)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -88,11 +121,14 @@ def header() -> None:
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    cuda_build.load("flash_fwd")
-    log(f"[build] flash_fwd: nvcc and load in {time.perf_counter() - t0:.1f} s")
-    for line in cuda_build.build_logs.get("flash_fwd", "(already built)").splitlines():
-        if "registers" in line or "spill" in line or "built" in line:
-            log(f"[build]   {line.strip()}")
+    for name in cuda_build.SOURCES:
+        cuda_build.load(name)
+    log(f"[build] {', '.join(cuda_build.SOURCES)}: nvcc (concurrent) and load in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name in cuda_build.SOURCES:
+        for line in cuda_build.build_logs.get(name, "(already built)").splitlines():
+            if "registers" in line or "spill" in line or "built" in line:
+                log(f"[build]   {name}: {line.strip()}")
 
 
 # ---------------------------------------------------------------------------
@@ -208,8 +244,8 @@ def check_on_served_inputs(engine, n_layers: int = 4) -> float:
 
     mha, seen = backbone.multihead_attention, []
 
-    def recording(q, k, v, key_mask):
-        out = mha(q, k, v, key_mask)
+    def recording(q, k, v, key_mask, *dropout):
+        out = mha(q, k, v, key_mask, *dropout)
         if len(seen) < n_layers:
             seen.append((q, k, v, key_mask, out))
         return out
@@ -399,6 +435,374 @@ def end_to_end_vs_cpu() -> None:
         f"greedy ids equal on {int(clear.sum())}/{clear.numel()} clear frames")
 
 
+# ---------------------------------------------------------------------------
+# 5. kernel B2 against its plain version
+# ---------------------------------------------------------------------------
+
+BWD_SHAPES = ((16, 249), (8, 1499))   # (B, T): the training batch, a 30 s batch
+TRAIN_RATE, TRAIN_SEED = 0.1, 20240917
+# B2's gradients against attention_bwd_ref, as max|err| over max|ref| per
+# gradient: bf16 2e-2 (P and dS are rounded to bf16 as operands of the
+# tensor-core products), fp32 1e-4 (sums in another order)
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+def _lengths(b: int, t: int) -> list[int]:
+    """Mixed key lengths with one zero-length (batch-padding) row."""
+    base = [t, t - 17, t // 2, t // 3 + 1, 1, t - 1, 0, t // 4 + 5]
+    return (base * (b // len(base) + 1))[:b]
+
+
+def _bound(flops: float, nbytes: float, dtype: torch.dtype) -> tuple[float, str]:
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    ops_s, bytes_s = flops / peak, nbytes / PEAK_BYTES
+    return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
+
+
+def check_bwd_kernel() -> dict:
+    from privacy_preserve_federated_asr_tpu_torch.ops.attention import (
+        attention_bwd_ref, attention_ref, flash_attention_bwd, flash_attention_fwd,
+        hash_stride)
+
+    worst_abs, rows = 0.0, {}
+    for b, t in BWD_SHAPES:
+        mask = _mask(_lengths(b, t))
+        th = hash_stride(t)
+        for dtype in (torch.bfloat16, torch.float32):
+            g = torch.Generator("cuda").manual_seed(b * t)
+            q, k, v, do = (torch.randn((b, t, H, D), generator=g, device="cuda").to(dtype)
+                           for _ in range(4))
+            # the cotangent as training gives it (none on padded query rows),
+            # then whole, so the zero-length row's 1/T weights are held too
+            zeroed = do * mask[:, :, None, None].to(dtype)
+            for cot_name, cot in (("padded rows zeroed", zeroed), ("whole", do)):
+                for rate in (0.0, TRAIN_RATE):
+                    o, lse = flash_attention_fwd(q, k, v, mask, rate, TRAIN_SEED, th,
+                                                 return_lse=True)
+                    got = flash_attention_bwd(q, k, v, mask, o, cot, lse, rate, TRAIN_SEED, th)
+                    want = attention_bwd_ref(q, k, v, mask, o, cot, rate, TRAIN_SEED, th)
+                    torch.cuda.synchronize()
+                    ratios = []
+                    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+                        a, w = a.float(), w.float()
+                        assert torch.isfinite(a).all(), f"B2 {name} not finite"
+                        if cot is zeroed:
+                            assert not a[mask.sum(1) == 0].any(), f"B2 {name}: zero-length row"
+                        err = (a - w).abs().max().item()
+                        worst_abs = max(worst_abs, err)
+                        ratios.append(err / w.abs().max().item())
+                        assert ratios[-1] <= BWD_TOL[dtype], (b, t, dtype, rate, cot_name,
+                                                              name, ratios[-1])
+                    log(f"[bwd] B={b} T={t} {str(dtype)[6:]} rate={rate} cotangent "
+                        f"{cot_name}: max|err|/max|ref| dq {ratios[0]:.2e} dk "
+                        f"{ratios[1]:.2e} dv {ratios[2]:.2e} (tolerance {BWD_TOL[dtype]:.0e})")
+
+    for b, t in BWD_SHAPES:
+        full = _mask([t] * b)
+        th = hash_stride(t)
+        for dtype in (torch.bfloat16, torch.float32):
+            g = torch.Generator("cuda").manual_seed(1)
+            q, k, v, do = (torch.randn((b, t, H, D), generator=g, device="cuda").to(dtype)
+                           for _ in range(4))
+            rate = TRAIN_RATE
+            o, lse = flash_attention_fwd(q, k, v, full, rate, TRAIN_SEED, th, return_lse=True)
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+            dot = do.transpose(1, 2)
+            sdpa_mask = full.bool()[:, None, None, :]
+
+            def sdpa():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=sdpa_mask, dropout_p=rate)
+
+            row = {
+                "ms": cuda_ms(lambda: flash_attention_bwd(q, k, v, full, o, do, lse, rate,
+                                                          TRAIN_SEED, th), 20),
+                "plain_ms": cuda_ms(lambda: attention_bwd_ref(q, k, v, full, o, do, rate,
+                                                              TRAIN_SEED, th), 3, 1),
+                "library_ms": cuda_ms(lambda: sdpa().backward(dot), 20) - cuda_ms(sdpa, 20),
+            }
+            flops = 10.0 * b * H * t * t * D
+            nbytes = 8.0 * b * t * H * D * q.element_size() + b * t * 4
+            row["bound_ms"], row["bound_by"] = _bound(flops, nbytes, dtype)
+            rows[(b, t, str(dtype)[6:])] = row
+            log(f"[bwd-time] B={b} T={t} {str(dtype)[6:]} rate={rate}: kernel "
+                f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa backward "
+                f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']})  [{card_line()}]")
+
+    # B1 at the training shape with dropout, saving the LSE as training does
+    b, t = BWD_SHAPES[0]
+    full = _mask([t] * b)
+    q, k, v = (torch.randn((b, t, H, D), device="cuda").to(torch.bfloat16) for _ in range(3))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    fwd = {
+        "ms": cuda_ms(lambda: flash_attention_fwd(q, k, v, full, TRAIN_RATE, TRAIN_SEED,
+                                                  256, return_lse=True), 20),
+        "plain_ms": cuda_ms(lambda: attention_ref(q, k, v, full, TRAIN_RATE, TRAIN_SEED,
+                                                  256), 3, 1),
+        "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=full.bool()[:, None, None, :], dropout_p=TRAIN_RATE), 20),
+    }
+    fwd["bound_ms"], fwd["bound_by"] = _bound(4.0 * b * H * t * t * D,
+                                              4.0 * b * t * H * D * 2 + b * t * 4,
+                                              torch.bfloat16)
+    log(f"[fwd-time] B1 at B={b} T={t} bf16 rate={TRAIN_RATE} (LSE saved): kernel "
+        f"{fwd['ms']:.4f} ms, plain {fwd['plain_ms']:.4f} ms, sdpa {fwd['library_ms']:.4f} "
+        f"ms, bound {fwd['bound_ms']:.4f} ms ({fwd['bound_by']})  [{card_line()}]")
+    return {"max_abs_err": worst_abs, "times": rows, "fwd_train": fwd}
+
+
+# ---------------------------------------------------------------------------
+# 6. training at full width through cli train
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 12
+FROZEN_AT_STAGE0 = ("backbone.feature_extractor.", "dementia_head.", "arbitrator.",
+                    "similar_fc.")
+SENTENCES = ["THE BOY IS STEALING COOKIES", "WATER IS OVERFLOWING IN THE SINK",
+             "SHE IS DRYING THE DISHES", "HE IS ON A STOOL", "THE WINDOW IS OPEN",
+             "MOTHER IS STANDING BY THE SINK", "THE JAR IS ON THE SHELF"]
+
+
+def _write_corpus(root: Path, n_train: int, n_test: int) -> None:
+    """16 kHz int16 WAVs of 4-5 s, train/test CSVs and a speaker->label
+    table, as scripts/make_synthetic_data.py lays them out."""
+    from scipy.io import wavfile
+
+    rng = np.random.default_rng(0)
+    (root / "clips").mkdir(parents=True)
+    rows, spk2label = {"train": [], "test": []}, {}
+    for i in range(n_train + n_test):
+        spk = f"S{i // 4:03d}"
+        spk2label[spk] = (i // 4) % 2
+        name = f"{spk}_PAR_{i}_0_5000.wav"
+        audio = _utterance(float(rng.uniform(4.0, 5.0)), 1000 + i)
+        wavfile.write(root / "clips" / name, 16000,
+                      (np.clip(audio, -1, 1) * 32767).astype(np.int16))
+        rows["train" if i < n_train else "test"].append(
+            f"{name},{SENTENCES[i % len(SENTENCES)].lower()}")
+    for split, r in rows.items():
+        (root / f"{split}.csv").write_text("path,sentence\n" + "\n".join(r) + "\n")
+    np.save(root / "spk2label.npy", spk2label)
+
+
+def profile_step(fn, args) -> dict | None:
+    """Device time of one train step under torch.profiler: all device work,
+    B1's and B2's kernels, and the host wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        return None
+
+    def ms(events):
+        return sum(e.time_range.elapsed_us() for e in events) / 1e3
+
+    return {"device_ms": ms(dev), "wall_ms": wall * 1e3,
+            "b1_ms": ms(e for e in dev if "flash_fwd" in e.name),
+            "b2_ms": ms(e for e in dev if "flash_bwd" in e.name)}
+
+
+def train_full_width() -> dict:
+    from privacy_preserve_federated_asr_tpu_torch import cli
+    from privacy_preserve_federated_asr_tpu_torch.ops.attention import (
+        flash_attention_bwd, flash_attention_fwd)
+
+    b = BWD_SHAPES[0][0]
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        _write_corpus(root / "data", b * TRAIN_STEPS, b)
+        log(f"[train] wrote {b * TRAIN_STEPS} train and {b} test WAVs of 4-5 s in "
+            f"{time.perf_counter() - t0:.1f} s")
+        args = ["train", "--model_type", "data2vec", "-st", "0",
+                "--compute_dtype", "bfloat16", "--train_batch_size", str(b),
+                "--eval_batch_size", str(b), "--epochs", "1", "--seed", "0",
+                "--audio_dir", "data/clips", "--train_csv", "data/train.csv",
+                "--test_csv", "data/test.csv", "--spk2label", "data/spk2label.npy",
+                "--dataset_cache", "cache", "-model_out", "out", "--device", "cuda"]
+        cwd, out = os.getcwd(), io.StringIO()
+        os.chdir(root)
+        try:
+            flash_attention_fwd.launches = flash_attention_bwd.launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                tr = cli.main(args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            b1, b2 = flash_attention_fwd.launches, flash_attention_bwd.launches
+        finally:
+            os.chdir(cwd)
+    steps, n_eval = tr.state.step, len(tr.eval_batcher)
+    ev = json.loads(out.getvalue().strip().splitlines()[-1])
+    log(f"[train] cli train: {steps} steps + evaluate() in {wall:.1f} s (model init, "
+        f"frontend cache and data load included); eval {ev}")
+    assert steps == TRAIN_STEPS, steps
+    assert all(np.isfinite(v) for v in ev.values()), ev
+    assert b2 == LAYERS * steps and b1 == LAYERS * (steps + n_eval), (b1, b2, steps, n_eval)
+    log(f"[train] launches: B1 {b1} = {LAYERS} x ({steps} steps + {n_eval} eval "
+        f"forward), B2 {b2} = {LAYERS} x {steps} steps")
+
+    init = cli.load_weights(tr.cfg, None, 0, "cuda")  # cmd_train's own init
+    final = tr.state.model.state_dict()
+    frozen = [k for k in final if k.startswith(FROZEN_AT_STAGE0)]
+    for k, v in final.items():
+        same = torch.equal(v, init[k])
+        assert same == (k in frozen), (k, same)
+        # a non-finite loss or gradient at any step would have reached them
+        assert torch.isfinite(v).all(), k
+    log(f"[train] {len(frozen)} frozen tensors bit-unchanged; all "
+        f"{len(final) - len(frozen)} trainable tensors moved and finite (lr 0 at step 1, "
+        f"then warmup to 1e-5 over 1000 steps)")
+
+    # step time over further steps (the first two dropped), then one profiled
+    times, metrics, batches = [], [], tr.train_batches(1)
+    for _ in range(10):
+        n_real, (fn, fn_args) = next(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics.append(fn(tr.state, *fn_args))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    metrics = [{k: float(m[k]) for k in ("loss", "grad_norm")} for m in metrics]
+    assert all(np.isfinite(list(m.values())).all() for m in metrics), metrics
+    log(f"[train] steps {steps + 1}-{steps + len(metrics)}: loss {metrics[0]['loss']:.1f} "
+        f"-> {metrics[-1]['loss']:.1f}, grad norm {metrics[0]['grad_norm']:.1f} -> "
+        f"{metrics[-1]['grad_norm']:.1f}, all finite")
+    step_s = float(np.mean(times[2:]))
+    log(f"[train] stage-0 step (B={b} x 5 s bucket, T=249, bf16, cached frontend): "
+        f"{step_s * 1e3:.1f} ms mean over {len(times) - 2} steps (min "
+        f"{min(times[2:]) * 1e3:.1f}, max {max(times[2:]) * 1e3:.1f}), "
+        f"{b / step_s:.1f} utt/s  [{card_line()}]")
+    n_real, (fn, fn_args) = next(batches)
+    prof = profile_step(fn, (tr.state, *fn_args))
+    if prof is None:
+        log("[share] training step: B1/B2 shares not measured (the profiler recorded no "
+            "device activity)")
+    else:
+        log(f"[share] one training step under torch.profiler: device busy "
+            f"{prof['device_ms']:.2f} ms of {prof['wall_ms']:.2f} ms wall (idle "
+            f"{1 - prof['device_ms'] / prof['wall_ms']:.1%}); B1 {prof['b1_ms']:.2f} ms = "
+            f"{prof['b1_ms'] / prof['device_ms']:.1%}, B2 {prof['b2_ms']:.2f} ms = "
+            f"{prof['b2_ms'] / prof['device_ms']:.1%} of device time  [{card_line()}]")
+    # two parts of the step alone, host clock: the CTC loss (Python loops
+    # over the frames) and the optimizer (clip + fused AdamW)
+    from privacy_preserve_federated_asr_tpu_torch.ops.ctc import ctc_loss
+
+    g = torch.Generator("cuda").manual_seed(5)
+    lp = torch.randn((b, 249, 32), generator=g, device="cuda").log_softmax(-1)
+    lp.requires_grad_()
+    lab = torch.randint(1, 32, (b, 32), generator=g, device="cuda")
+    ll = torch.full((b,), 30, device="cuda")
+    fl = torch.full((b,), 249, device="cuda")
+    ctc_ms = wall_ms(lambda: ctc_loss(lp, lab, fl, ll).backward(), 5)
+    opt_ms = wall_ms(tr.state.tx.step, 5)
+    log(f"[train] parts of a step alone (host clock): CTC loss forward + backward "
+        f"{ctc_ms:.1f} ms, clip + fused AdamW {opt_ms:.1f} ms, so the encoder and heads "
+        f"forward + backward take about {step_s * 1e3 - ctc_ms - opt_ms:.1f} ms  "
+        f"[{card_line()}]")
+    del tr, init, final
+    torch.cuda.empty_cache()
+    return {"b1": b1, "b2": b2, "step_s": step_s}
+
+
+# ---------------------------------------------------------------------------
+# 7. one training step, card against CPU
+# ---------------------------------------------------------------------------
+
+def train_step_vs_cpu() -> None:
+    from privacy_preserve_federated_asr_tpu_torch.data.audio import normalize_input_values
+    from privacy_preserve_federated_asr_tpu_torch.data.tokenizer import CTCCharTokenizer
+    from privacy_preserve_federated_asr_tpu_torch.models import (
+        BackboneConfig, DACSConfig, DACSModel, init_dacs_state_dict)
+    from privacy_preserve_federated_asr_tpu_torch.train import (
+        FeatureBatch, create_train_state, frontend_forward_fn, make_feature_train_step,
+        make_optimizer)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lr, n_steps = 1e-4, 2
+    cfg = DACSConfig(backbone=BackboneConfig.data2vec_audio_large().replace(
+        num_hidden_layers=4, hidden_dropout=0.0, activation_dropout=0.0,
+        feat_proj_dropout=0.0, attention_dropout=TRAIN_RATE), stage=0)
+    sd = init_dacs_state_dict(cfg, torch.Generator("cpu").manual_seed(2))
+    x = np.zeros((2, 80000), np.float32)
+    x[0] = normalize_input_values(_utterance(5.0, 11))
+    x[1, :67200] = normalize_input_values(_utterance(4.2, 12))
+    il = np.array([80000, 67200], np.int32)
+    tok = CTCCharTokenizer()
+    ids = [tok.encode(s) for s in SENTENCES[:2]]
+    labels = np.full((2, 32), -100, np.int64)
+    for i, s in enumerate(ids):
+        labels[i, : len(s)] = s
+    host = dict(labels=labels, label_lengths=np.array([len(s) for s in ids]),
+                dementia_labels=np.array([1, 0]), sample_mask=np.ones(2, np.float32))
+
+    def run(dev, feats, fl):
+        with torch.device("meta"):
+            model = DACSModel(cfg, torch.float32)
+        model = model.to_empty(device=dev)
+        model.load_state_dict(sd)
+        state = create_train_state(model, make_optimizer(model, 0, learning_rate=lr), 3)
+        batch = FeatureBatch(feats.to(dev), fl.to(dev),
+                             **{k: torch.from_numpy(v).to(dev) for k, v in host.items()})
+        step = make_feature_train_step(cfg)
+        metrics = [{k: float(v) for k, v in step(state, batch).items()}
+                   for _ in range(n_steps)]
+        return metrics, {k: v.cpu() for k, v in model.state_dict().items()}
+
+    # the frozen frontend (the stage-0 cache) on each device, compared
+    # alone; the steps under test then take the same (CPU) features
+    feats, fl = {}, {}
+    for dev in ("cuda", "cpu"):
+        with torch.device("meta"):
+            fe = DACSModel(cfg, torch.float32)
+        fe = fe.to_empty(device=dev)
+        fe.load_state_dict(sd)
+        feats[dev], fl[dev] = (t.cpu() for t in frontend_forward_fn(fe)(
+            torch.from_numpy(x).to(dev), torch.from_numpy(il).to(dev)))
+    fe_err = ((feats["cuda"] - feats["cpu"]).abs().max() / feats["cpu"].abs().max()).item()
+    assert torch.equal(fl["cuda"], fl["cpu"]) and fe_err <= 1e-4, fe_err
+    m_gpu, p_gpu = run("cuda", feats["cpu"], fl["cpu"])
+    m_cpu, p_cpu = run("cpu", feats["cpu"], fl["cpu"])
+    m_own, _ = run("cuda", feats["cuda"], fl["cuda"])
+    log(f"[train-e2e] frontend card vs CPU max|err|/max|ref| {fe_err:.2e}; per step "
+        f"(loss, grad norm) card {[(m['loss'], m['grad_norm']) for m in m_gpu]}, CPU "
+        f"{[(m['loss'], m['grad_norm']) for m in m_cpu]}, card on its own frontend "
+        f"{[(m['loss'], m['grad_norm']) for m in m_own]}")
+    # loss rtol 1e-4; grad norm rtol 1e-3: the CTC posterior of this
+    # near-uniform random model moves by ~1e-4 with the exp/log of another
+    # library (tests/test_torch_losses.py::test_ctc_long_sequence_matches_jax)
+    for a, c in zip(m_gpu, m_cpu):
+        for k, rtol in (("loss", 1e-4), ("grad_norm", 1e-3)):
+            assert abs(a[k] - c[k]) <= rtol * abs(c[k]), (k, a[k], c[k])
+    # Adam divides by |g|, so an element whose gradient is at rounding level
+    # moves by up to lr on either device: no bound on the largest difference
+    # can fail (every element moves at most about lr per step). What holds a
+    # wrong gradient to account is the share of elements further apart than
+    # 1e-2 lr: at most 0.5%.
+    worst, off = 0.0, 0
+    for k, c in p_cpu.items():
+        assert torch.isfinite(p_gpu[k]).all(), k
+        diff = (p_gpu[k] - c).abs()
+        worst = max(worst, diff.max().item())
+        off += int((diff > 1e-2 * lr).sum())
+    frac = off / sum(v.numel() for v in p_cpu.values())
+    assert frac <= 5e-3, frac
+    log(f"[train-e2e] 4-layer fp32 stage 0, attention dropout {TRAIN_RATE}, {n_steps} "
+        f"AdamW steps at lr {lr}: card vs CPU loss {m_gpu[-1]['loss']:.4f} / "
+        f"{m_cpu[-1]['loss']:.4f}, grad norm {m_gpu[-1]['grad_norm']:.4f} / "
+        f"{m_cpu[-1]['grad_norm']:.4f} (rtol 1e-4, 1e-3); params max|diff| {worst:.2e}, "
+        f"{frac:.2e} of elements beyond 1e-2 lr (limit 5e-3)")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -407,19 +811,36 @@ def main() -> None:
 
     header()
     kern = check_kernel()
+    bwd = check_bwd_kernel()
     serving = serve_full_width()
     end_to_end_vs_cpu()
+    training = train_full_width()
+    train_step_vs_cpu()
     t = kern["times"][(TS[-1], "bfloat16")]
+    tb = bwd["times"][(*BWD_SHAPES[0], "bfloat16")]
     line = {"kernels": [{
         "name": "flash_fwd",
         "route": "cuda",
         "source": "privacy_preserve_federated_asr_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "privacy_preserve_federated_asr_tpu/ops/attention.py:101",
-        "launches": serving["launches"],
+        "launches": serving["launches"] + training["b1"],
         "max_abs_err": max(kern["max_abs_err"], serving["served_err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+    }, {
+        "name": "flash_bwd",
+        "route": "cuda",
+        "source": "privacy_preserve_federated_asr_tpu_torch/csrc/flash_bwd.cu",
+        "replaces": "privacy_preserve_federated_asr_tpu/ops/attention.py:142",
+        "launches": training["b2"],
+        "max_abs_err": bwd["max_abs_err"],
+        "ms": tb["ms"], "plain_ms": tb["plain_ms"], "bound_ms": tb["bound_ms"],
+        "bound_by": tb["bound_by"], "library_ms": tb["library_ms"],
     }]}
+    log(f"[kernels] flash_fwd launches: serving {serving['launches']} + training "
+        f"{training['b1']}; times at B={B} T={TS[-1]} bf16. flash_bwd: training "
+        f"{training['b2']}; times at B={BWD_SHAPES[0][0]} T={BWD_SHAPES[0][1]} bf16 "
+        f"rate {TRAIN_RATE}")
     print(json.dumps(line))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -60,6 +60,14 @@ __device__ __forceinline__ bool keep_elem(uint32_t seed_bh, uint32_t row,
   return (fmix32((row * t_hash + col) ^ seed_bh) & 0x7FFFFFFFu) >= threshold;
 }
 
+// The LSE the backward reads. A row whose keys are all masked ends with
+// m = kMaskFill and l = T (every key's score replaced by the fill); its
+// m + log(l) would round to kMaskFill in fp32 and lose log(T), so such a row
+// saves exactly kMaskFill, which flash_bwd.cu reads as B1's weights 1/T.
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return m == kMaskFill ? kMaskFill : m + logf(fmaxf(l, 1e-30f));
+}
+
 // ---------------------------------------------------------------------------
 // bf16: tensor cores through mma.sync
 // ---------------------------------------------------------------------------
@@ -92,7 +100,8 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v,
                       const int* __restrict__ key_mask,
-                      __nv_bfloat16* __restrict__ o, int T, int H,
+                      __nv_bfloat16* __restrict__ o,
+                      float* __restrict__ lse, int T, int H,
                       Strides qs, Strides ks, Strides vs, float scale,
                       uint32_t seed, uint32_t t_hash, uint32_t threshold,
                       float inv_keep) {
@@ -244,6 +253,8 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     lr += __shfl_xor_sync(0xffffffffu, lr, 1);
     lr += __shfl_xor_sync(0xffffffffu, lr, 2);
     f[r] = inv_keep / fmaxf(lr, 1e-30f);
+    if (lse != nullptr && t4 == 0 && (int)rows[r] < T)
+      lse[(long long)bh * T + rows[r]] = row_lse(m[r], lr);
   }
   const long long ost = (long long)H * kD;
 #pragma unroll
@@ -270,8 +281,8 @@ __global__ void __launch_bounds__(kBQ32)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const int* __restrict__ key_mask, float* __restrict__ o,
-                     int T, int H, Strides qs, Strides ks, Strides vs,
-                     float scale, uint32_t seed, uint32_t t_hash,
+                     float* __restrict__ lse, int T, int H, Strides qs,
+                     Strides ks, Strides vs, float scale, uint32_t seed, uint32_t t_hash,
                      uint32_t threshold, float inv_keep) {
   __shared__ float Qs[kBQ32][kD + 1];
   __shared__ float Ks[kBK32][kD];
@@ -349,6 +360,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   if ((int)row < T) {
     const float f = inv_keep / fmaxf(l, 1e-30f);
+    if (lse != nullptr) lse[(long long)bh * T + row] = row_lse(m, l);
     float* orow = o + ((long long)b * T + row) * ((long long)H * kD) + (long long)h * kD;
 #pragma unroll
     for (int d = 0; d < kD; ++d) orow[d] = acc[d] * f;
@@ -358,14 +370,18 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }  // namespace
 
 // Plain C entry point (bound with ctypes). dtype: 0 = float32, 1 = bfloat16.
-// Launches on `stream`, does not synchronise, and returns cudaGetLastError().
+// `lse` is null (serving) or an fp32 [B, H, T] buffer that receives each
+// row's log-sum-exp m + log(l) of the scaled, mask-replaced scores, which
+// the backward (flash_bwd.cu) reads. Launches on `stream`, does not
+// synchronise, and returns cudaGetLastError().
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const void* key_mask, void* o, int dtype, int B,
                          int T, int H, int D, long long qsb, long long qst,
                          long long qsh, long long ksb, long long kst,
                          long long ksh, long long vsb, long long vst,
                          long long vsh, float scale, int seed, int t_hash,
-                         unsigned int threshold, float inv_keep, void* stream) {
+                         unsigned int threshold, float inv_keep, void* lse,
+                         void* stream) {
   if (D != kD || B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   const Strides qs{qsb, qst, qsh}, ks{ksb, kst, ksh}, vs{vsb, vst, vsh};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
@@ -374,15 +390,15 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
     flash_fwd_bf16_kernel<<<grid, 128, 0, st>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(key_mask),
-        static_cast<__nv_bfloat16*>(o), T, H, qs, ks, vs, scale, (uint32_t)seed,
-        (uint32_t)t_hash, threshold, inv_keep);
+        static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), T, H, qs, ks,
+        vs, scale, (uint32_t)seed, (uint32_t)t_hash, threshold, inv_keep);
   } else if (dtype == 0) {
     const dim3 grid((T + kBQ32 - 1) / kBQ32, B * H);
     flash_fwd_f32_kernel<<<grid, kBQ32, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const int*>(key_mask),
-        static_cast<float*>(o), T, H, qs, ks, vs, scale, (uint32_t)seed,
-        (uint32_t)t_hash, threshold, inv_keep);
+        static_cast<float*>(o), static_cast<float*>(lse), T, H, qs, ks, vs,
+        scale, (uint32_t)seed, (uint32_t)t_hash, threshold, inv_keep);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -11,12 +11,14 @@ unispeech-sat SSL encoder family; the structural switches are:
   * ``do_stable_layer_norm``: pre-norm (wav2vec2/hubert large) vs post-norm
     (data2vec, base checkpoints) transformer blocks.
 
-The fields are the subset of the JAX package's that inference reads, with
-the same names, defaults and presets, so a configuration (or a golden
-fixture's metadata) means the same model in both packages. The JAX fields
-left out are training-only (dropouts, SpecAugment, the CTC and DACS
-objectives) or belong to modules not ported yet (SEW-D, int8 matmuls, the
-N-best lm heads); each later slice adds the fields it runs.
+The fields are the subset of the JAX package's that serving and training
+read, with the same names, defaults and presets, so a configuration (or a
+golden fixture's metadata) means the same model in both packages. The JAX
+fields left out belong to paths the port does not run (``attention_impl``
+and ``dense_impl``: the port always takes its kernel on the card and fp
+matmuls; ``layerdrop``, unused under jit in JAX too; SEW-D; the N-best lm
+heads ``num_lms``; the FSM thresholds); each later slice adds the fields it
+runs.
 """
 
 from __future__ import annotations
@@ -53,9 +55,24 @@ class BackboneConfig:
 
     do_stable_layer_norm: bool = False
 
-    # CTC head
+    # SpecAugment (the reference trains with mask_time_prob=0)
+    mask_time_prob: float = 0.0
+    mask_time_length: int = 10
+    mask_feature_prob: float = 0.0
+    mask_feature_length: int = 10
+
+    # dropouts (live only in training mode: ``model.train()``)
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
+    activation_dropout: float = 0.1
+    feat_proj_dropout: float = 0.0
+    final_dropout: float = 0.0
+
+    # CTC head / loss
     vocab_size: int = 32
     pad_token_id: int = 0
+    ctc_loss_reduction: str = "sum"
+    ctc_zero_infinity: bool = True
 
     def replace(self, **kw) -> "BackboneConfig":
         return dataclasses.replace(self, **kw)
@@ -122,9 +139,18 @@ class DACSConfig:
     # port; single_toggle | fsm wait for their slice (models/recipes.py)
     method: str = "dacs"
     stage: int = 2               # 0 = ASR fine-tune, 1 = AD head, 2 = toggling net
+    lambda_grl: float = 0.5      # GRL strength (args.LAMBDA)
     gs_tau: float = 1.0          # gumbel-softmax temperature
     toggle_ratio: float = 0.0    # mask-propensity rescale knob
+    ad_loss: str = "cel"         # cel | recall | prec | f1 | recall_ori | prec_ori
+    w_loss: tuple[float, float] = (0.1, 0.9)  # HC / AD class weights
+    am_loss_type: str = "cosface"
     num_ad_classes: int = 2
+    # method="grl": gradient-reversed AD CE (reference --GRL flag, off there too)
+    grl_reverse: bool = False
+    # False reproduces the reference quirk: AD logits mean-pooled over *all*
+    # timesteps, padding included (batch size 1 there)
+    pool_valid_frames_only: bool = True
 
     @property
     def hidden_size(self) -> int:

@@ -1,5 +1,7 @@
 """Weights into the port's modules: from the JAX package's flax params, from
-HF / ForCTC torch state dicts, or a seeded random init.
+HF / ForCTC torch state dicts, or a seeded random init; and back from the
+port's state dict to a flax params tree (``flax_from_state_dict``), so a
+test can hold updated params against the JAX package's.
 
 The port's modules keep HF attribute names, so:
   * flax Dense ``kernel`` -> ``weight = kernel.T``,
@@ -61,12 +63,10 @@ def state_dict_from_flax(params: Mapping[str, Any],
                          cfg: BackboneConfig | DACSConfig) -> dict[str, torch.Tensor]:
     """Flax params (nested dict of arrays) -> the port's state dict.
     ``layers_{i}`` / ``conv_layers_{i}`` become ``layers.{i}`` /
-    ``conv_layers.{i}``; SpecAugment's ``masked_spec_embed`` (training only)
-    is dropped."""
+    ``conv_layers.{i}``; SpecAugment's ``masked_spec_embed`` (present when
+    ``mask_time_prob > 0``) keeps its name."""
     sd = {}
     for path, value in _flatten(params):
-        if path[-1] == "masked_spec_embed":
-            continue
         mods = [re.sub(r"^(conv_layers|layers)_(\d+)$", r"\1.\2", p) for p in path[:-1]]
         leaf = path[-1]
         w = np.asarray(value, dtype=np.float32)
@@ -82,6 +82,35 @@ def state_dict_from_flax(params: Mapping[str, Any],
                        f"{sorted(want - set(sd))[:5]}, unexpected "
                        f"{sorted(set(sd) - want)[:5]}")
     return sd
+
+
+def flax_from_state_dict(sd: Mapping[str, torch.Tensor]) -> dict:
+    """The port's state dict -> a flax params tree of numpy arrays (the
+    inverse of :func:`state_dict_from_flax`): 2-D weights become Dense
+    ``kernel`` (transposed), 3-D conv weights ``kernel [k, in/g, out]``, 1-D
+    ``weight`` (LayerNorm / GroupNorm) ``scale``."""
+    tree: dict = {}
+    for key, value in sd.items():
+        *mods, leaf = key.split(".")
+        w = value.detach().to("cpu", torch.float32).numpy()
+        if leaf == "weight":
+            if w.ndim == 2:
+                w, leaf = w.T, "kernel"
+            elif w.ndim == 3:
+                w, leaf = w.transpose(2, 1, 0), "kernel"
+            else:
+                leaf = "scale"
+        names = []
+        for m in mods:
+            if m.isdigit():
+                names[-1] = f"{names[-1]}_{m}"
+            else:
+                names.append(m)
+        node = tree
+        for m in names:
+            node = node.setdefault(m, {})
+        node[leaf] = np.ascontiguousarray(w)
+    return tree
 
 
 # ---------------------------------------------------------------------------
@@ -144,7 +173,8 @@ def init_dacs_state_dict(cfg: DACSConfig,
                          generator: torch.Generator) -> dict[str, torch.Tensor]:
     """Seeded random DACSModel weights in fp32 on ``generator.device``:
     normal(0, 1/sqrt(fan_in)) matmul and conv weights (flax's lecun scale),
-    zero biases, unit norm scales."""
+    zero biases, unit norm scales, and ``masked_spec_embed`` uniform in
+    [0, 1) as flax initialises it."""
     with torch.device("meta"):
         shapes = {k: v.shape for k, v in DACSModel(cfg).state_dict().items()}
     dev = generator.device
@@ -152,6 +182,8 @@ def init_dacs_state_dict(cfg: DACSConfig,
     for name, shape in shapes.items():
         if name.endswith("bias"):
             sd[name] = torch.zeros(shape, device=dev)
+        elif name.endswith("masked_spec_embed"):
+            sd[name] = torch.rand(shape, device=dev, generator=generator)
         elif len(shape) == 1:
             sd[name] = torch.ones(shape, device=dev)
         else:

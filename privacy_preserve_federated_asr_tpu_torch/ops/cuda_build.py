@@ -6,6 +6,7 @@ under the repository root, and loaded with ``ctypes``. The hash is of the
 source, so an edited kernel is rebuilt and a stale library is never loaded.
 The build happens at first use, from the repository's sources only; a
 missing ``nvcc`` or a failed build raises (there is no fallback).
+The first load builds every source at once, one ``nvcc`` process each.
 
 Nothing here runs at import: the CPU tests import every module.
 """
@@ -45,28 +46,40 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def _build(name: str, out: Path) -> None:
+SOURCES = ("flash_fwd", "flash_bwd")  # every csrc/*.cu of the port
+
+
+def _build(names) -> None:
+    """Compile ``csrc/<name>.cu`` for each name, all nvcc processes at once."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-        capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"CUDA kernel build failed: nvcc exited "
-                           f"{proc.returncode} on {name}.cu\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-    build_logs[name] = (proc.stdout + proc.stderr).strip()
+    jobs = []
+    for name in names:
+        out = library_path(name)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, out, tmp, proc))
+    failed = []
+    for name, out, tmp, proc in jobs:
+        log = proc.communicate()[0].strip()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc exited {proc.returncode} on {name}.cu\n{log}")
+            continue
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+        build_logs[name] = log
+    if failed:
+        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library for ``csrc/<name>.cu``. The first call builds
+    every source not built yet, one nvcc process each, all at once."""
     with _lock:
-        lib = _libs.get(name)
-        if lib is None:
-            path = library_path(name)
-            if not path.exists():
-                _build(name, path)
-            lib = ctypes.CDLL(str(path))
-            _libs[name] = lib
-        return lib
+        if name not in _libs:
+            missing = [n for n in SOURCES if not library_path(n).exists()]
+            if missing:
+                _build(missing)
+            _libs[name] = ctypes.CDLL(str(library_path(name)))
+        return _libs[name]

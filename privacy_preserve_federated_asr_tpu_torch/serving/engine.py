@@ -70,13 +70,13 @@ class InferenceResult:
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
-    """The engine's device; a CUDA device without a GPU raises (the engine
-    never carries on quietly on the CPU)."""
+    """An entry point's device; a CUDA device without a GPU raises (the
+    port never carries on quietly on the CPU)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("InferenceEngine runs on cuda by default and no "
-                           "CUDA device is available; pass device='cpu' to "
-                           "run on the CPU")
+        raise RuntimeError("the port runs on cuda by default and no CUDA "
+                           "device is available; pass device='cpu' to run on "
+                           "the CPU")
     return device
 
 

@@ -1,0 +1,179 @@
+"""Train and eval steps (the port's ``train/steps.py``).
+
+Each ``make_*`` returns a step function over a :class:`DACSTrainState` (the
+JAX steps are pure functions of (state, batch); here the state is updated in
+place) that returns the JAX step's metrics dict, ``grad_norm`` included, as
+device scalars: nothing in a step waits for the card.
+
+Stage routing is the recipe's: the loss, the trainable parameters (set on
+the model by ``make_optimizer``) and the modes, ``model.train()`` with the
+backbone in ``eval()`` where the recipe freezes it (dropout off, the
+reference's ``.eval()`` on frozen modules).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+from ..data.collate import Batch
+from ..models.backbone import feat_extract_output_lengths
+from ..models.config import DACSConfig
+from ..models.dacs import DACSModel
+from ..models.recipes import Recipe, get_recipe
+from ..ops.decode import ad_vote, greedy_ids
+from .train_state import DACSTrainState
+
+
+@dataclass
+class DeviceBatch:
+    """Tensor view of a host :class:`Batch` on the device."""
+
+    input_values: torch.Tensor
+    input_lengths: torch.Tensor
+    labels: torch.Tensor
+    label_lengths: torch.Tensor
+    dementia_labels: torch.Tensor
+    sample_mask: torch.Tensor
+
+    @classmethod
+    def from_host(cls, b: Batch, device) -> "DeviceBatch":
+        def dev(x):
+            return torch.from_numpy(x).to(device, non_blocking=True)
+
+        return cls(dev(b.input_values), dev(b.input_lengths), dev(b.labels),
+                   dev(b.label_lengths), dev(b.dementia_labels), dev(b.sample_mask))
+
+
+@dataclass
+class FeatureBatch:
+    """A batch of CACHED conv-frontend outputs for stage-0 training."""
+
+    features: torch.Tensor         # [B, T', C_conv] FeatureEncoder output
+    frame_lengths: torch.Tensor    # [B]
+    labels: torch.Tensor           # [B, L]
+    label_lengths: torch.Tensor    # [B]
+    dementia_labels: torch.Tensor  # [B]
+    sample_mask: torch.Tensor      # [B]
+
+
+def set_train_modes(model: DACSModel, recipe: Recipe, stage: int) -> None:
+    model.train()
+    if not recipe.backbone_trains(stage):
+        model.backbone.eval()
+
+
+def _apply_update(state: DACSTrainState, loss: torch.Tensor, metrics: dict) -> dict:
+    loss.backward()
+    grad_norm = state.tx.step()
+    state.step += 1
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    metrics["grad_norm"] = grad_norm
+    return metrics
+
+
+def make_train_step(cfg: DACSConfig, aux_metrics: bool = False,
+                    recipe: Recipe | None = None
+                    ) -> Callable[[DACSTrainState, DeviceBatch], dict]:
+    """The full-forward train step (waveforms in), for every recipe/stage."""
+    recipe = recipe or get_recipe(cfg.method)
+    need_masks = aux_metrics or recipe.uses_masks(cfg.stage)
+
+    def train_step(state: DACSTrainState, batch: DeviceBatch) -> dict:
+        model = state.model
+        set_train_modes(model, recipe, cfg.stage)
+        out = model(batch.input_values, batch.input_lengths, generator=state.gumbel,
+                    seed_generator=state.seeds, need_masks=need_masks)
+        loss, metrics = recipe.loss(out, batch.labels, batch.label_lengths,
+                                    batch.dementia_labels, cfg, model,
+                                    batch.sample_mask, aux_metrics)
+        return _apply_update(state, loss, metrics)
+
+    return train_step
+
+
+def frontend_forward_fn(model: DACSModel):
+    """Conv-frontend-only forward -> (features [B, T', C], frame_lengths):
+    the stage-0 cache-building primitive."""
+    bcfg = model.cfg.backbone
+
+    @torch.no_grad()
+    def fwd(input_values: torch.Tensor, input_lengths: torch.Tensor):
+        fl = feat_extract_output_lengths(bcfg, input_lengths)
+        return model.backbone.feature_extractor(input_values), fl
+
+    return fwd
+
+
+def gather_features(feats, fl, labels, label_lengths, dementia_labels,
+                    idx: torch.Tensor) -> FeatureBatch:
+    """Row-gather a FeatureBatch from cached conv-frontend outputs; idx == -1
+    marks batch-padding rows (frame and label lengths 0, labels -100,
+    sample mask 0), as the JAX ``gather_hidden``."""
+    safe = idx.clamp(0, feats.shape[0] - 1)
+    mask = idx >= 0
+    return FeatureBatch(
+        features=feats[safe],
+        frame_lengths=torch.where(mask, fl[safe], torch.zeros_like(fl[safe])),
+        labels=torch.where(mask[:, None], labels[safe], torch.full_like(labels[safe], -100)),
+        label_lengths=torch.where(mask, label_lengths[safe],
+                                  torch.zeros_like(label_lengths[safe])),
+        dementia_labels=torch.where(mask, dementia_labels[safe],
+                                    torch.zeros_like(dementia_labels[safe])),
+        sample_mask=mask.float())
+
+
+def make_feature_train_step(cfg: DACSConfig, aux_metrics: bool = False,
+                            recipe: Recipe | None = None
+                            ) -> Callable[[DACSTrainState, FeatureBatch], dict]:
+    """Stage-0 train step over cached conv-frontend outputs
+    (``DACSModel.apply_from_features``). Everything stochastic (feat-proj
+    dropout, SpecAugment, encoder dropouts, final dropout, Gumbel) sits
+    after the cache point and stays live."""
+    recipe = recipe or get_recipe(cfg.method)
+    need_masks = aux_metrics or recipe.uses_masks(cfg.stage)
+
+    def train_step(state: DACSTrainState, batch: FeatureBatch) -> dict:
+        model = state.model
+        set_train_modes(model, recipe, cfg.stage)
+        t = batch.features.shape[1]
+        frame_mask = (torch.arange(t, device=batch.features.device)[None, :]
+                      < batch.frame_lengths[:, None]).to(torch.int32)
+        out = model.apply_from_features(batch.features, frame_mask, batch.frame_lengths,
+                                        generator=state.gumbel,
+                                        seed_generator=state.seeds,
+                                        need_masks=need_masks)
+        loss, metrics = recipe.loss(out, batch.labels, batch.label_lengths,
+                                    batch.dementia_labels, cfg, model,
+                                    batch.sample_mask, aux_metrics)
+        return _apply_update(state, loss, metrics)
+
+    return train_step
+
+
+def _eval_from_outputs(out, model, batch, cfg: DACSConfig, recipe: Recipe | None = None):
+    recipe = recipe or get_recipe(cfg.method)
+    loss, _ = recipe.loss(out, batch.labels, batch.label_lengths, batch.dementia_labels,
+                          cfg, model, batch.sample_mask, True)
+    ctc_logits, ad_logits = recipe.eval_streams(out, cfg)
+    pred_ids = greedy_ids(ctc_logits, out.frame_mask, cfg.backbone.pad_token_id)
+    ad_pred = ad_vote(ad_logits, out.frame_mask)
+    return loss, pred_ids, ad_pred
+
+
+def make_eval_step(cfg: DACSConfig, recipe: Recipe | None = None):
+    """Deterministic forward + full metrics: ``eval_step(model, batch) ->
+    (loss, pred_ids, ad_pred)``; the Gumbel noise comes from a generator
+    reseeded with 0 per batch, as the JAX step's fixed ``PRNGKey(0)``."""
+    recipe = recipe or get_recipe(cfg.method)
+
+    @torch.no_grad()
+    def eval_step(model: DACSModel, batch: DeviceBatch):
+        model.eval()
+        gen = torch.Generator(batch.input_values.device).manual_seed(0)
+        out = model(batch.input_values, batch.input_lengths, generator=gen)
+        return _eval_from_outputs(out, model, batch, cfg, recipe)
+
+    return eval_step

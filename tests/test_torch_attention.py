@@ -98,8 +98,74 @@ def test_all_masked_row_is_finite():
                                rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
-def test_cuda_kernel_matches_ref(dtype, tol):
+def _pallas_grads(q, k, v, mask, g, rate, seed, t_pad=128, block=64):
+    """dq, dk, dv of the JAX ``_flash_attention`` (TPU kernels B1/B2 in
+    interpret mode) at T padded to ``t_pad``, cut back to T."""
+    import jax
+    import jax.numpy as jnp
+    from privacy_preserve_federated_asr_tpu.ops.attention import _flash_attention
+
+    t = q.shape[1]
+    pad = ((0, 0), (0, t_pad - t), (0, 0), (0, 0))
+    qp, kp, vp, gp = (jnp.asarray(np.pad(x, pad)) for x in (q, k, v, g))
+    mp = jnp.asarray(np.pad(mask, ((0, 0), (0, t_pad - t))))
+    seed_arr = jnp.full((1, 1), seed, jnp.int32)
+    _, vjp = jax.vjp(lambda a, b, c: _flash_attention(a, b, c, mp, seed_arr, block, rate),
+                     qp, kp, vp)
+    return [np.asarray(x)[:, :t] for x in vjp(gp)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_bwd_ref_matches_pallas_grads(rate):
+    """The plain B2 against jax.vjp through the TPU kernels (interpret mode)
+    at T=100 (T_pad 128, block 64) with an explicit seed: the keep mask of
+    the backward regenerates the forward's bit for bit. The cotangent is
+    zeroed on padded query rows (their outputs are undefined)."""
+    q, k, v, mask = _inputs(100, seed=5)
+    g = np.random.default_rng(6).normal(0, 1, q.shape).astype(np.float32)
+    g *= mask[:, :, None, None]
+    seed = -123456789
+    want = _pallas_grads(q, k, v, mask, g, rate, seed)
+    qt, kt, vt, mt, gt = _torch(q, k, v, mask, g)
+    o = port.attention_ref(qt, kt, vt, mt, rate, seed, t_hash=128)
+    got = port.attention_bwd_ref(qt, kt, vt, mt, o, gt, rate, seed, t_hash=128)
+    for name, a, b in zip("qkv", got, want):
+        np.testing.assert_allclose(a.numpy(), b, rtol=1e-4, atol=2e-5, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_autograd_function_matches_bwd_ref(rate):
+    """multihead_attention with grads on CPU tensors goes through
+    FlashAttention, whose backward is attention_bwd_ref; on rows with a key
+    that equals torch autograd through attention_ref (fp32, atol 1e-5)."""
+    q, k, v, mask = _inputs(40, seed=7)
+    mask[1, 30:] = 0
+    g = np.random.default_rng(8).normal(0, 1, q.shape).astype(np.float32)
+    g *= mask[:, :, None, None]
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    mt, gt = _torch(mask, g)
+    out = port.multihead_attention(*leaves, mt, rate, 77, 64)
+    out.backward(gt)
+    o = port.attention_ref(*_torch(q, k, v), mt, rate, 77, 64)
+    np.testing.assert_array_equal(out.detach().numpy(), o.numpy())
+    want = port.attention_bwd_ref(*_torch(q, k, v), mt, o, gt, rate, 77, 64)
+    for leaf, w in zip(leaves, want):
+        np.testing.assert_array_equal(leaf.grad.numpy(), w.numpy())
+    auto = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    port.attention_ref(*auto, mt, rate, 77, 64).backward(gt)
+    for leaf, a in zip(leaves, auto):
+        np.testing.assert_allclose(leaf.grad.numpy(), a.grad.numpy(), atol=1e-5)
+
+
+# bf16: about two bf16 ulps of the output (rtol) over a small floor, as
+# chip_smoke.py holds the kernel at the serving shapes
+CUDA_TOL = {"float32": dict(rtol=0.0, atol=1e-4),
+            "bfloat16": dict(rtol=1.6e-2, atol=4e-3)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernel_matches_ref(dtype):
     """Runs on a card only (the kernel has no CPU mode)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: kernel B1 runs only on the card")
@@ -116,4 +182,38 @@ def test_cuda_kernel_matches_ref(dtype, tol):
         ref = port.attention_ref(q, k, v, mask, rate, 99, 192).float()
         torch.cuda.synchronize()
         valid = mask.bool()
-        torch.testing.assert_close(got[valid], ref[valid], rtol=tol, atol=tol)
+        torch.testing.assert_close(got[valid], ref[valid], **CUDA_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_bwd_kernel_matches_ref(dtype):
+    """Kernel B2 against attention_bwd_ref; runs on a card only. fp32 atol
+    1e-4 (sums in another order); bf16 gradients are compared relative to
+    their largest magnitude (2e-2: bf16 operands of the five products).
+    Row 2 has every key masked; the cotangent is once zeroed on the padded
+    query rows (as in training) and once left whole, so the all-masked
+    row's 1/T weights reach the gradients."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: kernel B2 runs only on the card")
+    rng = np.random.default_rng(9)
+    b, t, h, d = 3, 150, 4, 64
+    dt = getattr(torch, dtype)
+    q, k, v, g = (torch.from_numpy(rng.normal(0, 1, (b, t, h, d)).astype(np.float32))
+                  .to("cuda", dt) for _ in range(4))
+    lengths = torch.tensor([t, 70, 0], device="cuda")
+    mask = (torch.arange(t, device="cuda")[None] < lengths[:, None]).to(torch.int32)
+    for cot in (g * mask[:, :, None, None].to(dt), g):
+        for rate in (0.0, 0.1):
+            o, lse = port.flash_attention_fwd(q, k, v, mask, rate, 5, 256, return_lse=True)
+            n0 = port.flash_attention_bwd.launches
+            got = port.flash_attention_bwd(q, k, v, mask, o, cot, lse, rate, 5, 256)
+            assert port.flash_attention_bwd.launches == n0 + 1
+            want = port.attention_bwd_ref(q, k, v, mask, o, cot, rate, 5, 256)
+            torch.cuda.synchronize()
+            for a, w in zip(got, want):
+                a, w = a.float(), w.float()
+                if dtype == "float32":
+                    torch.testing.assert_close(a, w, rtol=0.0, atol=1e-4)
+                else:
+                    assert (a - w).abs().max() <= 2e-2 * w.abs().max()
