@@ -20,60 +20,58 @@
 // queries past T are excluded inside the kernels (no padding to a block).
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): the minimal work
-// is 10*B*H*T^2*D FLOPs (S, dP, dV, dQ, dK, two of them counted twice in
-// the FA2 split below) against reading q, k, v, o, dO and writing dq, dk,
-// dv. At the training shape (B=16, H=16, T=249) that is 1.0e10 FLOP against
-// 65 MB: bytes bound it at about 20 us. At B=8, T=1499 it is 1.8e11 FLOP
-// against 196 MB: operations bound it at about 186 us.
+// is 10*B*H*T^2*D FLOPs (the five products S, dP, dV, dK, dQ) against
+// reading q, k, v, o, dO and writing dq, dk, dv. At the training shape
+// (B=16, H=16, T=249) that is 1.0e10 FLOP against 65 MB: bytes bound it at
+// about 20 us. At B=8, T=1499 it is 1.8e11 FLOP against 196 MB: operations
+// bound it at about 186 us. The first design reached ~10% of that: it
+// split the work FA2's way into a dK/dV kernel and a dQ kernel that both
+// recomputed S and dP (14 instead of 10 units of FLOPs), staged every tile
+// synchronously and transposed q, dO and K through 2-byte shared stores.
 //
-// Design, a simple first one (FA2's split, no atomics, so the gradients are
-// deterministic):
-//   1. flash_bwd_delta: delta = rowsum(dO * O), one warp per row;
-//   2. flash_bwd_dkdv: one block of 4 warps per (64-key tile, b*h); each warp
-//      owns 16 keys and loops over 64-query tiles, computing S^T and dP^T on
-//      mma.sync m16n8k16 bf16 with fp32 accumulators, then dV += A^T dO and
-//      dK += dS^T q with A^T and dS^T re-packed in registers as A operands;
-//   3. flash_bwd_dq: one block per (64-query tile, b*h) looping over key
-//      tiles, recomputing S and dP and accumulating dQ += dS K.
-// S and dP are recomputed by both passes (14 instead of 10 B*H*T^2*D FLOPs).
-// Tiles are staged through shared memory synchronously (no TMA, wgmma or
-// warp specialisation). The fp32 path (tests, and the card-vs-CPU check) is
-// the same split on plain FMA, one thread per key or query row.
+// The design now (bf16), one pass, three launches:
+//   1. flash_bwd_delta: delta = rowsum(dO * O) / inv_keep, one warp per row;
+//   2. flash_bwd_bf16: one block per (128-key tile, b*h) of two compute
+//      warpgroups (64 keys each) and a third warpgroup whose first warp adds
+//      dQ to global memory; that warpgroup gives its registers to the
+//      compute warpgroups (setmaxnreg), which then hold their accumulators
+//      without spilling. The K and V tiles stay in shared memory; the block
+//      loops over 64-query tiles that a two-stage cp.async ring (q, dO, lse,
+//      delta; zero fill past T) brings in while the previous tile computes.
+//      Per tile each warpgroup runs on wgmma (m64nNk16, bf16 in, fp32
+//      accumulators):
+//        S^T = K q^T and dP^T = V dO^T, both operands in shared memory;
+//        A^T and dS^T element-wise in registers (exp2 of the saved LSE, the
+//        keep hash, dS = p (dP - delta)), inv_keep left to the end;
+//        dV += A^T dO and dK += dS^T q with A^T and dS^T re-packed as
+//        register A operands, dO and q read MN-major (transpose bit);
+//        dS^T to shared memory, then its dQ share dS K (64 queries x 32
+//        columns; dS^T and K both MN-major), handed to the writer warp
+//        through a ring of four shared buffers and named barriers.
+//      The tiles lie in the 128-byte swizzle of the wgmma descriptors
+//      (flash_common.cuh), so nothing is transposed by hand.
+//   3. Deterministic dQ: the writer adds each share to an fp32 [B*H, T, 64]
+//      sum by the TMA unit, as one bulk copy (a q tile's first adder) or
+//      bulk reduce-add (the others), waited for before a counter per (b*h,
+//      q tile) in global memory lets the next adder go (FA3's deterministic
+//      mode). The adders of a q tile follow a fixed order, so two calls on
+//      the same inputs give bit-equal dq, dk and dv. Key tile kt walks the q
+//      tiles from tile kt on, so the key tiles of one (b, h) reach a q tile
+//      at different steps and rarely wait for each other; the order is the
+//      order of those steps. flash_bwd_dq_convert then writes
+//      dq = sum * scale * inv_keep in bf16.
+// What holds it now: the products and the element-wise work (much of it the
+// keep hash at dropout 0.1) do not overlap, since both warpgroups run the
+// same phase at once (no ping-pong), and each tile pays two block barriers
+// and the dQ hand-off.
+// The fp32 path (tests, and the card-vs-CPU check) keeps the two-kernel
+// split on plain FMA, one thread per key or query row.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kD = 64;               // head dim (the only one supported)
-constexpr float kMaskFill = -1e30f;  // NEG_INF of the TPU kernel
-constexpr uint32_t kGolden = 0x9E3779B9u;
-
-struct Strides {
-  long long b, t, h;  // in elements; the D stride is 1
-};
-
-__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
-}
-
-__device__ __forceinline__ bool keep_elem(uint32_t seed_bh, uint32_t row,
-                                          uint32_t col, uint32_t t_hash,
-                                          uint32_t threshold) {
-  return (fmix32((row * t_hash + col) ^ seed_bh) & 0x7FFFFFFFu) >= threshold;
-}
-
-// scaled score after the mask replacement: code 1 valid, 0 masked, -1 past T
-__device__ __forceinline__ float replace_masked(float x, int code, float fill) {
-  return code > 0 ? x : (code == 0 ? fill : -CUDART_INF_F);
-}
+using namespace flash;
 
 // What p = exp(s' - lse) needs of one (b, h): the masked keys' score and the
 // LSE of a row < T. B1 saves exactly kMaskFill as the LSE of a row whose
@@ -88,23 +86,24 @@ struct NoKeyShift {
   __device__ NoKeyShift(const float* lse_bh, int T)
       : none(lse_bh[0] == kMaskFill), fill(none ? 0.f : kMaskFill),
         log_t(logf((float)T)) {}
-  __device__ float lse(const float* lse_bh, int row) const {
-    return none ? log_t : lse_bh[row];
-  }
+  __device__ float lse(float saved) const { return none ? log_t : saved; }
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 // ---------------------------------------------------------------------------
-// 1. delta = rowsum(dO * O), fp32 [B, H, T]
+// 1. delta = rowsum(dO * O) * f, fp32 [B, H, T]
 // ---------------------------------------------------------------------------
 
 template <typename T_>
 __global__ void __launch_bounds__(256)
 flash_bwd_delta_kernel(const T_* __restrict__ o, const T_* __restrict__ dout,
                        float* __restrict__ delta, int T, int H, long long rows,
-                       Strides os, Strides ds) {
+                       Strides os, Strides ds, float f) {
   const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
@@ -117,100 +116,89 @@ flash_bwd_delta_kernel(const T_* __restrict__ o, const T_* __restrict__ dout,
               to_f32(orow[lane + 32]) * to_f32(drow[lane + 32]);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) delta[row] = acc;
+  if (lane == 0) delta[row] = acc * f;
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores through mma.sync
+// 2. bf16: one pass, tensor cores through wgmma
 // ---------------------------------------------------------------------------
 
-constexpr int kBQ = 64;       // queries per tile
-constexpr int kBK = 64;       // keys per tile
-constexpr int kLds = kD + 8;  // smem row stride (bf16): conflict-free fragments
+constexpr int kCompute = 256;                   // 2 warpgroups compute
+constexpr int kThreads = kCompute + 128;        // + 1 warpgroup, whose first warp adds dQ
+constexpr int kHandoff = kCompute + 32;         // threads of the dQ hand-off barriers
+constexpr int kBK = 128;                        // keys per block (64 per warpgroup)
+constexpr int kBQ = 64;                         // queries per tile
+constexpr int kStages = 2;                      // q-side ring depth
+constexpr int kDqBufs = 4;                      // dQ shares in flight to the writer
+constexpr int kKeyBytes = kBK * kRowBytes;      // 16 KB
+constexpr int kQBytes = kBQ * kRowBytes;        // 8 KB
+constexpr int kSmemBytes =                      // + slack to align the tiles to 1 KB
+    1024 + 3 * kKeyBytes + kStages * (2 * kQBytes + 2 * kBQ * 4) +
+    kDqBufs * kBQ * kD * 4;
+// named barriers: the compute warps among themselves, and per dQ buffer
+// "full" (compute -> writer) and "empty" (writer -> compute)
+constexpr int kBarCompute = 1, kBarFull = 2, kBarEmpty = kBarFull + kDqBufs;
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// orders this thread's async-proxy (bulk copy) and generic accesses of
+// global memory against each other
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
-// 64 rows of a [T, D] slice (row stride `rs`) starting at row0 -> smem, rows
-// past T zero; `nat` holds it as [row][d], `tr` (if given) as [d][row].
-__device__ __forceinline__ void load_tile(const __nv_bfloat16* base, long long rs,
-                                          int row0, int T,
-                                          __nv_bfloat16 (*nat)[kLds],
-                                          __nv_bfloat16 (*tr)[kLds], int tid) {
-  for (int c = tid; c < 64 * kD / 8; c += 128) {
-    const int r = c >> 3, col = (c & 7) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < T)
-      val = *reinterpret_cast<const uint4*>(base + (long long)(row0 + r) * rs + col);
-    if (nat != nullptr) *reinterpret_cast<uint4*>(&nat[r][col]) = val;
-    if (tr != nullptr) {
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) tr[col + j][r] = e[j];
-    }
-  }
+// `bytes` of fp32 from shared to global memory by the TMA unit, stored or
+// (add) reduce-added, and waited for until the writes are done
+__device__ __forceinline__ void bulk_to_global(float* dst, const float* src, int bytes,
+                                               bool add) {
+  if (add)
+    asm volatile(
+        "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n" ::"l"(
+            dst),
+        "r"(smem_u32(src)), "r"(bytes)
+        : "memory");
+  else
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+                 "r"(smem_u32(src)), "r"(bytes)
+                 : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-// A fragments (16 rows x 64 d) of smem rows r0..r0+15
-__device__ __forceinline__ void load_a_frags(uint32_t (&a)[kD / 16][4],
-                                             __nv_bfloat16 (*s)[kLds], int r0,
-                                             int g, int t4) {
-#pragma unroll
-  for (int kc = 0; kc < kD / 16; ++kc) {
-    a[kc][0] = lds32(&s[r0 + g][kc * 16 + t4 * 2]);
-    a[kc][1] = lds32(&s[r0 + g + 8][kc * 16 + t4 * 2]);
-    a[kc][2] = lds32(&s[r0 + g][kc * 16 + 8 + t4 * 2]);
-    a[kc][3] = lds32(&s[r0 + g + 8][kc * 16 + 8 + t4 * 2]);
-  }
+// 3. dq = dq_accum * scale, [B*H, T, 64] fp32 -> [B, T, H, 64] bf16, 8 a thread
+__global__ void __launch_bounds__(256)
+flash_bwd_dq_convert_kernel(const float* __restrict__ acc, __nv_bfloat16* __restrict__ dq,
+                            int T, int H, long long n8, float scale) {
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= n8) return;
+  const long long row = i >> 3;  // (b*H + h) * T + t
+  const int c = (int)(i & 7) * 8;
+  const long long bh = row / T;
+  const int t = (int)(row - bh * T);
+  const float4 x = __ldg(reinterpret_cast<const float4*>(acc + row * kD + c));
+  const float4 y = __ldg(reinterpret_cast<const float4*>(acc + row * kD + c + 4));
+  const uint4 out = make_uint4(pack_bf16(x.x * scale, x.y * scale),
+                               pack_bf16(x.z * scale, x.w * scale),
+                               pack_bf16(y.x * scale, y.y * scale),
+                               pack_bf16(y.z * scale, y.w * scale));
+  const long long b = bh / H, h = bh - b * H;
+  *reinterpret_cast<uint4*>(dq + ((b * T + t) * H + h) * kD + c) = out;
 }
 
-// c[nt] = A (16 x 64 d) . X^T for the 64 smem rows of X, 8 per n-tile
-__device__ __forceinline__ void mma_rows(float (&c)[8][4],
-                                         const uint32_t (&a)[kD / 16][4],
-                                         __nv_bfloat16 (*x)[kLds], int g, int t4) {
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < kD / 16; ++kc)
-      mma_bf16(c[nt], a[kc], lds32(&x[nt * 8 + g][kc * 16 + t4 * 2]),
-               lds32(&x[nt * 8 + g][kc * 16 + 8 + t4 * 2]));
-  }
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
 }
 
-// acc[dn] += P (16 x 64, the accumulator tile p re-packed as A) . Y (64 x D),
-// Y given transposed in smem as yt[d][row]
-__device__ __forceinline__ void mma_acc(float (&acc)[kD / 8][4], const float (&p)[8][4],
-                                        __nv_bfloat16 (*yt)[kLds], int g, int t4) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint32_t pa[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                            pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                            pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                            pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-    for (int dn = 0; dn < kD / 8; ++dn)
-      mma_bf16(acc[dn], pa, lds32(&yt[dn * 8 + g][kk * 16 + t4 * 2]),
-               lds32(&yt[dn * 8 + g][kk * 16 + 8 + t4 * 2]));
-  }
-}
-
-// rows r (g, g+8) of a 16 x 64 accumulator tile, times f, -> bf16 rows
+// rows (g, g+8) of a 16-row accumulator tile, times f, -> bf16 rows of a
+// contiguous [B, T, H, D] output
 __device__ __forceinline__ void store_rows(__nv_bfloat16* out, const float (&acc)[kD / 8][4],
                                            const int (&rows)[2], int b, int h,
                                            int T, int H, float f, int t4) {
@@ -226,33 +214,41 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* out, const float (&acc
   }
 }
 
-__global__ void __launch_bounds__(128)
-flash_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                           const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v,
-                           const int* __restrict__ key_mask,
-                           const __nv_bfloat16* __restrict__ dout,
-                           const float* __restrict__ lse,
-                           const float* __restrict__ delta,
-                           __nv_bfloat16* __restrict__ dk,
-                           __nv_bfloat16* __restrict__ dv, int T, int H,
-                           Strides qs, Strides ks, Strides vs, Strides ds,
-                           float scale, uint32_t seed, uint32_t t_hash,
-                           uint32_t threshold, float inv_keep) {
-  __shared__ __align__(16) __nv_bfloat16 Qs[kBQ][kLds];  // q tile [query][d]
-  __shared__ __align__(16) __nv_bfloat16 Qt[kD][kLds];   // q tile [d][query]
-  __shared__ __align__(16) __nv_bfloat16 Ds[kBQ][kLds];  // dO tile [query][d]
-  __shared__ __align__(16) __nv_bfloat16 Dt[kD][kLds];   // dO tile [d][query]
-  __shared__ float lse_s[kBQ], delta_s[kBQ];
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v,
+                      const int* __restrict__ key_mask,
+                      const __nv_bfloat16* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      float* __restrict__ dq_accum, int* __restrict__ dq_sem,
+                      __nv_bfloat16* __restrict__ dk,
+                      __nv_bfloat16* __restrict__ dv, int T, int H,
+                      Strides qs, Strides ks, Strides vs, Strides ds,
+                      float scale, uint32_t seed, uint32_t t_hash,
+                      uint32_t threshold, float inv_keep) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sK = smem_u32(smem);
+  const uint32_t sV = sK + kKeyBytes;
+  const uint32_t sdS = sV + kKeyBytes;       // dS^T [key][query], bf16
+  const uint32_t sQD = sdS + kKeyBytes;      // stage s: q at + 2s tiles, dO after it
+  uint8_t* dS_ptr = smem + 2 * kKeyBytes;
+  float* lse_s = reinterpret_cast<float*>(smem + 3 * kKeyBytes + kStages * 2 * kQBytes);
+  float* delta_s = lse_s + kStages * kBQ;
+  float* dq_s = delta_s + kStages * kBQ;     // kDqBufs x [kBQ][kD] fp32
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2, wiw = warp & 3;  // warpgroup, warp in it
   const int g = lane >> 2, t4 = lane & 3;
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh - b * H;
-  const int k0 = blockIdx.x * kBK;
-  const int r0 = warp * 16;
-  const uint32_t seed_bh = fmix32(seed + (uint32_t)bh * kGolden);
+  const int kt = blockIdx.x, n_kt = gridDim.x;
+  const int k0 = kt * kBK;
+  const int n_qt = (T + kBQ - 1) / kBQ;
+  const uint32_t seed_bh = seed_of(seed, bh);
 
   const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
   const __nv_bfloat16* kb = k + b * ks.b + h * ks.h;
@@ -261,20 +257,74 @@ flash_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const float* lse_b = lse + (long long)bh * T;
   const float* delta_b = delta + (long long)bh * T;
   const NoKeyShift nk(lse_b, T);
+  // Key tile kt visits the q tiles starting at tile kt: at step `it` it
+  // works on q tile (it + kt) mod n_qt, so the key tiles of one (b, h) reach
+  // each q tile at different steps and rarely wait on each other's dQ adds.
+  auto q_tile = [&](int it) { return (it + kt) % n_qt; };
 
-  // this block's K and V tiles (staged through Qs / Ds) -> A fragments
-  load_tile(kb, ks.t, k0, T, Qs, nullptr, tid);
-  load_tile(vb, vs.t, k0, T, Ds, nullptr, tid);
-  __syncthreads();
-  uint32_t ka[kD / 16][4], va[kD / 16][4];
-  load_a_frags(ka, Qs, r0, g, t4);
-  load_a_frags(va, Ds, r0, g, t4);
+  if (warp >= kCompute / 32) {
+    // the writer's warpgroup gives its registers to the compute warpgroups
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp > kCompute / 32) return;
+    // The dQ writer: adds each q tile's share to the fp32 sum, off the
+    // compute warps' path, as one bulk copy (the first adder) or bulk
+    // reduce-add (the others) by the TMA unit. The adders of a q tile go in
+    // the order of the steps at which they reach it, a function of (q tile,
+    // key tile) alone, so the sums are the same on every call.
+    for (int it = 0; it < n_qt; ++it) {
+      const int buf = it % kDqBufs, qt = q_tile(it), q0 = qt * kBQ;
+      bar_sync(kBarFull + buf, kHandoff);
+      if (lane == 0) {
+        int rank = 0;  // key tiles that reach q tile qt before this one (at step it)
+        for (int j = 0; j < n_kt; ++j) rank += (qt - j + n_qt) % n_qt < it;
+        int* sem = dq_sem + (long long)bh * n_qt + qt;
+        if (rank > 0)
+          while (ld_acquire(sem) < rank) {
+          }
+        fence_proxy_async_global();
+        bulk_to_global(dq_accum + ((long long)bh * T + q0) * kD, dq_s + buf * kBQ * kD,
+                       min(kBQ, T - q0) * kD * 4, rank > 0);
+        if (rank < n_kt - 1) {
+          fence_proxy_async_global();
+          __threadfence();
+          atomicAdd(sem, 1);
+        }
+      }
+      __syncwarp();
+      if (it + kDqBufs < n_qt) bar_arrive(kBarEmpty + buf, kHandoff);
+    }
+    return;
+  }
 
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+
+  auto load_q = [&](int it) {
+    const int st = it % kStages, q0 = q_tile(it) * kBQ;
+    load_tile_async<kBQ, kCompute>(sQD + 2 * st * kQBytes, qb, qs.t, q0, T, tid);
+    load_tile_async<kBQ, kCompute>(sQD + (2 * st + 1) * kQBytes, db, ds.t, q0, T, tid);
+    load_vec_async<kBQ>(lse_s + st * kBQ, lse_b, q0, T, tid);
+    load_vec_async<kBQ>(delta_s + st * kBQ, delta_b, q0, T, tid - kBQ);
+    cp_async_commit();
+  };
+
+  load_tile_async<kBK, kCompute>(sK, kb, ks.t, k0, T, tid);
+  load_tile_async<kBK, kCompute>(sV, vb, vs.t, k0, T, tid);
+  load_q(0);
+
+  // this thread's keys: rows g and g+8 of its warp's 16 in the warpgroup's 64
+  const int r0 = 64 * wg + 16 * wiw;
   const int keys[2] = {k0 + r0 + g, k0 + r0 + g + 8};
-  int kcode[2];
+  const int kcode[2] = {key_code(key_mask + (long long)b * T, keys[0], T),
+                        key_code(key_mask + (long long)b * T, keys[1], T)};
+  // p of the two keys: exp2(s * scale * log2(e) - lse * log2(e)) for a valid
+  // key, 0 past T, and for a masked key exp(fill - lse): 1/T where no key of
+  // this (b, h) is valid (NoKeyShift), else 0
+  const float scale2 = scale * 1.4426950408889634f;
+  float p_masked[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r)
-    kcode[r] = keys[r] < T ? (key_mask[(long long)b * T + keys[r]] > 0 ? 1 : 0) : -1;
+  for (int r = 0; r < 2; ++r) p_masked[r] = kcode[r] == 0 && nk.none ? 1.f / (float)T : 0.f;
+  const uint64_t k_desc = gmma_desc(sK + 64 * wg * kRowBytes);  // this warpgroup's keys
+  const uint64_t v_desc = gmma_desc(sV + 64 * wg * kRowBytes);
 
   float dka[kD / 8][4], dva[kD / 8][4];
 #pragma unroll
@@ -282,128 +332,115 @@ flash_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int j = 0; j < 4; ++j) dka[i][j] = dva[i][j] = 0.f;
 
-  for (int q0 = 0; q0 < T; q0 += kBQ) {
-    __syncthreads();  // fragments taken / previous tile consumed
-    load_tile(qb, qs.t, q0, T, Qs, Qt, tid);
-    load_tile(db, ds.t, q0, T, Ds, Dt, tid);
-    if (tid < kBQ) {
-      const int qi = q0 + tid;
-      lse_s[tid] = qi < T ? nk.lse(lse_b, qi) : CUDART_INF_F;  // p = 0 past T
-      delta_s[tid] = qi < T ? delta_b[qi] : 0.f;
-    }
-    __syncthreads();
+  for (int it = 0; it < n_qt; ++it) {
+    cp_async_wait<0>();
+    fence_proxy_async();
+    bar_sync(kBarCompute, kCompute);  // tile it landed; tile it-1's stage and dS^T are free
+    if (it + 1 < n_qt) load_q(it + 1);  // in flight while tile it computes
+    const int st = it % kStages, q0 = q_tile(it) * kBQ;
+    const uint32_t sQ = sQD + 2 * st * kQBytes, sD = sQ + kQBytes;
+    const float* ls = lse_s + st * kBQ;
+    const float* dl = delta_s + st * kBQ;
 
-    float st[8][4], dpt[8][4];  // S^T and dP^T: 16 keys x 64 queries
-    mma_rows(st, ka, Qs, g, t4);
-    mma_rows(dpt, va, Ds, g, t4);
+    // S^T = K q^T and dP^T = V dO^T: 64 keys x 64 queries per warpgroup,
+    // both operands K-major in shared memory, k stepping 16 columns (32 B)
+    float stt[8][4], dpt[8][4];
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc)
+      wgmma_ss_n64<0, 0>(stt, k_desc + 2 * kc, gmma_desc(sQ) + 2 * kc, kc);
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc)
+      wgmma_ss_n64<0, 0>(dpt, v_desc + 2 * kc, gmma_desc(sD) + 2 * kc, kc);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(stt);
+    fence_acc(dpt);
+
+    float nlse2[8][2];  // -lse * log2(e) of this thread's query columns
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int qc = nt * 8 + t4 * 2 + c;
+        nlse2[nt][c] = q0 + qc < T ? -nk.lse(ls[qc]) * 1.4426950408889634f
+                                   : -CUDART_INF_F;  // p = 0 past T
+      }
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int r = j >> 1, qc = nt * 8 + t4 * 2 + (j & 1);
-        const float p =
-            __expf(replace_masked(st[nt][j] * scale, kcode[r], nk.fill) - lse_s[qc]);
+        const float p = kcode[r] > 0 ? ex2(fmaf(stt[nt][j], scale2, nlse2[nt][j & 1]))
+                                     : p_masked[r];
         float a = p, dp = dpt[nt][j];
         if (threshold) {
           const bool keep = keep_elem(seed_bh, (uint32_t)(q0 + qc), (uint32_t)keys[r],
                                       t_hash, threshold);
-          a = keep ? p * inv_keep : 0.f;
-          dp = keep ? dp * inv_keep : 0.f;
+          a = keep ? p : 0.f;
+          dp = keep ? dp : 0.f;
         }
-        st[nt][j] = a;                        // A^T
-        dpt[nt][j] = p * (dp - delta_s[qc]);  // dS^T
+        stt[nt][j] = a;                  // A^T / inv_keep
+        dpt[nt][j] = p * (dp - dl[qc]);  // dS^T / inv_keep (dl is delta / inv_keep)
       }
     }
-    mma_acc(dva, st, Dt, g, t4);   // dV += A^T dO
-    mma_acc(dka, dpt, Qt, g, t4);  // dK += dS^T q
-  }
-  store_rows(dk, dka, keys, b, h, T, H, scale, t4);
-  store_rows(dv, dva, keys, b, h, T, H, 1.f, t4);
-}
-
-__global__ void __launch_bounds__(128)
-flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const int* __restrict__ key_mask,
-                         const __nv_bfloat16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         __nv_bfloat16* __restrict__ dq, int T, int H,
-                         Strides qs, Strides ks, Strides vs, Strides ds,
-                         float scale, uint32_t seed, uint32_t t_hash,
-                         uint32_t threshold, float inv_keep) {
-  __shared__ __align__(16) __nv_bfloat16 Ks[kBK][kLds];  // k tile [key][d]
-  __shared__ __align__(16) __nv_bfloat16 Kt[kD][kLds];   // k tile [d][key]
-  __shared__ __align__(16) __nv_bfloat16 Vs[kBK][kLds];  // v tile [key][d]
-  __shared__ int mcode[kBK];  // 1 valid, 0 masked, -1 past T
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh - b * H;
-  const int q0 = blockIdx.x * kBQ;
-  const int r0 = warp * 16;
-  const uint32_t seed_bh = fmix32(seed + (uint32_t)bh * kGolden);
-
-  const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
-  const __nv_bfloat16* kb = k + b * ks.b + h * ks.h;
-  const __nv_bfloat16* vb = v + b * vs.b + h * vs.h;
-  const __nv_bfloat16* db = dout + b * ds.b + h * ds.h;
-  const int* mb = key_mask + (long long)b * T;
-
-  // this block's q and dO tiles (staged through Ks / Vs) -> A fragments
-  load_tile(qb, qs.t, q0, T, Ks, nullptr, tid);
-  load_tile(db, ds.t, q0, T, Vs, nullptr, tid);
-  __syncthreads();
-  uint32_t qa[kD / 16][4], da[kD / 16][4];
-  load_a_frags(qa, Ks, r0, g, t4);
-  load_a_frags(da, Vs, r0, g, t4);
-
-  const int rows[2] = {q0 + r0 + g, q0 + r0 + g + 8};
-  const NoKeyShift nk(lse + (long long)bh * T, T);
-  float lse_r[2], delta_r[2];
+    // dS^T -> shared memory for the block's dQ product
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    lse_r[r] = rows[r] < T ? nk.lse(lse + (long long)bh * T, rows[r]) : CUDART_INF_F;
-    delta_r[r] = rows[r] < T ? delta[(long long)bh * T + rows[r]] : 0.f;
-  }
-
-  float dqa[kD / 8][4];
+    for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-  for (int i = 0; i < kD / 8; ++i) dqa[i][0] = dqa[i][1] = dqa[i][2] = dqa[i][3] = 0.f;
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<uint32_t*>(dS_ptr + swz(r0 + g + 8 * r, nt) + t4 * 4) =
+            pack_bf16(dpt[nt][2 * r], dpt[nt][2 * r + 1]);
 
-  for (int k0 = 0; k0 < T; k0 += kBK) {
-    __syncthreads();  // fragments taken / previous tile consumed
-    load_tile(kb, ks.t, k0, T, Ks, Kt, tid);
-    load_tile(vb, vs.t, k0, T, Vs, nullptr, tid);
-    if (tid < kBK) {
-      const int col = k0 + tid;
-      mcode[tid] = col < T ? (mb[col] > 0 ? 1 : 0) : -1;
+    // dV += A^T dO and dK += dS^T q: A^T and dS^T from registers, dO and q
+    // MN-major (k = queries, 16 rows a step)
+    uint32_t at[4][4], dst[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      acc_as_a(at[kk], stt, kk);
+      acc_as_a(dst[kk], dpt, kk);
     }
-    __syncthreads();
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_n64<1>(dva, at[kk], gmma_desc(sD + kk * 16 * kRowBytes), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_n64<1>(dka, dst[kk], gmma_desc(sQ + kk * 16 * kRowBytes), 1);
+    wgmma_commit();
 
-    float s[8][4], dp[8][4];  // S and dP: 16 queries x 64 keys
-    mma_rows(s, qa, Ks, g, t4);
-    mma_rows(dp, da, Vs, g, t4);
+    fence_proxy_async();
+    bar_sync(kBarCompute, kCompute);  // both warpgroups' dS^T rows written
+
+    // this warpgroup's dQ share: dS (64 queries x 128 keys, MN-major from
+    // dS^T) . K (128 keys x columns 32wg..32wg+31, MN-major)
+    float dqa[4][4];
+    wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      wgmma_ss_n32<1, 1>(dqa, gmma_desc(sdS + kk * 16 * kRowBytes),
+                         gmma_desc(sK + kk * 16 * kRowBytes + wg * 64), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(dqa);
+    fence_acc(dka);
+    fence_acc(dva);
+
+    // hand the share to the writer warp
+    const int buf = it % kDqBufs;
+    if (it >= kDqBufs) bar_sync(kBarEmpty + buf, kHandoff);
+    float* share = dq_s + buf * kBQ * kD;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = j >> 1, col = nt * 8 + t4 * 2 + (j & 1);
-        const float p =
-            __expf(replace_masked(s[nt][j] * scale, mcode[col], nk.fill) - lse_r[r]);
-        float dpv = dp[nt][j];
-        if (threshold)
-          dpv = keep_elem(seed_bh, (uint32_t)rows[r], (uint32_t)(k0 + col), t_hash,
-                          threshold) ? dpv * inv_keep : 0.f;
-        s[nt][j] = p * (dpv - delta_r[r]);  // dS
-      }
-    }
-    mma_acc(dqa, s, Kt, g, t4);  // dQ += dS k
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<float2*>(share + (16 * wiw + g + 8 * r) * kD + 32 * wg + nt * 8 +
+                                   2 * t4) = make_float2(dqa[nt][2 * r], dqa[nt][2 * r + 1]);
+    fence_proxy_async();  // the bulk copy reads the share through the async proxy
+    bar_arrive(kBarFull + buf, kHandoff);
   }
-  store_rows(dq, dqa, rows, b, h, T, H, scale, t4);
+  store_rows(dk, dka, keys, b, h, T, H, scale * inv_keep, t4);
+  store_rows(dv, dva, keys, b, h, T, H, inv_keep, t4);
 }
 
 // ---------------------------------------------------------------------------
@@ -435,7 +472,7 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__
   const int b = bh / H, h = bh - b * H;
   const int k0 = blockIdx.x * kB32;
   const int key = k0 + tid;
-  const uint32_t seed_bh = fmix32(seed + (uint32_t)bh * kGolden);
+  const uint32_t seed_bh = seed_of(seed, bh);
   const float* qb = q + b * qs.b + h * qs.h;
   const float* kb = k + b * ks.b + h * ks.h;
   const float* vb = v + b * vs.b + h * vs.h;
@@ -447,7 +484,7 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__
     Ks[r][d] = in ? kb[(long long)(k0 + r) * ks.t + d] : 0.f;
     Vs[r][d] = in ? vb[(long long)(k0 + r) * vs.t + d] : 0.f;
   }
-  const int code = key < T ? (key_mask[(long long)b * T + key] > 0 ? 1 : 0) : -1;
+  const int code = key_code(key_mask + (long long)b * T, key, T);
   const NoKeyShift nk(lse + (long long)bh * T, T);
 
   float dka[kD], dva[kD];
@@ -464,7 +501,7 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__
     }
     if (tid < kT32) {
       const int qi = q0 + tid;
-      lse_s[tid] = qi < T ? nk.lse(lse + (long long)bh * T, qi) : CUDART_INF_F;
+      lse_s[tid] = qi < T ? nk.lse(lse[(long long)bh * T + qi]) : CUDART_INF_F;
       delta_s[tid] = qi < T ? delta[(long long)bh * T + qi] : 0.f;
     }
     __syncthreads();
@@ -522,7 +559,7 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
   const int b = bh / H, h = bh - b * H;
   const int q0 = blockIdx.x * kB32;
   const int row = q0 + tid;
-  const uint32_t seed_bh = fmix32(seed + (uint32_t)bh * kGolden);
+  const uint32_t seed_bh = seed_of(seed, bh);
   const float* qb = q + b * qs.b + h * qs.h;
   const float* kb = k + b * ks.b + h * ks.h;
   const float* vb = v + b * vs.b + h * vs.h;
@@ -536,7 +573,7 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
     Ds[r][d] = in ? db[(long long)(q0 + r) * ds.t + d] : 0.f;
   }
   const NoKeyShift nk(lse + (long long)bh * T, T);
-  const float lse_r = row < T ? nk.lse(lse + (long long)bh * T, row) : CUDART_INF_F;
+  const float lse_r = row < T ? nk.lse(lse[(long long)bh * T + row]) : CUDART_INF_F;
   const float delta_r = row < T ? delta[(long long)bh * T + row] : 0.f;
 
   float dqa[kD];
@@ -551,10 +588,7 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
       Ks[r][d] = in ? kb[(long long)(k0 + r) * ks.t + d] : 0.f;
       Vs[r][d] = in ? vb[(long long)(k0 + r) * vs.t + d] : 0.f;
     }
-    if (tid < kT32) {
-      const int col = k0 + tid;
-      mcode[tid] = col < T ? (mb[col] > 0 ? 1 : 0) : -1;
-    }
+    if (tid < kT32) mcode[tid] = key_code(mb, k0 + tid, T);
     __syncthreads();
     for (int j = 0; j < kT32; ++j) {
       float s = 0.f, dp = 0.f;
@@ -579,75 +613,20 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
   }
 }
 
-template <typename T_>
-int launch_all(const T_* q, const T_* k, const T_* v, const int* key_mask,
-               const T_* o, const T_* dout, const float* lse, float* delta,
-               T_* dq, T_* dk, T_* dv, int B, int T, int H, Strides qs,
-               Strides ks, Strides vs, Strides os, Strides ds, float scale,
-               uint32_t seed, uint32_t t_hash, uint32_t threshold,
-               float inv_keep, cudaStream_t st);
-
-template <>
-int launch_all<__nv_bfloat16>(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                              const __nv_bfloat16* v, const int* key_mask,
-                              const __nv_bfloat16* o, const __nv_bfloat16* dout,
-                              const float* lse, float* delta, __nv_bfloat16* dq,
-                              __nv_bfloat16* dk, __nv_bfloat16* dv, int B, int T,
-                              int H, Strides qs, Strides ks, Strides vs,
-                              Strides os, Strides ds, float scale, uint32_t seed,
-                              uint32_t t_hash, uint32_t threshold, float inv_keep,
-                              cudaStream_t st) {
-  const long long rows = (long long)B * H * T;
-  flash_bwd_delta_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(
-      o, dout, delta, T, H, rows, os, ds);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkdv_bf16_kernel<<<dim3((T + kBK - 1) / kBK, B * H), 128, 0, st>>>(
-      q, k, v, key_mask, dout, lse, delta, dk, dv, T, H, qs, ks, vs, ds, scale,
-      seed, t_hash, threshold, inv_keep);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_bf16_kernel<<<dim3((T + kBQ - 1) / kBQ, B * H), 128, 0, st>>>(
-      q, k, v, key_mask, dout, lse, delta, dq, T, H, qs, ks, vs, ds, scale, seed,
-      t_hash, threshold, inv_keep);
-  return (int)cudaGetLastError();
-}
-
-template <>
-int launch_all<float>(const float* q, const float* k, const float* v,
-                      const int* key_mask, const float* o, const float* dout,
-                      const float* lse, float* delta, float* dq, float* dk,
-                      float* dv, int B, int T, int H, Strides qs, Strides ks,
-                      Strides vs, Strides os, Strides ds, float scale,
-                      uint32_t seed, uint32_t t_hash, uint32_t threshold,
-                      float inv_keep, cudaStream_t st) {
-  const long long rows = (long long)B * H * T;
-  flash_bwd_delta_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(
-      o, dout, delta, T, H, rows, os, ds);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkdv_f32_kernel<<<dim3((T + kB32 - 1) / kB32, B * H), kB32, 0, st>>>(
-      q, k, v, key_mask, dout, lse, delta, dk, dv, T, H, qs, ks, vs, ds, scale,
-      seed, t_hash, threshold, inv_keep);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_f32_kernel<<<dim3((T + kB32 - 1) / kB32, B * H), kB32, 0, st>>>(
-      q, k, v, key_mask, dout, lse, delta, dq, T, H, qs, ks, vs, ds, scale, seed,
-      t_hash, threshold, inv_keep);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // Plain C entry point (bound with ctypes). dtype: 0 = float32, 1 = bfloat16.
 // `lse` is B1's fp32 [B, H, T] output, `delta` an fp32 [B, H, T] scratch
-// buffer. Launches three kernels on `stream`, does not synchronise, and
-// returns the first launch error (cudaGetLastError()), 0 on success.
+// buffer. For bf16, `dq_accum` is an fp32 [B*H, T, 64] scratch buffer (no
+// initial value needed) and `dq_sem` an int32 buffer of B*H*ceil(T/64)
+// ZEROS (the key-tile order counters); both are unused for fp32. Launches
+// three kernels on `stream`, does not synchronise, and returns the first
+// launch error (cudaGetLastError()), 0 on success.
 extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                          const void* key_mask, const void* o, const void* dout,
-                         const void* lse, void* delta, void* dq, void* dk,
-                         void* dv, int dtype, int B, int T, int H, int D,
-                         long long qsb, long long qst, long long qsh,
+                         const void* lse, void* delta, void* dq_accum, void* dq_sem,
+                         void* dq, void* dk, void* dv, int dtype, int B, int T, int H,
+                         int D, long long qsb, long long qst, long long qsh,
                          long long ksb, long long kst, long long ksh,
                          long long vsb, long long vst, long long vsh,
                          long long osb, long long ost, long long osh,
@@ -661,22 +640,46 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v,
   const float* lse_f = static_cast<const float*>(lse);
   float* delta_f = static_cast<float*>(delta);
   const int* km = static_cast<const int*>(key_mask);
+  const long long rows = (long long)B * H * T;
+  const unsigned delta_blocks = (unsigned)((rows + 7) / 8);
+  cudaError_t err;
   if (dtype == 1) {
     using bf = __nv_bfloat16;
-    return launch_all<bf>(
-        static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
-        km, static_cast<const bf*>(o), static_cast<const bf*>(dout), lse_f, delta_f,
-        static_cast<bf*>(dq), static_cast<bf*>(dk), static_cast<bf*>(dv), B, T, H, qs,
-        ks, vs, os, ds, scale, (uint32_t)seed, (uint32_t)t_hash, threshold, inv_keep,
-        st);
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        flash_bwd_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (attr != cudaSuccess) return (int)attr;
+    // the element loop leaves inv_keep out: A, dP and delta carry 1/inv_keep,
+    // and dk, dv and dq take it back once at the end
+    flash_bwd_delta_kernel<<<delta_blocks, 256, 0, st>>>(
+        static_cast<const bf*>(o), static_cast<const bf*>(dout), delta_f, T, H, rows, os,
+        ds, 1.f / inv_keep);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    flash_bwd_bf16_kernel<<<dim3((T + kBK - 1) / kBK, B * H), kThreads, kSmemBytes, st>>>(
+        static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v), km,
+        static_cast<const bf*>(dout), lse_f, delta_f, static_cast<float*>(dq_accum),
+        static_cast<int*>(dq_sem), static_cast<bf*>(dk),
+        static_cast<bf*>(dv), T, H, qs, ks, vs, ds, scale, (uint32_t)seed,
+        (uint32_t)t_hash, threshold, inv_keep);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    const long long n8 = rows * (kD / 8);
+    flash_bwd_dq_convert_kernel<<<(unsigned)((n8 + 255) / 256), 256, 0, st>>>(
+        static_cast<const float*>(dq_accum), static_cast<bf*>(dq), T, H, n8, scale * inv_keep);
+    return (int)cudaGetLastError();
   }
   if (dtype == 0) {
-    return launch_all<float>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), km, static_cast<const float*>(o),
-        static_cast<const float*>(dout), lse_f, delta_f, static_cast<float*>(dq),
-        static_cast<float*>(dk), static_cast<float*>(dv), B, T, H, qs, ks, vs, os, ds,
-        scale, (uint32_t)seed, (uint32_t)t_hash, threshold, inv_keep, st);
+    const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
+                *vf = static_cast<const float*>(v), *df = static_cast<const float*>(dout);
+    flash_bwd_delta_kernel<<<delta_blocks, 256, 0, st>>>(static_cast<const float*>(o), df,
+                                                         delta_f, T, H, rows, os, ds, 1.f);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    flash_bwd_dkdv_f32_kernel<<<dim3((T + kB32 - 1) / kB32, B * H), kB32, 0, st>>>(
+        qf, kf, vf, km, df, lse_f, delta_f, static_cast<float*>(dk), static_cast<float*>(dv),
+        T, H, qs, ks, vs, ds, scale, (uint32_t)seed, (uint32_t)t_hash, threshold, inv_keep);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    flash_bwd_dq_f32_kernel<<<dim3((T + kB32 - 1) / kB32, B * H), kB32, 0, st>>>(
+        qf, kf, vf, km, df, lse_f, delta_f, static_cast<float*>(dq), T, H, qs, ks, vs, ds,
+        scale, (uint32_t)seed, (uint32_t)t_hash, threshold, inv_keep);
+    return (int)cudaGetLastError();
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -16,49 +16,37 @@
 // contiguous [B, T, H, D]. The key mask is int32 [B, T], indexed by bh / H.
 // Keys past T are excluded inside the kernel (no padding to a block).
 //
-// Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): at the serving
-// shapes (B=8, H=16, D=64) the work is 4*B*H*T^2*D FLOPs against
-// 4*B*T*H*D*2 bytes of q, k, v and o, so a 5 s bucket (T=249, 2.0 GFLOP,
-// 16 MB) is memory-bound at about 5 us and a 30 s bucket (T=1499, 73.6 GFLOP,
-// 98 MB) compute-bound at about 74 us. The design meets the compute side with
-// tensor cores: bf16 QK^T and PV run on mma.sync m16n8k16 with fp32
-// accumulators, and the [T, T] probabilities never leave registers (each
-// warp's S tile is re-packed in registers as the A operand of PV). The memory
-// side is met by reading q once per block and k, v once per (block, tile)
-// through shared memory. It is a simple first design: one block of 4 warps
-// per (bh, 64-query tile), 64-key tiles staged synchronously, no TMA, wgmma
-// or warp specialisation. The fp32 path (tests and the fp32 serving option)
-// uses plain FMA.
+// Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): the work is
+// 4*B*H*T^2*D FLOPs against 4*B*T*H*D*2 bytes of q, k, v and o, so at the
+// serving shapes (B=8, H=16, D=64) a 5 s bucket (T=249, 2.0 GFLOP, 16 MB) is
+// bound by bytes at about 5 us and a 30 s bucket (T=1499, 73.6 GFLOP, 98 MB)
+// by the tensor cores at about 74 us. What held the first design at
+// ~10% of that was its feeding of the tensor cores: each 64-key tile was
+// staged synchronously (no copy overlapped any product), V was transposed
+// through 2-byte shared-memory stores, fragments were gathered by 32-bit
+// shared loads, and mma.sync cannot reach the card's tensor-core rate.
+//
+// The design now (bf16):
+//   * one block of two warpgroups per (b*h, 128-query tile), 64 query rows a
+//     warpgroup;
+//   * a ring of two K/V (+ key mask) stages filled by cp.async, with zero fill
+//     for rows past T, so tile j+1 is in flight while tile j is computed;
+//   * tiles stored in the 128-byte swizzle of wgmma's descriptors
+//     (flash_common.cuh), so no tile is transposed anywhere;
+//   * S = Q K^T on wgmma m64n64k16 with both operands in shared memory, and
+//     O += P V with P from registers (the S accumulators re-packed as bf16)
+//     and V read MN-major through the descriptor's transpose bit; the online
+//     softmax and the epilogue as before.
+// What holds it now: each warpgroup waits for its products before its
+// softmax (no overlap of the two within a warpgroup) and the element-wise
+// work (exp, the keep hash) runs on the CUDA cores beside them.
+// The fp32 path (tests and the fp32 serving option) uses plain FMA.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kD = 64;             // head dim (the only one supported)
-constexpr float kMaskFill = -1e30f;  // NEG_INF of the TPU kernel
-constexpr uint32_t kGolden = 0x9E3779B9u;
-
-struct Strides {
-  long long b, t, h;  // in elements; the D stride is 1
-};
-
-__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
-}
-
-__device__ __forceinline__ bool keep_elem(uint32_t seed_bh, uint32_t row,
-                                          uint32_t col, uint32_t t_hash,
-                                          uint32_t threshold) {
-  return (fmix32((row * t_hash + col) ^ seed_bh) & 0x7FFFFFFFu) >= threshold;
-}
+using namespace flash;
 
 // The LSE the backward reads. A row whose keys are all masked ends with
 // m = kMaskFill and l = T (every key's score replaced by the fill); its
@@ -69,33 +57,19 @@ __device__ __forceinline__ float row_lse(float m, float l) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores through mma.sync
+// bf16: tensor cores through wgmma, a cp.async ring of K/V tiles
 // ---------------------------------------------------------------------------
 
-constexpr int kBQ = 64;            // queries per block (16 per warp)
-constexpr int kBK = 64;            // keys per tile
-constexpr int kLds = kD + 8;       // smem row stride (bf16): conflict-free fragments
-constexpr int kLdv = kBK + 8;      // transposed-V row stride (bf16)
+constexpr int kThreads = 256;                 // 2 warpgroups
+constexpr int kBQ = 128;                      // queries per block (64 per warpgroup)
+constexpr int kBK = 64;                       // keys per tile
+constexpr int kStages = 2;                    // K/V ring depth
+constexpr int kQBytes = kBQ * kRowBytes;      // 16 KB
+constexpr int kTileBytes = kBK * kRowBytes;   // 8 KB
+constexpr int kSmemBytes =                    // + slack to align the tiles to 1 KB
+    1024 + kQBytes + kStages * (2 * kTileBytes + kBK * 4);
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v,
@@ -105,83 +79,67 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                       Strides qs, Strides ks, Strides vs, float scale,
                       uint32_t seed, uint32_t t_hash, uint32_t threshold,
                       float inv_keep) {
-  __shared__ __align__(16) __nv_bfloat16 Qs[kBQ][kLds];
-  __shared__ __align__(16) __nv_bfloat16 Ks[kBK][kLds];
-  __shared__ __align__(16) __nv_bfloat16 Vt[kD][kLdv];
-  __shared__ int mcode[kBK];  // 1 valid, 0 masked, -1 past T
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sQ = smem_u32(smem);
+  const uint32_t sKV = sQ + kQBytes;  // stage s: K at + 2s tiles, V after it
+  int* mask_s = reinterpret_cast<int*>(smem + kQBytes + kStages * 2 * kTileBytes);
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2;
   const int g = lane >> 2, t4 = lane & 3;
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh - b * H;
   const int q0 = blockIdx.x * kBQ;
-  const uint32_t seed_bh = fmix32(seed + (uint32_t)bh * kGolden);
+  const uint32_t seed_bh = seed_of(seed, bh);
 
   const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
   const __nv_bfloat16* kb = k + b * ks.b + h * ks.h;
   const __nv_bfloat16* vb = v + b * vs.b + h * vs.h;
   const int* mb = key_mask + (long long)b * T;
+  const int n_tiles = (T + kBK - 1) / kBK;
 
-  // q tile -> smem (16-byte chunks; rows past T are zero)
-  for (int c = tid; c < kBQ * kD / 8; c += 128) {
-    const int r = c >> 3, col = (c & 7) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (q0 + r < T)
-      val = *reinterpret_cast<const uint4*>(qb + (long long)(q0 + r) * qs.t + col);
-    *reinterpret_cast<uint4*>(&Qs[r][col]) = val;
-  }
-  __syncthreads();
-  uint32_t qa[kD / 16][4];
-  const int r0 = warp * 16;
-#pragma unroll
-  for (int kc = 0; kc < kD / 16; ++kc) {
-    qa[kc][0] = lds32(&Qs[r0 + g][kc * 16 + t4 * 2]);
-    qa[kc][1] = lds32(&Qs[r0 + g + 8][kc * 16 + t4 * 2]);
-    qa[kc][2] = lds32(&Qs[r0 + g][kc * 16 + 8 + t4 * 2]);
-    qa[kc][3] = lds32(&Qs[r0 + g + 8][kc * 16 + 8 + t4 * 2]);
-  }
+  auto load_kv = [&](int kt) {
+    const int st = kt % kStages;
+    load_tile_async<kBK, kThreads>(sKV + 2 * st * kTileBytes, kb, ks.t, kt * kBK, T, tid);
+    load_tile_async<kBK, kThreads>(sKV + (2 * st + 1) * kTileBytes, vb, vs.t, kt * kBK, T,
+                                   tid);
+    load_vec_async<kBK>(mask_s + st * kBK, mb, kt * kBK, T, tid);
+    cp_async_commit();
+  };
 
+  load_tile_async<kBQ, kThreads>(sQ, qb, qs.t, q0, T, tid);  // rows past T zero
+  load_kv(0);
+
+  const uint64_t q_desc = gmma_desc(sQ + 64 * wg * kRowBytes);  // this warpgroup's rows
   float oacc[kD / 8][4];
 #pragma unroll
   for (int i = 0; i < kD / 8; ++i)
     oacc[i][0] = oacc[i][1] = oacc[i][2] = oacc[i][3] = 0.f;
   float m[2] = {kMaskFill, kMaskFill};
   float l[2] = {0.f, 0.f};  // per-thread partial row sums (quad-reduced at the end)
-  const uint32_t rows[2] = {(uint32_t)(q0 + r0 + g), (uint32_t)(q0 + r0 + g + 8)};
+  const uint32_t rows[2] = {(uint32_t)(q0 + warp * 16 + g),
+                            (uint32_t)(q0 + warp * 16 + g + 8)};
 
-  for (int k0 = 0; k0 < T; k0 += kBK) {
-    __syncthreads();  // previous tile fully consumed
-    for (int c = tid; c < kBK * kD / 8; c += 128) {
-      const int r = c >> 3, col = (c & 7) * 8;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (k0 + r < T) {
-        kv = *reinterpret_cast<const uint4*>(kb + (long long)(k0 + r) * ks.t + col);
-        vv = *reinterpret_cast<const uint4*>(vb + (long long)(k0 + r) * vs.t + col);
-      }
-      *reinterpret_cast<uint4*>(&Ks[r][col]) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) Vt[col + j][r] = ve[j];
-    }
-    if (tid < kBK) {
-      const int col = k0 + tid;
-      mcode[tid] = col < T ? (mb[col] > 0 ? 1 : 0) : -1;
-    }
-    __syncthreads();
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();  // tile kt landed for all; tile kt-1's stage is free
+    if (kt + 1 < n_tiles) load_kv(kt + 1);  // in flight while tile kt computes
+    const int st = kt % kStages, k0 = kt * kBK;
+    const int* mc = mask_s + st * kBK;
+    const uint32_t sK = sKV + 2 * st * kTileBytes, sV = sK + kTileBytes;
 
-    // S = Q K^T for this warp's 16 rows x 64 keys
+    // S = Q K^T: 64 rows x 64 keys per warpgroup, both operands K-major
     float s[kBK / 8][4];
+    wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < kBK / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < kD / 16; ++kc) {
-        const uint32_t b0 = lds32(&Ks[nt * 8 + g][kc * 16 + t4 * 2]);
-        const uint32_t b1 = lds32(&Ks[nt * 8 + g][kc * 16 + 8 + t4 * 2]);
-        mma_bf16(s[nt], qa[kc], b0, b1);
-      }
-    }
+    for (int kc = 0; kc < 4; ++kc)
+      wgmma_ss_n64<0, 0>(s, q_desc + 2 * kc, gmma_desc(sK) + 2 * kc, kc);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
 
     // mask, then the online-softmax statistics
     float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
@@ -189,9 +147,9 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     for (int nt = 0; nt < kBK / 8; ++nt) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int code = mcode[nt * 8 + t4 * 2 + (j & 1)];
-        float x = s[nt][j] * scale;
-        x = code > 0 ? x : (code == 0 ? kMaskFill : -CUDART_INF_F);
+        const int col = nt * 8 + t4 * 2 + (j & 1);
+        const int code = k0 + col < T ? (mc[col] > 0 ? 1 : 0) : -1;
+        const float x = replace_masked(s[nt][j] * scale, code, kMaskFill);
         s[nt][j] = x;
         mx[j >> 1] = fmaxf(mx[j >> 1], x);
       }
@@ -228,21 +186,17 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       oacc[dn][3] *= alpha[1];
     }
 
-    // O += P V: the S accumulators re-packed as A fragments
+    // O += P V: P from registers, V MN-major (k = keys, 16 rows a step)
+    uint32_t pa[kBK / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    for (int kk = 0; kk < kBK / 16; ++kk) acc_as_a(pa[kk], s, kk);
+    wgmma_fence();
 #pragma unroll
-      for (int dn = 0; dn < kD / 8; ++dn) {
-        const uint32_t b0 = lds32(&Vt[dn * 8 + g][kk * 16 + t4 * 2]);
-        const uint32_t b1 = lds32(&Vt[dn * 8 + g][kk * 16 + 8 + t4 * 2]);
-        mma_bf16(oacc[dn], pa, b0, b1);
-      }
-    }
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      wgmma_rs_n64<1>(oacc, pa[kk], gmma_desc(sV + kk * 16 * kRowBytes), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(oacc);
   }
 
   // epilogue: the full row sums, then acc * inv_keep / max(l, 1e-30)
@@ -293,7 +247,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh - b * H;
   const int q0 = blockIdx.x * kBQ32;
-  const uint32_t seed_bh = fmix32(seed + (uint32_t)bh * kGolden);
+  const uint32_t seed_bh = seed_of(seed, bh);
   const float* qb = q + b * qs.b + h * qs.h;
   const float* kb = k + b * ks.b + h * ks.h;
   const float* vb = v + b * vs.b + h * vs.h;
@@ -319,10 +273,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       Ks[r][d] = in ? kb[(long long)(k0 + r) * ks.t + d] : 0.f;
       Vs[r][d] = in ? vb[(long long)(k0 + r) * vs.t + d] : 0.f;
     }
-    if (tid < kBK32) {
-      const int col = k0 + tid;
-      mcode[tid] = col < T ? (mb[col] > 0 ? 1 : 0) : -1;
-    }
+    if (tid < kBK32) mcode[tid] = key_code(mb, k0 + tid, T);
     __syncthreads();
 
     float s[kBK32];
@@ -337,8 +288,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float mx = -CUDART_INF_F;
 #pragma unroll
     for (int j = 0; j < kBK32; ++j) {
-      const int code = mcode[j];
-      s[j] = code > 0 ? s[j] : (code == 0 ? kMaskFill : -CUDART_INF_F);
+      s[j] = replace_masked(s[j], mcode[j], kMaskFill);
       mx = fmaxf(mx, s[j]);
     }
     const float m_new = fmaxf(m, mx);
@@ -386,8 +336,11 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   const Strides qs{qsb, qst, qsh}, ks{ksb, kst, ksh}, vs{vsb, vst, vsh};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 1) {
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        flash_fwd_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (attr != cudaSuccess) return (int)attr;
     const dim3 grid((T + kBQ - 1) / kBQ, B * H);
-    flash_fwd_bf16_kernel<<<grid, 128, 0, st>>>(
+    flash_fwd_bf16_kernel<<<grid, kThreads, kSmemBytes, st>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(key_mask),
         static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), T, H, qs, ks,

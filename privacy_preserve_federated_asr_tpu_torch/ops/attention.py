@@ -160,7 +160,7 @@ _FWD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                  + [ctypes.c_longlong] * 9
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_uint,
                     ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
                  + [ctypes.c_longlong] * 15
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_uint,
                     ctypes.c_float, ctypes.c_void_p])
@@ -262,7 +262,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``do``, each a new contiguous ``[B, T, H, D]`` in q's dtype. q, k, v,
     key_mask, rate, seed and t_hash are the forward's; ``lse`` is the
     forward's ``return_lse`` output. Counts each call (one per layer
-    backward, three CUDA launches) in ``flash_attention_bwd.launches``."""
+    backward, three CUDA launches) in ``flash_attention_bwd.launches``. Two
+    calls on the same inputs give bit-equal gradients: the bf16 kernel sums
+    dQ over its key tiles in a fixed order."""
     _check_inputs("flash_attention_bwd", q, k, v, key_mask)
     b, t, h, d = q.shape
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype:
@@ -274,11 +276,19 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if lse.shape != (b, h, t) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError("lse must be B1's contiguous fp32 [B, H, T] output")
     delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    dq_accum = dq_sem = None
+    if q.dtype == torch.bfloat16:
+        # dQ's fp32 partial sums, and one zeroed counter per (b*h, 64-query
+        # tile) that orders the key tiles' adds (csrc/flash_bwd.cu)
+        dq_accum = torch.empty((b * h, t, d), dtype=torch.float32, device=q.device)
+        dq_sem = torch.zeros(b * h * -(-t // 64), dtype=torch.int32, device=q.device)
     dq, dk, dv = (torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
                   for _ in range(3))
     rc = _kernel("flash_bwd", _BWD_ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(),
         o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        None if dq_accum is None else dq_accum.data_ptr(),
+        None if dq_sem is None else dq_sem.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype],
         b, t, h, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *o.stride()[:3], *do.stride()[:3],

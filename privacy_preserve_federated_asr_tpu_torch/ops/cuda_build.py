@@ -2,8 +2,9 @@
 
 ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, ``build/torch_kernels/lib<name>-<hash>.so``
-under the repository root, and loaded with ``ctypes``. The hash is of the
-source, so an edited kernel is rebuilt and a stale library is never loaded.
+under the repository root, and loaded with ``ctypes``. The hash covers the
+source, every shared header ``csrc/*.cuh`` and the nvcc flags, so an edited
+kernel, header or flag is rebuilt and a stale library is never loaded.
 The build happens at first use, from the repository's sources only; a
 missing ``nvcc`` or a failed build raises (there is no fallback).
 The first load builds every source at once, one ``nvcc`` process each.
@@ -42,8 +43,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 SOURCES = ("flash_fwd", "flash_bwd")  # every csrc/*.cu of the port

@@ -217,3 +217,90 @@ def test_cuda_bwd_kernel_matches_ref(dtype):
                     torch.testing.assert_close(a, w, rtol=0.0, atol=1e-4)
                 else:
                     assert (a - w).abs().max() <= 2e-2 * w.abs().max()
+
+
+def _card_inputs(b, t, h, dtype, seed, lengths, qkv_views=False):
+    """q, k, v, a cotangent g and the int32 key mask on the card; with
+    ``qkv_views`` q, k and v are strided views of one [b, t, 3*h*64]
+    projection, as the encoder hands them over."""
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+    d = 64
+
+    def card(*shape):
+        return torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to("cuda", dt)
+
+    if qkv_views:
+        qkv = card(b, t, 3 * h * d)
+        q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].view(b, t, h, d) for i in range(3))
+    else:
+        q, k, v = (card(b, t, h, d) for _ in range(3))
+    lens = torch.tensor([min(max(n, 0), t) for n in lengths], device="cuda")
+    mask = (torch.arange(t, device="cuda")[None] < lens[:, None]).to(torch.int32)
+    return q, k, v, card(b, t, h, d), mask
+
+
+def _check_both_kernels(dtype, q, k, v, g, mask, rate, t_hash):
+    """B1 against attention_ref on rows with a key, B2 against
+    attention_bwd_ref with the cotangent zeroed on padded rows and whole.
+    A bf16 gradient that is 0 in exact arithmetic (dq and dk at T=1 without
+    dropout: one key, so dS = dP - delta = 0) holds only rounding noise on
+    both sides: where max |ref| < 1e-3 it is held at atol 1e-4 instead."""
+    valid = mask.bool()
+    got = port.flash_attention_fwd(q, k, v, mask, rate, 7, t_hash).float()
+    ref = port.attention_ref(q, k, v, mask, rate, 7, t_hash).float()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[valid], ref[valid], **CUDA_TOL[dtype])
+    o, lse = port.flash_attention_fwd(q, k, v, mask, rate, 7, t_hash, return_lse=True)
+    for cot in (g * mask[:, :, None, None].to(g.dtype), g):
+        grads = port.flash_attention_bwd(q, k, v, mask, o, cot, lse, rate, 7, t_hash)
+        want = port.attention_bwd_ref(q, k, v, mask, o, cot, rate, 7, t_hash)
+        torch.cuda.synchronize()
+        for a, w in zip(grads, want):
+            a, w = a.float(), w.float()
+            assert torch.isfinite(a).all()
+            if dtype == "float32" or w.abs().max() < 1e-3:
+                torch.testing.assert_close(a, w, rtol=0.0, atol=1e-4)
+            else:
+                assert (a - w).abs().max() <= 2e-2 * w.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [1, 63, 65, 129])
+def test_cuda_kernels_ragged_t(t, dtype):
+    """B1 and B2 at lengths that end inside a tile or fill one exactly,
+    dropout 0 and 0.1; runs on a card only."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: kernels B1 and B2 run only on the card")
+    q, k, v, g, mask = _card_inputs(3, t, 2, dtype, t, [t, t // 2 + 1, 0])
+    for rate in (0.0, 0.1):
+        _check_both_kernels(dtype, q, k, v, g, mask, rate, -(-t // 128) * 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernels_on_strided_qkv_views(dtype):
+    """q, k, v as views of one [B, T, 3*H*64] projection (strides that are
+    not a contiguous [B, T, H, D]); runs on a card only."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: kernels B1 and B2 run only on the card")
+    q, k, v, g, mask = _card_inputs(2, 200, 3, dtype, 11, [200, 77], qkv_views=True)
+    assert not q.is_contiguous() and q.stride()[1] == 3 * 3 * 64
+    for rate in (0.0, 0.1):
+        _check_both_kernels(dtype, q, k, v, g, mask, rate, 256)
+
+
+@pytest.mark.cuda
+def test_cuda_bwd_kernel_is_deterministic():
+    """Two B2 calls on the same inputs give bit-equal dq, dk and dv (the key
+    tiles add their dQ shares in a fixed order); runs on a card only."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: kernel B2 runs only on the card")
+    q, k, v, g, mask = _card_inputs(2, 700, 4, "bfloat16", 3, [700, 333])
+    o, lse = port.flash_attention_fwd(q, k, v, mask, 0.1, 1, 768, return_lse=True)
+    first = port.flash_attention_bwd(q, k, v, mask, o, g, lse, 0.1, 1, 768)
+    for _ in range(3):
+        again = port.flash_attention_bwd(q, k, v, mask, o, g, lse, 0.1, 1, 768)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
