@@ -4,9 +4,9 @@
     python3 chip_smoke.py                  # every phase (the contract's run)
     python3 chip_smoke.py --kernels-only   # phases 1, 2 and 5: build and check
 
-Drives the port's serving path and its stage-0 training path
-(privacy_preserve_federated_asr_tpu_torch) and holds its hand-written
-kernels against their plain versions. It imports nothing of JAX or of the
+Drives the port's serving path, its stage-0 training path and its federated
+3-stage pipeline (privacy_preserve_federated_asr_tpu_torch) and holds its
+hand-written kernels against their plain versions. It imports nothing of JAX or of the
 JAX package. Phases, in order; any failure raises and ends the run with a
 non-zero exit:
 
@@ -45,7 +45,20 @@ non-zero exit:
    (torch.profiler);
 7. one training step, card against CPU: the model cut to 4 layers at fp32,
    attention dropout 0.1 from the same seeds on both;
-8. one JSON line listing each kernel (launches on the main paths, error
+8. federated at full width: ``cli federated -fl_st 0`` of data2vec-audio-
+   large DACS in bf16 on synthetic 4-5 s WAVs (24 train in 2 round-robin
+   speaker clients, public = all, 8 test), one round per stage, global_ep 1,
+   local_ep 1, batch 8: per stage the B1/B2 launches (B2 = 24 x stage-0
+   steps and 0 in stages 1/2, B1 = 24 x the forwards of the steps, cache
+   builds and evaluations), every param outside the stage's trainable set
+   bit-unchanged, the stage's head moved, all finite; the wall time of each
+   warm-start, cache build and round; the three finals loaded back through
+   ``cli.load_weights``; one stage-1 round's device busy share
+   (torch.profiler); then ``-fl_st 3`` with DP-FedAvg for 2 rounds, whose
+   ``dp_epsilon`` is finite and grows;
+9. one stage-1 round, card against CPU: the model cut to 4 layers at fp32,
+   clients of 3 and 2 utterances (a padding step), phase 7's rule;
+10. one JSON line listing each kernel (launches on the main paths, error
    against the plain version, times and bound, and under "times" the same
    numbers at each main-path bf16 shape), the card's name and power limit,
    and last ``{"ok": true, "device": {...}}``.
@@ -850,6 +863,236 @@ def train_step_vs_cpu() -> None:
         f"{frac:.2e} of elements beyond 1e-2 lr (limit 5e-3)")
 
 
+# ---------------------------------------------------------------------------
+# 8. the federated pipeline at full width through cli federated
+# ---------------------------------------------------------------------------
+
+FL_TRAIN, FL_TEST, FL_BATCH = 24, 8, 8
+FL_ARGS = ["--model_type", "data2vec", "--compute_dtype", "bfloat16",
+           "--train_batch_size", str(FL_BATCH), "--eval_batch_size", str(FL_BATCH),
+           "--num_users", "2", "--local_ep", "1", "--global_ep", "1", "--seed", "0",
+           "--audio_dir", "data/clips", "--train_csv", "data/train.csv",
+           "--test_csv", "data/test.csv", "--spk2label", "data/spk2label.npy",
+           "--dataset_cache", "cache", "--device", "cuda"]
+
+
+@contextlib.contextmanager
+def _cwd(root: Path):
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        yield
+    finally:
+        os.chdir(cwd)
+
+
+def _run_cli(root: Path, args: list[str]):
+    """``cli.main(args)`` in ``root``, its stdout captured; returns (its
+    return value, the last stdout line as JSON, host seconds)."""
+    from privacy_preserve_federated_asr_tpu_torch import cli
+
+    out = io.StringIO()
+    with _cwd(root), contextlib.redirect_stdout(out):
+        t0 = time.perf_counter()
+        ret = cli.main(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return ret, json.loads(out.getvalue().strip().splitlines()[-1]), wall
+
+
+def federated_full_width() -> dict:
+    """``cli federated -fl_st 0`` (the three stages) at full width with the
+    per-stage checks, one stage-1 round under torch.profiler, then a short
+    DP-FedAvg run of stage 3."""
+    from privacy_preserve_federated_asr_tpu_torch import cli
+    from privacy_preserve_federated_asr_tpu_torch.federated.engine import FederatedEngine
+    from privacy_preserve_federated_asr_tpu_torch.models.recipes import (
+        stage_trainable_predicate)
+    from privacy_preserve_federated_asr_tpu_torch.ops.attention import (
+        flash_attention_bwd, flash_attention_fwd)
+    from privacy_preserve_federated_asr_tpu_torch.train.optim import path_of
+
+    n_train_batches, n_eval_batches = -(-FL_TRAIN // FL_BATCH), -(-FL_TEST // FL_BATCH)
+    stages, originals = {}, {}
+
+    def checked(name: str, stage: int):
+        """``FederatedEngine.run_stage{stage + 1}`` with the stage's launch
+        counts (read, not reset), its log rows and the frozen / moved /
+        finite checks of its params."""
+        def run(eng):
+            before = {k: v.clone() for k, v in eng.global_params.items()}
+            b1, b2 = flash_attention_fwd.launches, flash_attention_bwd.launches
+            n_rows = len(eng.logger.history)
+            out = originals[name](eng)
+            pred, moved = stage_trainable_predicate(stage), []
+            for k, v in eng.global_params.items():
+                assert torch.isfinite(v).all(), (stage, k)
+                if not torch.equal(v, before[k]):
+                    assert pred(path_of(k)), f"stage {stage}: frozen {k} changed"
+                    moved.append(k)
+            stages[stage] = {"b1": flash_attention_fwd.launches - b1,
+                             "b2": flash_attention_bwd.launches - b2,
+                             "rows": eng.logger.history[n_rows:], "moved": moved,
+                             "trainable": sum(map(pred, map(path_of, before)))}
+            return out
+        return run
+
+    for name, stage in (("run_stage1", 0), ("run_stage2", 1), ("run_stage3", 2)):
+        originals[name] = getattr(FederatedEngine, name)
+        setattr(FederatedEngine, name, checked(name, stage))
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        _write_corpus(root / "data", FL_TRAIN, FL_TEST)
+        log(f"[federated] wrote {FL_TRAIN} train and {FL_TEST} test WAVs of 4-5 s in "
+            f"{time.perf_counter() - t0:.1f} s")
+        try:
+            flash_attention_fwd.launches = flash_attention_bwd.launches = 0
+            eng, ev, wall = _run_cli(root, ["federated", *FL_ARGS, "--epochs", "1",
+                                            "-fl_st", "0", "-model_out", "out/fl"])
+            b1, b2 = flash_attention_fwd.launches, flash_attention_bwd.launches
+        finally:
+            for name, fn in originals.items():
+                setattr(FederatedEngine, name, fn)
+        log(f"[federated] cli federated -fl_st 0 (data2vec-audio-large DACS bf16, 2 "
+            f"clients of {FL_TRAIN // 2}, public = all {FL_TRAIN}, 1 round per stage, global_ep 1, "
+            f"local_ep 1, batch {FL_BATCH}): {wall:.1f} s of host time (model init, data "
+            f"load and the three finals included); final eval {ev}  [{card_line()}]")
+        assert all(np.isfinite(v) for v in ev.values()), ev
+
+        for stage, s in stages.items():
+            rows = s["rows"]
+            ws = sum(r["warm_start_steps"] for r in rows if "warm_start_steps" in r)
+            local = sum(r["local_steps"] for r in rows if "local_steps" in r)
+            cache_fwd = sum(r["hidden_cache_forwards"] for r in rows
+                            if "hidden_cache_forwards" in r)
+            n_evals = sum("eval_loss" in r for r in rows)
+            if stage == 0:
+                want = (LAYERS * (ws + local + n_evals * n_eval_batches), LAYERS * (ws + local))
+            else:  # the Trainer's train cache, the round cache and the eval cache
+                want = (LAYERS * (n_train_batches + cache_fwd + n_eval_batches), 0)
+            assert (s["b1"], s["b2"]) == want, (stage, s["b1"], s["b2"], want, rows)
+            assert {r["phase"] for r in rows if "local_steps" in r} == {
+                "res" if stage == 0 else "res_h"}, rows
+            head = {0: "lm_head.weight", 1: "dementia_head.weight", 2: "arbitrator.weight"}
+            assert head[stage] in s["moved"], (stage, len(s["moved"]))
+            times = [f"warm-start {r['warm_start_s']:.2f} s ({r['warm_start_steps']:.0f} "
+                     f"steps, its train cache {r['train_cache_s']:.2f} s)"
+                     for r in rows if "warm_start_s" in r]
+            times += [f"hidden cache {r['hidden_cache_s']:.2f} s "
+                      f"({r['hidden_cache_forwards']:.0f} forwards of {FL_BATCH})"
+                      for r in rows if "hidden_cache_s" in r]
+            times += [f"round {r['fl_round']:.0f} {r['round_s']:.2f} s ({r['local_steps']:.0f} "
+                      f"{r['phase']} steps, clients "
+                      + ", ".join(f"{r[k]:.3f}" for k in r if k.endswith("_loss")) + ")"
+                      for r in rows if "local_steps" in r]
+            log(f"[federated] stage {stage}: B1 {s['b1']}, B2 {s['b2']} launches (as "
+                f"expected); {len(s['moved'])} of {s['trainable']} trainable tensors moved, "
+                f"every other one bit-unchanged, all finite; " + "; ".join(times)
+                + f"  [{card_line()}]")
+
+        cfg = eng.cfg
+        for name in ("FLASR", "FLAD", "final"):
+            sd = cli.load_weights(cfg, str(root / f"out/fl_{name}_global/final"), 0, "cuda")
+            assert set(sd) == set(eng.global_params), name
+        assert all(torch.equal(sd[k], v.cpu()) for k, v in eng.global_params.items())
+        log("[federated] the three finals (FLASR, FLAD, final) load back through "
+            "cli.load_weights; the last equals the engine's global params")
+
+        # one more stage-1 round (plan round 0 again) on the cached encoder
+        # output, its evaluation included, under torch.profiler
+        with _cwd(root), contextlib.redirect_stdout(io.StringIO()):
+            prof = profile_step(eng.run_rounds, (1, 1))
+        if prof is None:
+            log("[share] stage-1 round: device busy not measured (the profiler recorded "
+                "no device activity)")
+        else:
+            log(f"[share] one stage-1 round (4 head-only steps on the cached encoder output "
+                f"+ FedAvg + graft + evaluation) under torch.profiler: device busy "
+                f"{prof['device_ms']:.2f} ms of {prof['wall_ms']:.2f} ms wall (idle "
+                f"{1 - prof['device_ms'] / prof['wall_ms']:.1%}); B1 {prof['b1_ms']:.2f} ms, "
+                f"B2 {prof['b2_ms']:.2f} ms  [{card_line()}]")
+        del eng
+        torch.cuda.empty_cache()
+
+        # DP-FedAvg: stage 3 alone, two rounds
+        b1_dp = flash_attention_fwd.launches
+        dp_eng, dp_ev, dp_wall = _run_cli(root, [
+            "federated", *FL_ARGS, "--epochs", "2", "-fl_st", "3", "--dp_clip_norm", "1.0",
+            "--dp_noise_multiplier", "1.0", "-model_out", "out/dp"])
+        eps = [r["dp_epsilon"] for r in dp_eng.logger.history if "local_steps" in r]
+        assert len(eps) == 2 and all(np.isfinite(eps)) and eps[0] < eps[1], eps
+        assert all(np.isfinite(v) for v in dp_ev.values()), dp_ev
+        assert all(torch.isfinite(v).all() for v in dp_eng.global_params.values())
+        log(f"[federated-dp] cli federated -fl_st 3 --dp_clip_norm 1.0 "
+            f"--dp_noise_multiplier 1.0, 2 rounds: dp_epsilon {eps} (delta 1e-5, q = 1), "
+            f"finite and growing; {dp_wall:.1f} s of host time, "
+            f"{flash_attention_fwd.launches - b1_dp} B1 launches; final eval {dp_ev}  "
+            f"[{card_line()}]")
+        del dp_eng
+        torch.cuda.empty_cache()
+    return {"b1": b1, "b2": b2, "stages": {s: (v["b1"], v["b2"]) for s, v in stages.items()}}
+
+
+# ---------------------------------------------------------------------------
+# 9. one stage-1 round, card against CPU
+# ---------------------------------------------------------------------------
+
+def federated_round_vs_cpu() -> None:
+    """One stage-1 round of the 4-layer fp32 model on the card and on the
+    CPU, held to phase 7's rule."""
+    from privacy_preserve_federated_asr_tpu_torch.data import (
+        AsrExample, CTCCharTokenizer, prepare_examples)
+    from privacy_preserve_federated_asr_tpu_torch.federated import (
+        FederatedConfig, FederatedEngine)
+    from privacy_preserve_federated_asr_tpu_torch.models import (
+        BackboneConfig, DACSConfig, init_dacs_state_dict)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lr = 1e-4
+    cfg = DACSConfig(backbone=BackboneConfig.data2vec_audio_large().replace(
+        num_hidden_layers=4, hidden_dropout=0.0, activation_dropout=0.0,
+        attention_dropout=0.0, feat_proj_dropout=0.0, final_dropout=0.0), stage=1)
+    sd = init_dacs_state_dict(cfg, torch.Generator("cpu").manual_seed(4))
+    tok = CTCCharTokenizer()
+
+    def client(n, base):
+        return prepare_examples([AsrExample(
+            path=f"C{base}_{i}.wav", array=_utterance(1.5 + 0.4 * i, base + i),
+            text=SENTENCES[(base + i) % len(SENTENCES)], dementia_label=(base + i) % 2)
+            for i in range(n)], tok)
+
+    clients = {0: client(3, 40), 1: client(2, 50)}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        eng = FederatedEngine(cfg, FederatedConfig(
+            num_rounds=1, local_ep=1, batch_size=2, eval_batch_size=2, learning_rate=lr,
+            log_dir="."), clients, [], None, tok, sd, device=dev)
+        params = eng.run_rounds(stage=1, num_rounds=1)
+        row = [r for r in eng.logger.history if "local_steps" in r][0]
+        assert row["phase"] == "res_h" and row["dead_step_frac"] > 0, row
+        out[dev] = (row, {k: v.cpu() for k, v in params.items()})
+        del eng
+    (rg, pg), (rc, pc) = out["cuda"], out["cpu"]
+    losses = [(rg[f"client{c}_loss"], rc[f"client{c}_loss"]) for c in (0, 1)]
+    for g, c in losses:
+        assert abs(g - c) <= 1e-4 * abs(c), losses
+    worst, off = 0.0, 0
+    for k, c in pc.items():
+        assert torch.isfinite(pg[k]).all(), k
+        assert k.startswith("dementia_head.") or torch.equal(pg[k], c), k
+        diff = (pg[k] - c).abs()
+        worst = max(worst, diff.max().item())
+        off += int((diff > 1e-2 * lr).sum())
+    frac = off / sum(v.numel() for v in pc.values())
+    assert frac <= 5e-3, frac
+    log(f"[federated-e2e] one stage-1 round, 4-layer fp32, clients of 3 and 2 (a padding "
+        f"step), lr {lr}: client losses card / CPU {losses} (rtol 1e-4); params max|diff| "
+        f"{worst:.2e}, {frac:.2e} of elements beyond 1e-2 lr (limit 5e-3); only "
+        f"dementia_head moved")
+
+
 def _shape_times(row: dict, **shape) -> dict:
     return {**shape, **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                             "library_ms")}}
@@ -876,6 +1119,8 @@ def main(argv=None) -> None:
     end_to_end_vs_cpu()
     training = train_full_width()
     train_step_vs_cpu()
+    federated = federated_full_width()
+    federated_round_vs_cpu()
     t = kern["times"][(TS[-1], "bfloat16")]
     tb = bwd["times"][(*BWD_SHAPES[0], "bfloat16")]
     line = {"kernels": [{
@@ -883,7 +1128,7 @@ def main(argv=None) -> None:
         "route": "cuda",
         "source": "privacy_preserve_federated_asr_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "privacy_preserve_federated_asr_tpu/ops/attention.py:101",
-        "launches": serving["launches"] + training["b1"],
+        "launches": serving["launches"] + training["b1"] + federated["b1"],
         "max_abs_err": max(kern["max_abs_err"], serving["served_err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -896,7 +1141,7 @@ def main(argv=None) -> None:
         "route": "cuda",
         "source": "privacy_preserve_federated_asr_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "privacy_preserve_federated_asr_tpu/ops/attention.py:142",
-        "launches": training["b2"],
+        "launches": training["b2"] + federated["b2"],
         "max_abs_err": bwd["max_abs_err"],
         "ms": tb["ms"], "plain_ms": tb["plain_ms"], "bound_ms": tb["bound_ms"],
         "bound_by": tb["bound_by"], "library_ms": tb["library_ms"],
@@ -904,9 +1149,11 @@ def main(argv=None) -> None:
                                rate=TRAIN_RATE) for bb, ts in BWD_SHAPES],
     }]}
     log(f"[kernels] flash_fwd launches: serving {serving['launches']} + training "
-        f"{training['b1']}; times at B={B} T={TS[-1]} bf16. flash_bwd: training "
-        f"{training['b2']}; times at B={BWD_SHAPES[0][0]} T={BWD_SHAPES[0][1]} bf16 "
-        f"rate {TRAIN_RATE}; each kernel's \"times\" at every main-path bf16 shape")
+        f"{training['b1']} + federated {federated['b1']}; times at B={B} T={TS[-1]} bf16. "
+        f"flash_bwd: training {training['b2']} + federated {federated['b2']} (per stage "
+        f"(B1, B2): {federated['stages']}); times at B={BWD_SHAPES[0][0]} "
+        f"T={BWD_SHAPES[0][1]} bf16 rate {TRAIN_RATE}; each kernel's \"times\" at every "
+        f"main-path bf16 shape")
     print(json.dumps(line))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,13 @@
-"""Command-line interface of the port: ``train`` and ``serve`` (the JAX
-package's ``cli train`` and ``cli serve``, same flag names).
+"""Command-line interface of the port: ``train``, ``federated`` and
+``serve`` (the JAX package's subcommands of those names, same flag names).
 
     python -m privacy_preserve_federated_asr_tpu_torch.cli train \
         --model_type data2vec -st 0 --epochs 30 --audio_dir ... \
         --train_csv ... --test_csv ... --spk2label ... -model_out ./saves/model
+    python -m privacy_preserve_federated_asr_tpu_torch.cli federated \
+        --model_type data2vec -fl_st 0 --num_users 2 --epochs 10 --local_ep 5 \
+        --global_ep 30 --audio_dir ... --train_csv ... --test_csv ... \
+        --spk2label ... -model_out ./saves/model
     python -m privacy_preserve_federated_asr_tpu_torch.cli serve \
         --model_type data2vec --STAGE 2 --port 8008 [--model_in ckpt.bin]
 
@@ -11,9 +15,11 @@ package's ``cli train`` and ``cli serve``, same flag names).
 ``checkpoint-<step>/`` directory of ``train``), or a ForCTC torch state dict
 as the JAX package's ``cli export-hf`` writes it (or an HF encoder/ForCTC
 ``pytorch_model.bin``); heads the file lacks keep their random init. Without
-it the weights are a random init from ``--seed``. Both commands run on
-``--device`` (default ``cuda``; with no GPU they exit with an error rather
-than run on the CPU).
+it the weights are a random init from ``--seed``. Every command runs on
+``--device`` (default ``cuda``; with no GPU it exits with an error rather
+than run on the CPU). ``federated`` writes ``<model_out>_FLASR_global/final``,
+``<model_out>_FLAD_global/final`` and ``<model_out>_final_global/final``
+(per ``-fl_st``), each loadable with ``--model_in``.
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ def _dacs_cfg(args):
 
     train = dict(lambda_grl=args.LAMBDA, ad_loss=args.AD_loss,
                  w_loss=tuple(args.W_LOSS) if args.W_LOSS else (0.1, 0.9),
-                 grl_reverse=args.GRL) if args.cmd == "train" else {}
+                 grl_reverse=args.GRL) if args.cmd in ("train", "federated") else {}
     return DACSConfig(
         backbone=getattr(BackboneConfig, BACKBONES[args.model_type])(),
         method=args.method,
@@ -144,10 +150,71 @@ def cmd_train(args):
     return tr
 
 
+def cmd_federated(args):
+    """The 3-stage FedAvg pipeline, then print the final evaluation; returns
+    the FederatedEngine."""
+    from .data.splits import CLIENT_SPLITS_ADRESS, filter_by_speakers
+    from .federated import FederatedConfig, FederatedEngine
+    from .serving.engine import resolve_device
+    from .train.checkpoint import save_params
+
+    device = resolve_device(args.device)
+    if args.num_lms > 1:
+        raise NotImplementedError("federated options not ported yet: num_lms > 1")
+    if args.scan_layers or args.dp > 1 or args.tp > 1:
+        print("[federated] note: --scan_layers/--dp/--tp apply to `train` only; FL "
+              "parallelism is the engine's (client, data) mesh (FederatedConfig.mesh)")
+    meshes = (args.client_mesh, args.data_mesh, args.model_mesh)
+    fcfg = FederatedConfig(
+        num_rounds=args.epochs, num_clients=args.num_users, frac=args.frac,
+        local_ep=args.local_ep, global_ep=args.global_ep,
+        batch_size=args.train_batch_size, eval_batch_size=args.eval_batch_size,
+        seed=args.seed, learning_rate=args.learning_rate,
+        compute_dtype=args.compute_dtype, remat=args.remat,
+        log_file=args.log_path, supervised_level=args.supervised_level,
+        cache_encoder=False if args.no_cache_encoder else None,
+        dp_clip_norm=args.dp_clip_norm, dp_noise_multiplier=args.dp_noise_multiplier,
+        dp_delta=args.dp_delta, compress_bits=args.compress_bits,
+        secagg_clip_norm=args.secagg_clip_norm, secagg_bits=args.secagg_bits,
+        topk_fraction=args.topk_fraction, fedprox_mu=args.fedprox_mu,
+        server_optimizer=args.server_optimizer, server_lr=args.server_lr,
+        server_momentum=args.server_momentum, round_save_dir=args.round_save_dir,
+        mesh=meshes if max(meshes) > 1 or args.num_slices else None,
+        zero1=args.fl_zero1, tp=args.model_mesh > 1)
+
+    cfg = _dacs_cfg(args)
+    train_exs, tok = _load_examples(args, args.train_csv)
+    test_exs, _ = _load_examples(args, args.test_csv)
+    sd = load_weights(cfg, args.model_in_path, args.seed, device)
+    clients = {cid: filter_by_speakers(train_exs, CLIENT_SPLITS_ADRESS.get(cid, ()))
+               for cid in range(args.num_users)}
+    public = filter_by_speakers(train_exs, CLIENT_SPLITS_ADRESS["public"])
+    if any(len(v) == 0 for v in clients.values()) or len(public) == 0:
+        # the dataset does not use the ADReSS speaker ids: partition the
+        # speakers round-robin instead (public = all)
+        print("[federated] ADReSS speaker splits empty for this dataset; "
+              "partitioning speakers round-robin across clients")
+        speakers = sorted({e.path.split("_")[0] for e in train_exs})
+        clients = {cid: filter_by_speakers(train_exs, speakers[cid::args.num_users])
+                   for cid in range(args.num_users)}
+        public = train_exs
+    eng = FederatedEngine(cfg, fcfg, clients, public, test_exs, tok, sd, device=device)
+    del sd
+    out = str(Path(args.model_out_path))
+    for fl_stage, run, name in ((1, eng.run_stage1, "FLASR"), (2, eng.run_stage2, "FLAD"),
+                                (3, eng.run_stage3, "final")):
+        if args.FL_STAGE in (fl_stage, 0):
+            run()
+            save_params(f"{out}_{name}_global/final", eng.global_params,
+                        {"fl_stage": fl_stage})
+    print(json.dumps(eng.evaluate(stage=min(max(args.FL_STAGE - 1, 0), 2))))
+    return eng
+
+
 def _add_train(p) -> None:
     """The JAX ``_add_common`` flags the port's Trainer takes (the
     parallelism and layout flags are accepted and refused by the Trainer
-    until they are ported), plus ``--epochs`` and ``--device``."""
+    until they are ported), plus ``--device``."""
     p.add_argument("--model_type", default="data2vec", choices=sorted(BACKBONES))
     p.add_argument("--method", default="dacs", choices=["dacs", "toggle_more", "grl"])
     p.add_argument("-GRL", "--GRL", action="store_true", default=False,
@@ -190,9 +257,47 @@ def _add_train(p) -> None:
     p.add_argument("--no_cache_encoder", action="store_true")
     p.add_argument("--no_cache_frontend", action="store_true",
                    help="stage 0: full forward from waveforms every step")
-    p.add_argument("--epochs", type=int, default=30)
     p.add_argument("--device", default="cuda",
                    help="torch device; cpu only when asked for explicitly")
+
+
+def _add_federated(p) -> None:
+    """The JAX ``cli federated`` flags; those of options not ported yet are
+    accepted and refused by the engine's config (or here: ``--num_lms``)."""
+    p.add_argument("--num_lms", type=int, default=1)
+    p.add_argument("-fl_st", "--FL_STAGE", type=int, default=0,
+                   help="1/2/3, or 0 = full pipeline")
+    p.add_argument("--epochs", type=int, default=10, help="FL rounds")
+    p.add_argument("--num_users", type=int, default=2)
+    p.add_argument("--frac", type=float, default=1.0)
+    p.add_argument("--local_ep", type=int, default=5)
+    p.add_argument("--global_ep", type=int, default=30)
+    p.add_argument("-sl", "--supervised_level", type=float, default=1.0)
+    p.add_argument("--unsup_train_csv", default=None,
+                   help="unlabeled client data for supervised_level < 1 (not ported)")
+    p.add_argument("--dp_clip_norm", type=float, default=None,
+                   help="DP-FedAvg: clip client update deltas to this L2 norm")
+    p.add_argument("--dp_noise_multiplier", type=float, default=0.0,
+                   help="DP-FedAvg: Gaussian noise std = clip * this / K")
+    p.add_argument("--dp_delta", type=float, default=1e-5,
+                   help="delta of the reported (epsilon, delta) guarantee")
+    p.add_argument("--client_mesh", type=int, default=1)
+    p.add_argument("--data_mesh", type=int, default=1)
+    p.add_argument("--num_slices", type=int, default=0)
+    p.add_argument("--fl_zero1", action="store_true")
+    p.add_argument("--model_mesh", type=int, default=1)
+    p.add_argument("--fedprox_mu", type=float, default=0.0)
+    p.add_argument("--server_optimizer", default="none",
+                   choices=["none", "momentum", "adam"])
+    p.add_argument("--server_lr", type=float, default=None)
+    p.add_argument("--server_momentum", type=float, default=0.9)
+    p.add_argument("--compress_bits", type=int, default=None)
+    p.add_argument("--secagg_clip_norm", type=float, default=None)
+    p.add_argument("--secagg_bits", type=int, default=20)
+    p.add_argument("--topk_fraction", type=float, default=None)
+    p.add_argument("--round_save_dir", default=None,
+                   help="save the global params after every round and resume "
+                        "from the newest round checkpoint on restart")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -201,7 +306,13 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = sub.add_parser("train", help="centralized training (any stage/recipe)")
     _add_train(p)
+    p.add_argument("--epochs", type=int, default=30)
     p.set_defaults(fn=cmd_train)
+
+    p = sub.add_parser("federated", help="federated 3-stage pipeline")
+    _add_train(p)
+    _add_federated(p)
+    p.set_defaults(fn=cmd_federated)
 
     p = sub.add_parser("serve", help="batched ASR+AD inference server on the GPU")
     p.add_argument("--model_type", default="data2vec", choices=sorted(BACKBONES))

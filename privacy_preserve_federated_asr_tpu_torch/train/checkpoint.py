@@ -5,7 +5,8 @@ states with a retention limit (``save_total_limit``), plus ``<dir>/final/``
 for the end-of-run export; metadata rides in a sidecar ``metadata.json``.
 A full state (``state.pt``) holds the params, the AdamW moments and
 schedule, the step and the random streams, so a resume continues exactly;
-the export (``model.pt``) holds the params as an fp32 state dict.
+the export (``model.pt``, :func:`save_params`) holds the params as an fp32
+state dict, as the federated engine's finals and round checkpoints do.
 
 Reading the JAX package's orbax checkpoints waits for a later slice (it
 needs orbax).
@@ -31,12 +32,12 @@ class CheckpointManager:
         self.save_total_limit = save_total_limit
 
     def save(self, tree: dict[str, Any], step: int, metadata: dict | None = None,
-             name: str | None = None, filename: str = STATE_FILE) -> Path:
+             name: str | None = None) -> Path:
         path = self.dir / (name if name is not None else f"checkpoint-{step}")
         if path.exists():
             shutil.rmtree(path)
         path.mkdir(parents=True)
-        torch.save(tree, path / filename)
+        torch.save(tree, path / STATE_FILE)
         if metadata is not None:
             (path / "metadata.json").write_text(json.dumps({"step": step, **metadata}))
         if name is None:
@@ -46,8 +47,8 @@ class CheckpointManager:
     def save_final(self, state_dict: dict[str, torch.Tensor],
                    metadata: dict | None = None) -> Path:
         """The reference's ``trainer.save_model(path + "/final")``."""
-        return self.save({k: v.detach().float().cpu() for k, v in state_dict.items()},
-                         step=-1, metadata=metadata, name="final", filename=MODEL_FILE)
+        return save_params(self.dir / "final", state_dict,
+                           None if metadata is None else {"step": -1, **metadata})
 
     def restore(self, name_or_step: str | int, map_location="cpu") -> dict:
         name = (f"checkpoint-{name_or_step}"
@@ -66,6 +67,29 @@ class CheckpointManager:
                      key=lambda p: int(p.name.split("-")[1]))
         for p in cks[: max(0, len(cks) - self.save_total_limit)]:
             shutil.rmtree(p)
+
+
+def save_params(path: str | Path, state_dict: dict[str, torch.Tensor],
+                metadata: dict | None = None) -> Path:
+    """One-shot params export (the federated engine's weight hand-off and
+    round checkpoints): ``<path>/model.pt``, an fp32 CPU state dict, and the
+    metadata in ``<path>/metadata.json``. Replaces what was at ``path``."""
+    p = Path(path)
+    if p.exists():
+        shutil.rmtree(p)
+    p.mkdir(parents=True)
+    torch.save({k: v.detach().float().cpu() for k, v in state_dict.items()}, p / MODEL_FILE)
+    if metadata is not None:
+        (p / "metadata.json").write_text(json.dumps(metadata))
+    return p
+
+
+def load_params(path: str | Path) -> dict[str, torch.Tensor]:
+    """The state dict :func:`save_params` (or a Trainer checkpoint) wrote."""
+    sd = load_state_dict(path)
+    if sd is None:
+        raise FileNotFoundError(f"no port checkpoint or export at {path}")
+    return sd
 
 
 def load_state_dict(path: str | Path) -> dict[str, torch.Tensor] | None:

@@ -107,22 +107,73 @@ def frontend_forward_fn(model: DACSModel):
     return fwd
 
 
+@dataclass
+class HiddenBatch:
+    """A batch of CACHED encoder outputs for the frozen-encoder stages (1/2):
+    the head-only train step consumes these instead of waveforms."""
+
+    hidden_states: torch.Tensor    # [B, T', D] backbone output (before the final dropout)
+    frame_lengths: torch.Tensor    # [B]
+    labels: torch.Tensor           # [B, L]
+    label_lengths: torch.Tensor    # [B]
+    dementia_labels: torch.Tensor  # [B]
+    sample_mask: torch.Tensor      # [B]
+
+
+def backbone_forward_fn(model: DACSModel):
+    """Deterministic backbone-only forward -> (h [B, T', D], frame_lengths):
+    the cache-building primitive of the Trainer's ``cache_encoder`` and the
+    federated engine's head-only rounds. The backbone runs in eval mode
+    (no dropout, no SpecAugment), its mode restored afterwards."""
+    bcfg = model.cfg.backbone
+
+    @torch.no_grad()
+    def fwd(input_values: torch.Tensor, input_lengths: torch.Tensor):
+        t = feat_extract_output_lengths(bcfg, input_values.shape[1])
+        fl = feat_extract_output_lengths(bcfg, input_lengths)
+        fm = (torch.arange(t, device=input_values.device)[None, :]
+              < fl[:, None]).to(torch.int32)
+        was_training = model.backbone.training
+        model.backbone.eval()
+        try:
+            return model.backbone(input_values, fm), fl
+        finally:
+            model.backbone.train(was_training)
+
+    return fwd
+
+
+def gather_hidden(h, fl, labels, label_lengths, dementia_labels, idx: torch.Tensor,
+                  row_mask: torch.Tensor | None = None) -> HiddenBatch:
+    """Row-gather a HiddenBatch from cached encoder outputs; idx == -1 marks
+    batch-padding rows (frame and label lengths 0, labels -100, sample mask
+    0). ``row_mask`` carries the source rows' own sample mask where the
+    cache itself holds padding rows (the federated engine's per-client
+    data)."""
+    safe = idx.clamp(0, h.shape[0] - 1)
+    mask = idx >= 0
+    sm = mask.float()
+    if row_mask is not None:
+        sm = sm * row_mask[safe]
+
+    def keep(x, fill):
+        g = x[safe]
+        m = mask.view(-1, *([1] * (g.dim() - 1)))
+        return torch.where(m, g, torch.full_like(g, fill))
+
+    return HiddenBatch(hidden_states=h[safe], frame_lengths=keep(fl, 0),
+                       labels=keep(labels, -100), label_lengths=keep(label_lengths, 0),
+                       dementia_labels=keep(dementia_labels, 0), sample_mask=sm)
+
+
 def gather_features(feats, fl, labels, label_lengths, dementia_labels,
                     idx: torch.Tensor) -> FeatureBatch:
-    """Row-gather a FeatureBatch from cached conv-frontend outputs; idx == -1
-    marks batch-padding rows (frame and label lengths 0, labels -100,
-    sample mask 0), as the JAX ``gather_hidden``."""
-    safe = idx.clamp(0, feats.shape[0] - 1)
-    mask = idx >= 0
-    return FeatureBatch(
-        features=feats[safe],
-        frame_lengths=torch.where(mask, fl[safe], torch.zeros_like(fl[safe])),
-        labels=torch.where(mask[:, None], labels[safe], torch.full_like(labels[safe], -100)),
-        label_lengths=torch.where(mask, label_lengths[safe],
-                                  torch.zeros_like(label_lengths[safe])),
-        dementia_labels=torch.where(mask, dementia_labels[safe],
-                                    torch.zeros_like(dementia_labels[safe])),
-        sample_mask=mask.float())
+    """Row-gather a FeatureBatch from cached conv-frontend outputs (the
+    semantics of :func:`gather_hidden`)."""
+    hb = gather_hidden(feats, fl, labels, label_lengths, dementia_labels, idx)
+    return FeatureBatch(features=hb.hidden_states, frame_lengths=hb.frame_lengths,
+                        labels=hb.labels, label_lengths=hb.label_lengths,
+                        dementia_labels=hb.dementia_labels, sample_mask=hb.sample_mask)
 
 
 def make_feature_train_step(cfg: DACSConfig, aux_metrics: bool = False,
@@ -138,13 +189,45 @@ def make_feature_train_step(cfg: DACSConfig, aux_metrics: bool = False,
     def train_step(state: DACSTrainState, batch: FeatureBatch) -> dict:
         model = state.model
         set_train_modes(model, recipe, cfg.stage)
-        t = batch.features.shape[1]
-        frame_mask = (torch.arange(t, device=batch.features.device)[None, :]
-                      < batch.frame_lengths[:, None]).to(torch.int32)
+        frame_mask = _frame_mask(batch.frame_lengths, batch.features.shape[1])
         out = model.apply_from_features(batch.features, frame_mask, batch.frame_lengths,
                                         generator=state.gumbel,
                                         seed_generator=state.seeds,
                                         need_masks=need_masks)
+        loss, metrics = recipe.loss(out, batch.labels, batch.label_lengths,
+                                    batch.dementia_labels, cfg, model,
+                                    batch.sample_mask, aux_metrics)
+        return _apply_update(state, loss, metrics)
+
+    return train_step
+
+
+def _frame_mask(frame_lengths: torch.Tensor, t: int) -> torch.Tensor:
+    return (torch.arange(t, device=frame_lengths.device)[None, :]
+            < frame_lengths[:, None]).to(torch.int32)
+
+
+def make_hidden_train_step(cfg: DACSConfig, aux_metrics: bool = False,
+                           recipe: Recipe | None = None
+                           ) -> Callable[[DACSTrainState, HiddenBatch], dict]:
+    """Train step over cached encoder outputs (``DACSModel.apply_heads``).
+
+    Valid exactly when the backbone is frozen AND deterministic (the DACS
+    stage-1/2 semantics: the reference freezes the encoder and calls
+    ``.eval()`` on it), so ``backbone(x)`` is a constant per utterance. The
+    final dropout and the Gumbel noise stay live per step (they sit after
+    the cache point)."""
+    recipe = recipe or get_recipe(cfg.method)
+    assert not recipe.backbone_trains(cfg.stage), \
+        "cached-encoder training needs a frozen backbone"
+    need_masks = aux_metrics or recipe.uses_masks(cfg.stage)
+
+    def train_step(state: DACSTrainState, batch: HiddenBatch) -> dict:
+        model = state.model
+        set_train_modes(model, recipe, cfg.stage)
+        fm = _frame_mask(batch.frame_lengths, batch.hidden_states.shape[1])
+        out = model.apply_heads(batch.hidden_states, fm, batch.frame_lengths,
+                                generator=state.gumbel, need_masks=need_masks)
         loss, metrics = recipe.loss(out, batch.labels, batch.label_lengths,
                                     batch.dementia_labels, cfg, model,
                                     batch.sample_mask, aux_metrics)
@@ -174,6 +257,23 @@ def make_eval_step(cfg: DACSConfig, recipe: Recipe | None = None):
         model.eval()
         gen = torch.Generator(batch.input_values.device).manual_seed(0)
         out = model(batch.input_values, batch.input_lengths, generator=gen)
+        return _eval_from_outputs(out, model, batch, cfg, recipe)
+
+    return eval_step
+
+
+def make_hidden_eval_step(cfg: DACSConfig, recipe: Recipe | None = None):
+    """:func:`make_eval_step` over cached encoder outputs (the validity
+    condition of :func:`make_hidden_train_step`)."""
+    recipe = recipe or get_recipe(cfg.method)
+
+    @torch.no_grad()
+    def eval_step(model: DACSModel, batch: HiddenBatch):
+        model.eval()
+        h = batch.hidden_states
+        gen = torch.Generator(h.device).manual_seed(0)
+        out = model.apply_heads(h, _frame_mask(batch.frame_lengths, h.shape[1]),
+                                batch.frame_lengths, generator=gen)
         return _eval_from_outputs(out, model, batch, cfg, recipe)
 
     return eval_step

@@ -3,21 +3,31 @@ serves every DACS recipe and stage.
 
 The JAX ``Trainer`` on one device: stage routing is config (the recipe's
 loss, trainable parameters and modes), batches come from the length-bucketed
-batcher, and stage 0 trains on the cached output of the frozen conv
-frontend (``cache_frontend``, auto for stage 0), cropped per batch to the
-batch's own bucket length so the encoder sees the full-forward shapes. Every
-other case runs the full forward from waveforms. Logging, evaluation,
-checkpoints and the final export follow the JAX cadences.
+batcher, and two caches of frozen, deterministic forwards stand in for the
+full forward:
+
+  * ``cache_encoder`` (auto: on where the recipe freezes the backbone, the
+    DACS stages 1/2): the encoder output of every train utterance is
+    computed once and the steps train the heads on it
+    (``make_hidden_train_step``); evaluation runs the heads on a cache of
+    the eval set's encoder outputs;
+  * ``cache_frontend`` (auto for stage 0, off under ``cache_encoder``): the
+    conv frontend's output, cropped per batch to the batch's own bucket
+    length so the encoder sees the full-forward shapes.
+
+Either falls back to the full forward from waveforms past
+``cache_budget_bytes``. Logging, evaluation, checkpoints and the final
+export follow the JAX cadences.
 
 Options the port does not run yet raise ``NotImplementedError``: data,
 tensor, pipeline and sequence parallelism (``dp``, ``tp``, ``pp``, ``sp``),
-``zero1``, ``scan_layers``, ``remat``, ``grad_accum > 1``, the
-frozen-encoder cache (``cache_encoder=True``; auto resolves to off) and
-prefetch threads (``prefetch > 0``).
+``zero1``, ``scan_layers``, ``remat``, ``grad_accum > 1`` and prefetch
+threads (``prefetch > 0``).
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Mapping, Sequence
@@ -38,10 +48,15 @@ from .metrics import wer
 from .optim import make_optimizer
 from .steps import (
     DeviceBatch,
+    HiddenBatch,
+    backbone_forward_fn,
     frontend_forward_fn,
     gather_features,
+    gather_hidden,
     make_eval_step,
     make_feature_train_step,
+    make_hidden_eval_step,
+    make_hidden_train_step,
     make_train_step,
 )
 from .train_state import create_train_state
@@ -78,7 +93,9 @@ class TrainerConfig:
     max_samples: int | None = None           # drop utterances longer than this
     shuffle_window: int | None = None        # per-epoch membership reshuffle
     prefetch: int = 0                        # prefetch threads: not ported
-    cache_encoder: bool | None = None        # None = auto (off until ported)
+    # stages 1/2: train the heads on the cached encoder output.
+    # None = auto (on where the recipe freezes the backbone)
+    cache_encoder: bool | None = None
     # stage 0: train on the cached output of the frozen conv frontend.
     # None = auto (on for stage 0 with a padding-invariant frontend)
     cache_frontend: bool | None = None
@@ -92,8 +109,7 @@ class TrainerConfig:
 def _check_ported(t: TrainerConfig) -> None:
     later = {"dp": t.dp != 1, "tp": t.tp != 1, "pp": t.pp != 1, "sp": t.sp != 1,
              "zero1": t.zero1, "scan_layers": t.scan_layers, "remat": t.remat,
-             "grad_accum > 1": t.grad_accum > 1, "cache_encoder=True": bool(t.cache_encoder),
-             "prefetch > 0": t.prefetch > 0}
+             "grad_accum > 1": t.grad_accum > 1, "prefetch > 0": t.prefetch > 0}
     missing = [k for k, on in later.items() if on]
     if missing:
         raise NotImplementedError(f"Trainer options not ported yet: {', '.join(missing)}")
@@ -145,12 +161,26 @@ class Trainer:
         self._eval_step = make_eval_step(cfg)
         self._eval_cache = None  # eval batches on the device (the eval set is static)
 
-        if tcfg.cache_frontend and not self.recipe.supports_cache:
+        if tcfg.cache_encoder and self.recipe.backbone_trains(cfg.stage):
+            raise ValueError("cache_encoder requires a frozen backbone; "
+                             f"method={cfg.method!r} stage {cfg.stage} trains the encoder")
+        if (tcfg.cache_encoder or tcfg.cache_frontend) and not self.recipe.supports_cache:
             raise ValueError("frozen-forward caching is wired for the DACS model only "
                              f"(method={cfg.method!r})")
-        # the cache's "same value at any batch padding" invariant needs a
-        # per-frame frontend: true for "layer" feat_extract_norm, false for
-        # "group" (GroupNorm over the whole padded time axis)
+        self._cache_encoder = (
+            not self.recipe.backbone_trains(cfg.stage) and self.recipe.supports_cache
+            if tcfg.cache_encoder is None else tcfg.cache_encoder)
+        self._hidden = None       # train-set encoder-output cache
+        self._hidden_eval = None  # [(host Batch, HiddenBatch)] for evaluate()
+        if self._cache_encoder:
+            hstep = make_hidden_train_step(cfg)
+            self._hidden_step = lambda state, h, fl, lab, ll, dem, idx: hstep(
+                state, gather_hidden(h, fl, lab, ll, dem, idx))
+            self._hidden_eval_step = make_hidden_eval_step(cfg)
+            self._encoder_fwd = backbone_forward_fn(self.state.model)
+        # the frontend cache's "same value at any batch padding" invariant
+        # needs a per-frame frontend: true for "layer" feat_extract_norm,
+        # false for "group" (GroupNorm over the whole padded time axis)
         frontend_cacheable = cfg.backbone.feat_extract_norm == "layer"
         if tcfg.cache_frontend and not frontend_cacheable:
             raise ValueError(
@@ -160,6 +190,8 @@ class Trainer:
         self._cache_frontend = (
             cfg.stage == 0 and self.recipe.supports_cache and frontend_cacheable
             if tcfg.cache_frontend is None else tcfg.cache_frontend)
+        if self._cache_encoder:
+            self._cache_frontend = False  # the deeper cache subsumes it
         self._features = None  # train-set conv-frontend cache
         if self._cache_frontend:
             fstep = make_feature_train_step(cfg)
@@ -173,14 +205,17 @@ class Trainer:
 
             self._feature_step = feature_step
 
-    # ---- the stage-0 conv-frontend cache ----
+    # ---- caches of frozen forwards ----
 
-    def _build_frontend_cache(self):
-        """Conv-frontend outputs of every train utterance, computed once, each
-        build batch's audio padded to the global max: with a per-frame
-        frontend, a row holds at every frame index what a full forward at any
-        padding covering that frame computes. Row n is scratch for the
-        batch-padding rows. None when over ``cache_budget_bytes``."""
+    def _build_cache(self, fwd, width: int, tag: str, uniform_audio_pad: bool = False):
+        """Per-utterance ``[n+1, T', width]`` cache of a frozen, deterministic
+        forward of every train utterance, computed once (row n is scratch
+        for the batch-padding rows); None when over ``cache_budget_bytes``.
+        ``uniform_audio_pad`` pads every build batch's audio to the global
+        max (the conv frontend: with a per-frame frontend a row then holds
+        at every frame index what a full forward at any padding covering
+        that frame computes); otherwise each build batch runs at its own
+        bucket length."""
         bat, bcfg = self.train_batcher, self.cfg.backbone
         exs = bat.examples
         n = len(exs)
@@ -188,11 +223,12 @@ class Trainer:
             return None
         t_pad = _round_up(max(len(e.input_values) for e in exs), bat.time_multiple)
         t_frames = feat_extract_output_lengths(bcfg, t_pad)
-        width, dt, dev = bcfg.conv_dim[-1], self.state.model.dtype, self.device
+        dt, dev = self.state.model.dtype, self.device
         if (n + 1) * t_frames * width * dt.itemsize > self.tcfg.cache_budget_bytes:
-            print(f"[cache_frontend] train cache ({n}x{t_frames}x{width} {dt}) over "
-                  "budget; falling back to full forward per step")
+            print(f"[{tag}] train cache ({n}x{t_frames}x{width} {dt}) over budget; "
+                  "falling back to full forward per step")
             return None
+        t0 = time.perf_counter()
         cache = torch.zeros((n + 1, t_frames, width), dtype=dt, device=dev)
         fl = np.zeros((n + 1,), np.int64)
         l_max = _round_up(max(len(e.labels) for e in exs), bat.label_multiple)
@@ -203,16 +239,43 @@ class Trainer:
             labels[i, : len(e.labels)] = e.labels
             ll[i] = len(e.labels)
             dem[i] = e.dementia_label
-        fwd = frontend_forward_fn(self.state.model)
         for g, b in zip(bat.epoch_indices(0), bat.epoch(0)):
-            iv = np.pad(b.input_values, ((0, 0), (0, t_pad - b.input_values.shape[1])))
-            h, _ = fwd(torch.from_numpy(iv).to(dev),
-                       torch.from_numpy(b.input_lengths).to(dev))
+            iv = b.input_values
+            if uniform_audio_pad:
+                iv = np.pad(iv, ((0, 0), (0, t_pad - iv.shape[1])))
+            h, _ = fwd(torch.from_numpy(iv).to(dev), torch.from_numpy(b.input_lengths).to(dev))
             idx = np.asarray(g)
             cache[torch.from_numpy(np.where(idx >= 0, idx, n)).to(dev), : h.shape[1]] = h
             real = idx >= 0
             fl[idx[real]] = feat_extract_output_lengths(bcfg, b.input_lengths)[real]
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        self.logger.log({"cache": tag, "cache_s": time.perf_counter() - t0, "cache_rows": n})
         return (cache,) + tuple(torch.from_numpy(x).to(dev) for x in (fl, labels, ll, dem))
+
+    def _build_frontend_cache(self):
+        """Conv-frontend outputs of every train utterance (the stage-0 fast
+        path): the frontend is frozen in every recipe and has no dropout."""
+        return self._build_cache(frontend_forward_fn(self.state.model),
+                                 self.cfg.backbone.conv_dim[-1], "cache_frontend",
+                                 uniform_audio_pad=True)
+
+    def _build_train_cache(self):
+        """Encoder outputs of every train utterance: in stages 1/2 the
+        backbone is frozen and deterministic, so this is a constant for the
+        whole ``train()`` call."""
+        return self._build_cache(self._encoder_fwd, self.cfg.hidden_size, "cache_encoder")
+
+    def _build_eval_cache_hidden(self) -> list:
+        """(host Batch, HiddenBatch) pairs of the static eval set: evaluation
+        runs the heads only once the encoder outputs are cached."""
+        out = []
+        for b in self.eval_batcher.epoch(epoch_seed=0):
+            db = DeviceBatch.from_host(b, self.device)
+            h, fl = self._encoder_fwd(db.input_values, db.input_lengths)
+            out.append((b, HiddenBatch(h, fl, db.labels, db.label_lengths,
+                                       db.dementia_labels, db.sample_mask)))
+        return out
 
     # ---- checkpoints ----
 
@@ -253,13 +316,19 @@ class Trainer:
 
     def evaluate(self) -> dict:
         assert self.eval_batcher is not None
-        if self._eval_cache is None:
-            self._eval_cache = [(b, DeviceBatch.from_host(b, self.device))
-                                for b in self.eval_batcher.epoch(epoch_seed=0)]
+        if self._cache_encoder:
+            if self._hidden_eval is None:
+                self._hidden_eval = self._build_eval_cache_hidden()
+            batches, step = self._hidden_eval, self._hidden_eval_step
+        else:
+            if self._eval_cache is None:  # the eval set and its batching are static
+                self._eval_cache = [(b, DeviceBatch.from_host(b, self.device))
+                                    for b in self.eval_batcher.epoch(epoch_seed=0)]
+            batches, step = self._eval_cache, self._eval_step
         refs, hyps, losses = [], [], []
         ad_correct = ad_total = 0
-        for b, db in self._eval_cache:
-            loss, pred_ids, ad_pred = self._eval_step(self.state.model, db)
+        for b, db in batches:
+            loss, pred_ids, ad_pred = step(self.state.model, db)
             pred_ids, ad_pred = pred_ids.cpu().numpy(), ad_pred.cpu().numpy()
             losses.append(float(loss))
             for i in range(len(b.paths)):  # only real rows have paths
@@ -273,8 +342,19 @@ class Trainer:
 
     def train_batches(self, epoch: int):
         """Yield ``(n_real_utts, (step_fn, step_args))`` per batch of the
-        epoch: cached-feature gathers at stage 0, device batches otherwise."""
+        epoch: cached-encoder gathers in stages 1/2, cached-feature gathers
+        at stage 0, device batches otherwise."""
         t = self.tcfg
+        if self._cache_encoder:
+            if self._hidden is None:
+                self._hidden = self._build_train_cache() or False  # False: over budget
+            if self._hidden:
+                for g in self.train_batcher.epoch_indices(t.seed + epoch):
+                    idx = np.asarray(g, np.int64)
+                    yield int((idx >= 0).sum()), (
+                        self._hidden_step,
+                        (*self._hidden, torch.from_numpy(idx).to(self.device)))
+                return
         if self._cache_frontend:
             if self._features is None:
                 self._features = self._build_frontend_cache() or False

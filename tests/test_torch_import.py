@@ -81,14 +81,40 @@ def test_default_device_without_gpu_raises(monkeypatch):
 
 
 def test_copied_numpy_modules_match_jax_package(tmp_path):
-    """data/audio.py and data/tokenizer.py are copies, not imports: they
-    must keep giving the JAX package's answers."""
+    """data/audio.py, data/tokenizer.py, data/splits.py and
+    federated/privacy.py are copies, not imports: they must keep giving the
+    JAX package's answers."""
+    from types import SimpleNamespace
+
     from scipy.io import wavfile
 
     from privacy_preserve_federated_asr_tpu.data import audio as jax_audio
+    from privacy_preserve_federated_asr_tpu.data import splits as jax_splits
     from privacy_preserve_federated_asr_tpu.data.tokenizer import CTCCharTokenizer as JaxTok
-    from privacy_preserve_federated_asr_tpu_torch.data import audio
+    from privacy_preserve_federated_asr_tpu.federated import privacy as jax_privacy
+    from privacy_preserve_federated_asr_tpu_torch.data import audio, splits
     from privacy_preserve_federated_asr_tpu_torch.data.tokenizer import CTCCharTokenizer
+    from privacy_preserve_federated_asr_tpu_torch.federated import privacy
+
+    assert splits.CLIENT_SPLITS_ADRESS == jax_splits.CLIENT_SPLITS_ADRESS
+    assert splits.CLIENT_SPLITS_ADRESSO == jax_splits.CLIENT_SPLITS_ADRESSO
+    exs = [SimpleNamespace(path=f"S{i:03d}_PAR_0.wav") for i in range(160)]
+    for cid in ("public", 0, 1):
+        spk = splits.CLIENT_SPLITS_ADRESS[cid]
+        assert splits.filter_by_speakers(exs, spk) == jax_splits.filter_by_speakers(exs, spk)
+    for q, sigma in ((0.02, 4.0), (0.5, 1.1), (1.0, 0.7)):
+        np.testing.assert_array_equal(privacy.rdp_sampled_gaussian(q, sigma),
+                                      jax_privacy.rdp_sampled_gaussian(q, sigma))
+        assert (privacy.epsilon_for_rounds(30, q, sigma, 1e-5)
+                == jax_privacy.epsilon_for_rounds(30, q, sigma, 1e-5))
+    assert (privacy.noise_for_epsilon(30, 0.5, 8.0, 1e-5)
+            == jax_privacy.noise_for_epsilon(30, 0.5, 8.0, 1e-5))
+    acc, jacc = privacy.DpAccountant(delta=1e-6), jax_privacy.DpAccountant(delta=1e-6)
+    for a in (acc, jacc):
+        a.step(0.5, 1.1, num_steps=3)
+        a.step(1.0, 2.0)
+    assert acc.epsilon() == jacc.epsilon() and acc.state_dict() == jacc.state_dict()
+    assert privacy.DpAccountant.from_state(acc.state_dict()).epsilon() == acc.epsilon()
 
     rng = np.random.default_rng(11)
     x = rng.normal(0, 0.2, 5000).astype(np.float32)

@@ -370,9 +370,9 @@ def test_trainer_full_forward_recipes(method, stage):
     cfg = DACSConfig(backbone=BackboneConfig.tiny_for_tests(), stage=stage, method=method)
     sd = init_dacs_state_dict(cfg, torch.Generator().manual_seed(0))
     tcfg = TrainerConfig(batch_size=2, logging_steps=1, learning_rate=1e-3,
-                         time_multiple=1600, log_dir=".")
+                         time_multiple=1600, log_dir=".", cache_encoder=False)
     tr = Trainer(cfg, sd, _examples(2), None, CTCCharTokenizer(), tcfg, device="cpu")
-    assert not tr._cache_frontend
+    assert not tr._cache_frontend and not tr._cache_encoder
     tr.train()
     assert tr.state.step == 1 and np.isfinite(tr.logger.history[0]["loss"])
     pred = get_recipe(method).trainable(stage)
@@ -383,7 +383,7 @@ def test_trainer_full_forward_recipes(method, stage):
 @pytest.mark.parametrize("option", [dict(dp=2), dict(tp=2), dict(pp=2), dict(sp=2),
                                     dict(zero1=True), dict(scan_layers=True),
                                     dict(remat=True), dict(grad_accum=2),
-                                    dict(cache_encoder=True), dict(prefetch=2)])
+                                    dict(sp=2, scan_layers=True), dict(prefetch=2)])
 def test_options_not_ported_raise(option):
     cfg = DACSConfig(backbone=BackboneConfig.tiny_for_tests(), stage=0)
     with pytest.raises(NotImplementedError):
