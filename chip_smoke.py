@@ -4,8 +4,9 @@
     python3 chip_smoke.py                  # every phase (the contract's run)
     python3 chip_smoke.py --kernels-only   # phases 1, 2 and 5: build and check
 
-Drives the port's serving path, its stage-0 training path and its federated
-3-stage pipeline (privacy_preserve_federated_asr_tpu_torch) and holds its
+Drives the port's serving path, its stage-0 training path, its federated
+3-stage pipeline and its system-run chain (extract, svm, detail-wer,
+feat-scoring; privacy_preserve_federated_asr_tpu_torch) and holds its
 hand-written kernels against their plain versions. It imports nothing of JAX or of the
 JAX package. Phases, in order; any failure raises and ends the run with a
 non-zero exit:
@@ -58,10 +59,23 @@ non-zero exit:
    ``dp_epsilon`` is finite and grows;
 9. one stage-1 round, card against CPU: the model cut to 4 layers at fp32,
    clients of 3 and 2 utterances (a padding step), phase 7's rule;
-10. one JSON line listing each kernel (launches on the main paths, error
+10. the system-run chain at full width, through ``cli.main``: ``extract -st
+   2`` of phase 8's final global model over its 24 train and 8 test WAVs,
+   batch 8, at the default fp32 (24 B1 launches per batch; row counts, the
+   JAX column set, [1, T_valid, 1024] rows, binary finite masks), then
+   ``svm -sq mean`` (the SVC fitted on the card), ``detail-wer -t 2``,
+   ``feat-scoring`` and ``pkl2csv`` on its pickles, with neither
+   scikit-learn nor pandas imported; the extraction again in bf16, held to
+   the fp32 rows (hidden states atol 0.15, rtol 0.1, pred_AD equal); walls,
+   utt/s, the SVM fit time and B1's share of one fp32 batch's device time;
+11. extraction card against CPU: the model cut to 4 layers at fp32 with the
+   same injected noise (phase 4's tolerance; masks, transcripts, AD votes
+   equal), and phase 10's SVM on both (equal predictions, decision values
+   within 1e-6 of their largest magnitude);
+12. one JSON line listing each kernel (launches on the main paths, error
    against the plain version, times and bound, and under "times" the same
-   numbers at each main-path bf16 shape), the card's name and power limit,
-   and last ``{"ok": true, "device": {...}}``.
+   numbers at each main-path shape), the card's name and power limit, and
+   last ``{"ok": true, "device": {...}}``.
 
 ``--kernels-only`` runs phases 1, 2 and 5 and prints neither of the last
 two lines.
@@ -316,6 +330,17 @@ def check_on_served_inputs(engine, n_layers: int = 4) -> float:
     return worst
 
 
+def _busy_ms(events) -> float:
+    """Milliseconds in which at least one of the device ``events`` ran (the
+    union of their intervals: a sum counts overlapping kernels twice)."""
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in events):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
+
+
 def profile_forward(engine, batch) -> dict | None:
     """Device time of one ``infer_batch`` under torch.profiler: all device
     work, B1's launches and their sum, and the host wall time (None when the
@@ -333,7 +358,7 @@ def profile_forward(engine, batch) -> dict | None:
     if not dev:
         return None
     b1 = [e for e in dev if "flash_fwd" in e.name]
-    return {"device_ms": sum(e.time_range.elapsed_us() for e in dev) / 1e3,
+    return {"device_ms": _busy_ms(dev),
             "b1_ms": sum(e.time_range.elapsed_us() for e in b1) / 1e3,
             "b1_launches": len(b1), "wall_ms": wall * 1e3}
 
@@ -665,7 +690,7 @@ def profile_step(fn, args) -> dict | None:
     def ms(events):
         return sum(e.time_range.elapsed_us() for e in events) / 1e3
 
-    return {"device_ms": ms(dev), "wall_ms": wall * 1e3,
+    return {"device_ms": _busy_ms(dev), "wall_ms": wall * 1e3,
             "b1_ms": ms(e for e in dev if "flash_fwd" in e.name),
             "b2_ms": ms(e for e in dev if "flash_bwd" in e.name)}
 
@@ -888,7 +913,7 @@ def _cwd(root: Path):
 
 def _run_cli(root: Path, args: list[str]):
     """``cli.main(args)`` in ``root``, its stdout captured; returns (its
-    return value, the last stdout line as JSON, host seconds)."""
+    return value, the stdout, host seconds)."""
     from privacy_preserve_federated_asr_tpu_torch import cli
 
     out = io.StringIO()
@@ -897,13 +922,18 @@ def _run_cli(root: Path, args: list[str]):
         ret = cli.main(args)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return ret, json.loads(out.getvalue().strip().splitlines()[-1]), wall
+    return ret, out.getvalue(), wall
 
 
-def federated_full_width() -> dict:
-    """``cli federated -fl_st 0`` (the three stages) at full width with the
-    per-stage checks, one stage-1 round under torch.profiler, then a short
-    DP-FedAvg run of stage 3."""
+def _last_json(text: str) -> dict:
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def federated_full_width(root: Path) -> dict:
+    """``cli federated -fl_st 0`` (the three stages) at full width in
+    ``root`` with the per-stage checks, one stage-1 round under
+    torch.profiler, then a short DP-FedAvg run of stage 3. Leaves the corpus
+    in ``root/data`` and the finals in ``root/out`` for phase 10."""
     from privacy_preserve_federated_asr_tpu_torch import cli
     from privacy_preserve_federated_asr_tpu_torch.federated.engine import FederatedEngine
     from privacy_preserve_federated_asr_tpu_torch.models.recipes import (
@@ -940,97 +970,97 @@ def federated_full_width() -> dict:
     for name, stage in (("run_stage1", 0), ("run_stage2", 1), ("run_stage3", 2)):
         originals[name] = getattr(FederatedEngine, name)
         setattr(FederatedEngine, name, checked(name, stage))
-    with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp)
-        t0 = time.perf_counter()
-        _write_corpus(root / "data", FL_TRAIN, FL_TEST)
-        log(f"[federated] wrote {FL_TRAIN} train and {FL_TEST} test WAVs of 4-5 s in "
-            f"{time.perf_counter() - t0:.1f} s")
-        try:
-            flash_attention_fwd.launches = flash_attention_bwd.launches = 0
-            eng, ev, wall = _run_cli(root, ["federated", *FL_ARGS, "--epochs", "1",
-                                            "-fl_st", "0", "-model_out", "out/fl"])
-            b1, b2 = flash_attention_fwd.launches, flash_attention_bwd.launches
-        finally:
-            for name, fn in originals.items():
-                setattr(FederatedEngine, name, fn)
-        log(f"[federated] cli federated -fl_st 0 (data2vec-audio-large DACS bf16, 2 "
-            f"clients of {FL_TRAIN // 2}, public = all {FL_TRAIN}, 1 round per stage, global_ep 1, "
-            f"local_ep 1, batch {FL_BATCH}): {wall:.1f} s of host time (model init, data "
-            f"load and the three finals included); final eval {ev}  [{card_line()}]")
-        assert all(np.isfinite(v) for v in ev.values()), ev
+    t0 = time.perf_counter()
+    _write_corpus(root / "data", FL_TRAIN, FL_TEST)
+    log(f"[federated] wrote {FL_TRAIN} train and {FL_TEST} test WAVs of 4-5 s in "
+        f"{time.perf_counter() - t0:.1f} s")
+    try:
+        flash_attention_fwd.launches = flash_attention_bwd.launches = 0
+        eng, out, wall = _run_cli(root, ["federated", *FL_ARGS, "--epochs", "1",
+                                         "-fl_st", "0", "-model_out", "out/fl"])
+        ev = _last_json(out)
+        b1, b2 = flash_attention_fwd.launches, flash_attention_bwd.launches
+    finally:
+        for name, fn in originals.items():
+            setattr(FederatedEngine, name, fn)
+    log(f"[federated] cli federated -fl_st 0 (data2vec-audio-large DACS bf16, 2 "
+        f"clients of {FL_TRAIN // 2}, public = all {FL_TRAIN}, 1 round per stage, global_ep 1, "
+        f"local_ep 1, batch {FL_BATCH}): {wall:.1f} s of host time (model init, data "
+        f"load and the three finals included); final eval {ev}  [{card_line()}]")
+    assert all(np.isfinite(v) for v in ev.values()), ev
 
-        for stage, s in stages.items():
-            rows = s["rows"]
-            ws = sum(r["warm_start_steps"] for r in rows if "warm_start_steps" in r)
-            local = sum(r["local_steps"] for r in rows if "local_steps" in r)
-            cache_fwd = sum(r["hidden_cache_forwards"] for r in rows
-                            if "hidden_cache_forwards" in r)
-            n_evals = sum("eval_loss" in r for r in rows)
-            if stage == 0:
-                want = (LAYERS * (ws + local + n_evals * n_eval_batches), LAYERS * (ws + local))
-            else:  # the Trainer's train cache, the round cache and the eval cache
-                want = (LAYERS * (n_train_batches + cache_fwd + n_eval_batches), 0)
-            assert (s["b1"], s["b2"]) == want, (stage, s["b1"], s["b2"], want, rows)
-            assert {r["phase"] for r in rows if "local_steps" in r} == {
-                "res" if stage == 0 else "res_h"}, rows
-            head = {0: "lm_head.weight", 1: "dementia_head.weight", 2: "arbitrator.weight"}
-            assert head[stage] in s["moved"], (stage, len(s["moved"]))
-            times = [f"warm-start {r['warm_start_s']:.2f} s ({r['warm_start_steps']:.0f} "
-                     f"steps, its train cache {r['train_cache_s']:.2f} s)"
-                     for r in rows if "warm_start_s" in r]
-            times += [f"hidden cache {r['hidden_cache_s']:.2f} s "
-                      f"({r['hidden_cache_forwards']:.0f} forwards of {FL_BATCH})"
-                      for r in rows if "hidden_cache_s" in r]
-            times += [f"round {r['fl_round']:.0f} {r['round_s']:.2f} s ({r['local_steps']:.0f} "
-                      f"{r['phase']} steps, clients "
-                      + ", ".join(f"{r[k]:.3f}" for k in r if k.endswith("_loss")) + ")"
-                      for r in rows if "local_steps" in r]
-            log(f"[federated] stage {stage}: B1 {s['b1']}, B2 {s['b2']} launches (as "
-                f"expected); {len(s['moved'])} of {s['trainable']} trainable tensors moved, "
-                f"every other one bit-unchanged, all finite; " + "; ".join(times)
-                + f"  [{card_line()}]")
+    for stage, s in stages.items():
+        rows = s["rows"]
+        ws = sum(r["warm_start_steps"] for r in rows if "warm_start_steps" in r)
+        local = sum(r["local_steps"] for r in rows if "local_steps" in r)
+        cache_fwd = sum(r["hidden_cache_forwards"] for r in rows
+                        if "hidden_cache_forwards" in r)
+        n_evals = sum("eval_loss" in r for r in rows)
+        if stage == 0:
+            want = (LAYERS * (ws + local + n_evals * n_eval_batches), LAYERS * (ws + local))
+        else:  # the Trainer's train cache, the round cache and the eval cache
+            want = (LAYERS * (n_train_batches + cache_fwd + n_eval_batches), 0)
+        assert (s["b1"], s["b2"]) == want, (stage, s["b1"], s["b2"], want, rows)
+        assert {r["phase"] for r in rows if "local_steps" in r} == {
+            "res" if stage == 0 else "res_h"}, rows
+        head = {0: "lm_head.weight", 1: "dementia_head.weight", 2: "arbitrator.weight"}
+        assert head[stage] in s["moved"], (stage, len(s["moved"]))
+        times = [f"warm-start {r['warm_start_s']:.2f} s ({r['warm_start_steps']:.0f} "
+                 f"steps, its train cache {r['train_cache_s']:.2f} s)"
+                 for r in rows if "warm_start_s" in r]
+        times += [f"hidden cache {r['hidden_cache_s']:.2f} s "
+                  f"({r['hidden_cache_forwards']:.0f} forwards of {FL_BATCH})"
+                  for r in rows if "hidden_cache_s" in r]
+        times += [f"round {r['fl_round']:.0f} {r['round_s']:.2f} s ({r['local_steps']:.0f} "
+                  f"{r['phase']} steps, clients "
+                  + ", ".join(f"{r[k]:.3f}" for k in r if k.endswith("_loss")) + ")"
+                  for r in rows if "local_steps" in r]
+        log(f"[federated] stage {stage}: B1 {s['b1']}, B2 {s['b2']} launches (as "
+            f"expected); {len(s['moved'])} of {s['trainable']} trainable tensors moved, "
+            f"every other one bit-unchanged, all finite; " + "; ".join(times)
+            + f"  [{card_line()}]")
 
-        cfg = eng.cfg
-        for name in ("FLASR", "FLAD", "final"):
-            sd = cli.load_weights(cfg, str(root / f"out/fl_{name}_global/final"), 0, "cuda")
-            assert set(sd) == set(eng.global_params), name
-        assert all(torch.equal(sd[k], v.cpu()) for k, v in eng.global_params.items())
-        log("[federated] the three finals (FLASR, FLAD, final) load back through "
-            "cli.load_weights; the last equals the engine's global params")
+    cfg = eng.cfg
+    for name in ("FLASR", "FLAD", "final"):
+        sd = cli.load_weights(cfg, str(root / f"out/fl_{name}_global/final"), 0, "cuda")
+        assert set(sd) == set(eng.global_params), name
+    assert all(torch.equal(sd[k], v.cpu()) for k, v in eng.global_params.items())
+    log("[federated] the three finals (FLASR, FLAD, final) load back through "
+        "cli.load_weights; the last equals the engine's global params")
 
-        # one more stage-1 round (plan round 0 again) on the cached encoder
-        # output, its evaluation included, under torch.profiler
-        with _cwd(root), contextlib.redirect_stdout(io.StringIO()):
-            prof = profile_step(eng.run_rounds, (1, 1))
-        if prof is None:
-            log("[share] stage-1 round: device busy not measured (the profiler recorded "
-                "no device activity)")
-        else:
-            log(f"[share] one stage-1 round (4 head-only steps on the cached encoder output "
-                f"+ FedAvg + graft + evaluation) under torch.profiler: device busy "
-                f"{prof['device_ms']:.2f} ms of {prof['wall_ms']:.2f} ms wall (idle "
-                f"{1 - prof['device_ms'] / prof['wall_ms']:.1%}); B1 {prof['b1_ms']:.2f} ms, "
-                f"B2 {prof['b2_ms']:.2f} ms  [{card_line()}]")
-        del eng
-        torch.cuda.empty_cache()
+    # one more stage-1 round (plan round 0 again) on the cached encoder
+    # output, its evaluation included, under torch.profiler
+    with _cwd(root), contextlib.redirect_stdout(io.StringIO()):
+        prof = profile_step(eng.run_rounds, (1, 1))
+    if prof is None:
+        log("[share] stage-1 round: device busy not measured (the profiler recorded "
+            "no device activity)")
+    else:
+        log(f"[share] one stage-1 round (4 head-only steps on the cached encoder output "
+            f"+ FedAvg + graft + evaluation) under torch.profiler: device busy "
+            f"{prof['device_ms']:.2f} ms of {prof['wall_ms']:.2f} ms wall (idle "
+            f"{1 - prof['device_ms'] / prof['wall_ms']:.1%}); B1 {prof['b1_ms']:.2f} ms, "
+            f"B2 {prof['b2_ms']:.2f} ms  [{card_line()}]")
+    del eng
+    torch.cuda.empty_cache()
 
-        # DP-FedAvg: stage 3 alone, two rounds
-        b1_dp = flash_attention_fwd.launches
-        dp_eng, dp_ev, dp_wall = _run_cli(root, [
-            "federated", *FL_ARGS, "--epochs", "2", "-fl_st", "3", "--dp_clip_norm", "1.0",
-            "--dp_noise_multiplier", "1.0", "-model_out", "out/dp"])
-        eps = [r["dp_epsilon"] for r in dp_eng.logger.history if "local_steps" in r]
-        assert len(eps) == 2 and all(np.isfinite(eps)) and eps[0] < eps[1], eps
-        assert all(np.isfinite(v) for v in dp_ev.values()), dp_ev
-        assert all(torch.isfinite(v).all() for v in dp_eng.global_params.values())
-        log(f"[federated-dp] cli federated -fl_st 3 --dp_clip_norm 1.0 "
-            f"--dp_noise_multiplier 1.0, 2 rounds: dp_epsilon {eps} (delta 1e-5, q = 1), "
-            f"finite and growing; {dp_wall:.1f} s of host time, "
-            f"{flash_attention_fwd.launches - b1_dp} B1 launches; final eval {dp_ev}  "
-            f"[{card_line()}]")
-        del dp_eng
-        torch.cuda.empty_cache()
+    # DP-FedAvg: stage 3 alone, two rounds
+    b1_dp = flash_attention_fwd.launches
+    dp_eng, out, dp_wall = _run_cli(root, [
+        "federated", *FL_ARGS, "--epochs", "2", "-fl_st", "3", "--dp_clip_norm", "1.0",
+        "--dp_noise_multiplier", "1.0", "-model_out", "out/dp"])
+    dp_ev = _last_json(out)
+    eps = [r["dp_epsilon"] for r in dp_eng.logger.history if "local_steps" in r]
+    assert len(eps) == 2 and all(np.isfinite(eps)) and eps[0] < eps[1], eps
+    assert all(np.isfinite(v) for v in dp_ev.values()), dp_ev
+    assert all(torch.isfinite(v).all() for v in dp_eng.global_params.values())
+    log(f"[federated-dp] cli federated -fl_st 3 --dp_clip_norm 1.0 "
+        f"--dp_noise_multiplier 1.0, 2 rounds: dp_epsilon {eps} (delta 1e-5, q = 1), "
+        f"finite and growing; {dp_wall:.1f} s of host time, "
+        f"{flash_attention_fwd.launches - b1_dp} B1 launches; final eval {dp_ev}  "
+        f"[{card_line()}]")
+    del dp_eng
+    torch.cuda.empty_cache()
     return {"b1": b1, "b2": b2, "stages": {s: (v["b1"], v["b2"]) for s, v in stages.items()}}
 
 
@@ -1093,6 +1123,258 @@ def federated_round_vs_cpu() -> None:
         f"dementia_head moved")
 
 
+# ---------------------------------------------------------------------------
+# 10. the system-run chain at full width: extract -> svm -> detail-wer ->
+#     feat-scoring -> pkl2csv
+# ---------------------------------------------------------------------------
+
+EXTRACT_ARGS = ["extract", "--model_type", "data2vec", "-st", "2",
+                "-model_in", "out/fl_final_global/final", "--audio_dir", "data/clips",
+                "--train_csv", "data/train.csv", "--test_csv", "data/test.csv",
+                "--spk2label", "data/spk2label.npy", "--dataset_cache", "cache",
+                "--eval_batch_size", str(FL_BATCH), "--device", "cuda"]
+ROW_COLUMNS = {"path", "text", "dementia_labels", "hidden_states", "pred_str", "pred_AD",
+               "dementia_logits", "lm_mask", "dementia_mask"}
+
+
+def profile_extraction_batch(root: Path, model_dir: str) -> dict | None:
+    """Device time of one fp32 extraction batch forward (the model, the
+    recipe's streams, greedy ids and the AD vote) under torch.profiler; the
+    model is built and loaded before the profiled window."""
+    from privacy_preserve_federated_asr_tpu_torch import cli
+    from privacy_preserve_federated_asr_tpu_torch.data import (
+        CTCCharTokenizer, LengthBucketBatcher, csv_to_examples, load_spk2label,
+        prepare_examples)
+    from privacy_preserve_federated_asr_tpu_torch.evaluation.extract import (
+        batch_inputs, load_model)
+    from privacy_preserve_federated_asr_tpu_torch.models import (
+        BackboneConfig, DACSConfig, get_recipe)
+    from privacy_preserve_federated_asr_tpu_torch.ops.decode import ad_vote, greedy_ids
+
+    cfg = DACSConfig(backbone=BackboneConfig.data2vec_audio_large(), stage=2)
+    recipe = get_recipe(cfg.method)
+    model = load_model(recipe.make_model, cfg, cli.load_weights(cfg, str(root / model_dir)),
+                       torch.float32, torch.device("cuda"))
+    exs = prepare_examples(csv_to_examples(
+        str(root / "data/clips"), str(root / "data/test.csv"),
+        load_spk2label(str(root / "data/spk2label.npy"))), CTCCharTokenizer())
+    b = next(LengthBucketBatcher(exs, FL_BATCH).epoch(epoch_seed=0))
+    gen = torch.Generator("cuda")
+
+    def forward():
+        with torch.inference_mode():
+            x, lengths, noise = batch_inputs(cfg, b, 0, gen, None, torch.device("cuda"))
+            out = model(x, lengths, gumbel_noise=noise)
+            ctc, dlog, _, _ = recipe.extract_streams(out, cfg)
+            return greedy_ids(ctc, out.frame_mask), ad_vote(dlog, out.frame_mask)
+
+    forward()
+    prof = profile_step(forward, ())
+    del model
+    torch.cuda.empty_cache()
+    return prof
+
+
+def extraction_chain(root: Path) -> dict:
+    """``cli extract -st 2`` (fp32, the default) of phase 8's final global
+    model over its 24 train and 8 test WAVs, then ``svm``, ``detail-wer``,
+    ``feat-scoring`` and ``pkl2csv`` on the pickles, all through
+    ``cli.main``; then the extraction in bf16, held to the fp32 rows."""
+    from privacy_preserve_federated_asr_tpu_torch.evaluation import read_records
+    from privacy_preserve_federated_asr_tpu_torch.evaluation.svm_ad import (
+        RbfSVC, _features, standard_scale)
+    from privacy_preserve_federated_asr_tpu_torch.models import (
+        BackboneConfig, feat_extract_output_lengths)
+    from privacy_preserve_federated_asr_tpu_torch.ops.attention import flash_attention_fwd
+    from scipy.io import wavfile
+
+    bb = BackboneConfig.data2vec_audio_large()
+    n_batches = -(-FL_TEST // FL_BATCH) + -(-FL_TRAIN // FL_BATCH)
+    frames = {p.name: feat_extract_output_lengths(bb, len(wavfile.read(p)[1]))
+              for p in (root / "data/clips").iterdir()}
+    runs = {}
+    for dtype in ("float32", "bfloat16"):
+        flash_attention_fwd.launches = 0   # counts of the main path's run
+        _, _, wall = _run_cli(root, [*EXTRACT_ARGS, "--compute_dtype", dtype,
+                                     "--csv_out_dir", f"res_{dtype}"])
+        launches = flash_attention_fwd.launches
+        assert launches == LAYERS * n_batches, (dtype, launches, n_batches)
+        test = read_records(str(root / f"res_{dtype}/extract.pkl"))
+        train = read_records(str(root / f"res_{dtype}/extract_train.pkl"))
+        assert (len(test), len(train)) == (FL_TEST, FL_TRAIN), (len(test), len(train))
+        for r in test + train:
+            assert set(r) == ROW_COLUMNS, sorted(r)
+            t = frames[Path(r["path"]).name]
+            for k in ("hidden_states", "lm_mask", "dementia_mask"):
+                assert r[k].shape == (1, t, bb.hidden_size) and r[k].dtype == np.float32, \
+                    (k, r[k].shape, t)
+                assert np.isfinite(r[k]).all(), k
+            for k in ("lm_mask", "dementia_mask"):
+                assert set(np.unique(r[k])) <= {0.0, 1.0}, k
+            assert r["dementia_logits"].shape == (1, t, 2) and r["pred_AD"] in (0, 1)
+        on = float(np.mean([r["lm_mask"].mean() for r in test]))
+        runs[dtype] = {"wall": wall, "launches": launches, "test": test, "train": train}
+        log(f"[extract] cli extract -st 2 --compute_dtype {dtype} (data2vec-audio-large DACS, "
+            f"phase 8's final global model, batch {FL_BATCH}): {FL_TEST} test + {FL_TRAIN} "
+            f"train rows in {wall:.2f} s of host time (model load and data included), "
+            f"{(FL_TEST + FL_TRAIN) / wall:.1f} utt/s; B1 {launches} launches = {LAYERS} x "
+            f"{n_batches} batches; rows [1, T_valid, 1024] fp32, binary masks (lm on-rate "
+            f"{on:.3f}), all finite  [{card_line()}]")
+
+    r32 = {r["path"]: r for r in runs["float32"]["test"] + runs["float32"]["train"]}
+    worst = 0.0
+    for r in runs["bfloat16"]["test"] + runs["bfloat16"]["train"]:
+        a = r32[r["path"]]
+        np.testing.assert_allclose(r["hidden_states"], a["hidden_states"], atol=0.15, rtol=0.1)
+        worst = max(worst, float(np.abs(r["hidden_states"] - a["hidden_states"]).max()))
+        assert r["pred_AD"] == a["pred_AD"], r["path"]
+    log(f"[extract] bf16 rows against fp32: hidden states max|diff| {worst:.3e} (atol 0.15, "
+        f"rtol 0.1), pred_AD equal on all {FL_TEST + FL_TRAIN}")
+
+    prof = profile_extraction_batch(root, "out/fl_final_global/final")
+    if prof is None:
+        log("[share] extraction batch: B1's share not measured (the profiler recorded no "
+            "device activity)")
+    else:
+        log(f"[share] one fp32 extraction batch forward (B={FL_BATCH}, 5 s bucket) under "
+            f"torch.profiler: device busy {prof['device_ms']:.2f} ms of {prof['wall_ms']:.2f} "
+            f"ms wall (idle {1 - prof['device_ms'] / prof['wall_ms']:.1%}); {LAYERS} B1 "
+            f"launches {prof['b1_ms']:.2f} ms = {prof['b1_ms'] / prof['device_ms']:.1%} of "
+            f"device time  [{card_line()}]")
+
+    res = root / "res_float32"
+    _, svm_text, svm_wall = _run_cli(root, [
+        "svm", "--train_pkl", str(res / "extract_train.pkl"), "--test_pkl",
+        str(res / "extract.pkl"), "--spk2label", "data/spk2label.npy", "-sq", "mean",
+        "--results_csv", str(res / "svm.csv"), "--device", "cuda"])
+    svm = json.loads(svm_text)
+    assert set(svm) == {"ACC", "BACC", "F1", "Sens", "Spec", "UAR"} and all(
+        0.0 <= v <= 1.0 for v in svm.values()), svm
+    x_train, y_train = _features(runs["float32"]["train"], "mean", False)
+    x_test, _ = _features(runs["float32"]["test"], "mean", False)
+    xs = standard_scale(*(torch.from_numpy(x).to("cuda", torch.float64)
+                          for x in (x_train, x_test)))
+    y = torch.from_numpy(y_train).to("cuda")
+    RbfSVC().fit(xs[0], y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = RbfSVC().fit(xs[0], y)
+    fit_ms = (time.perf_counter() - t0) * 1e3
+    log(f"[svm] cli svm -sq mean on the card: {svm} in {svm_wall:.2f} s of host time; "
+        f"RbfSVC fit on {len(x_train)} x {x_train.shape[1]} fp64 features: {model.n_iter} "
+        f"SMO updates, {len(model.dual_coef)} support vectors, {fit_ms:.1f} ms  "
+        f"[{card_line()}]")
+
+    wer = json.loads(_run_cli(root, ["detail-wer", "--pkl", str(res / "extract.pkl"),
+                                     "-t", "2"])[1])
+    test = runs["float32"]["test"]
+    n_words = sum(len(r["text"].split()) for r in test)
+    o = wer["overall"]
+    assert o["hits"] + o["substitutions"] + o["deletions"] == n_words and o["n_utts"] == FL_TEST
+    fsm = json.loads(_run_cli(root, ["feat-scoring", "--pkl", str(res / "extract.pkl"),
+                                     "--out_dir", str(res / "fsm")])[1])
+    assert all(0.0 <= fsm[k] <= 1.0 for k in ("lm_on_rate", "ad_on_rate", "rate_11", "mex_rate"))
+    assert (res / "fsm/node_stats.npz").exists() and (res / "fsm/utt_on_rates.npz").exists()
+    assert json.loads(_run_cli(root, ["pkl2csv", "--pkl", str(res / "extract.pkl")])[1])[
+        "rows"] == FL_TEST
+    assert len((res / "extract.csv").read_text().splitlines()) == FL_TEST + 1
+    assert (res / "Result.csv").exists()
+    assert not {"sklearn", "pandas"} & set(sys.modules), "the chain imported sklearn/pandas"
+    log(f"[chain] detail-wer -t 2: overall WER {o['wer']:.3f} over {n_words} reference "
+        f"words (hits + subs + dels = {n_words}), groups {sorted(wer)}; feat-scoring: lm on "
+        f"{fsm['lm_on_rate']:.3f}, AD on {fsm['ad_on_rate']:.3f}, both {fsm['rate_11']:.3f}, "
+        f"mutual info {fsm['mutual_info']:.2e}; pkl2csv {FL_TEST} rows; Result.csv written; "
+        f"neither sklearn nor pandas imported")
+    return {"launches": {k: v["launches"] for k, v in runs.items()},
+            "walls": {k: v["wall"] for k, v in runs.items()}, "svm": svm,
+            "features": (x_train, y_train, x_test)}
+
+
+# ---------------------------------------------------------------------------
+# 11. extraction and the SVM, card against CPU
+# ---------------------------------------------------------------------------
+
+NEAR_TIE = 1e-4  # a Gumbel argmax margin within the devices' rounding of the scores
+
+
+def extraction_vs_cpu(features) -> None:
+    """The extraction of the model cut to 4 layers at fp32 with the same
+    injected Gumbel noise on the card and on the CPU (phase 4's tolerance;
+    masks equal except where the CPU's Gumbel margin is below ``NEAR_TIE``;
+    transcripts and AD votes equal), and phase 10's SVM on both."""
+    from privacy_preserve_federated_asr_tpu_torch.data import (
+        AsrExample, CTCCharTokenizer, LengthBucketBatcher, prepare_examples)
+    from privacy_preserve_federated_asr_tpu_torch.evaluation import extract_embeddings
+    from privacy_preserve_federated_asr_tpu_torch.evaluation.extract import (
+        batch_inputs, load_model)
+    from privacy_preserve_federated_asr_tpu_torch.evaluation.svm_ad import (
+        RbfSVC, standard_scale)
+    from privacy_preserve_federated_asr_tpu_torch.models import (
+        BackboneConfig, DACSConfig, DACSModel, init_dacs_state_dict)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = DACSConfig(backbone=BackboneConfig.data2vec_audio_large().replace(
+        num_hidden_layers=4), stage=2)
+    sd = init_dacs_state_dict(cfg, torch.Generator("cpu").manual_seed(6))
+    tok = CTCCharTokenizer()
+    exs = prepare_examples([AsrExample(
+        path=f"S{i:03d}_PAR_{i}.wav", array=_utterance(s, 60 + i), text=SENTENCES[i],
+        dementia_label=i % 2) for i, s in enumerate((0.5, 0.8, 0.3))], tok)
+
+    def noise(shape):
+        rng = np.random.default_rng(list(shape))
+        return tuple(rng.gumbel(size=shape).astype(np.float32) for _ in range(2))
+
+    rows = {dev: extract_embeddings(cfg, sd, exs, tok, batch_size=2, device=dev,
+                                    gumbel_noise=noise) for dev in ("cuda", "cpu")}
+    # each mask element's Gumbel argmax margin (s0 + g0) - (s1 + g1) in the
+    # CPU run: the scores differ by rounding between the devices, so an
+    # element whose margin is within rounding may take either side
+    model = load_model(DACSModel, cfg, sd, torch.float32, torch.device("cpu"))
+    margin = {}
+    for b in LengthBucketBatcher(exs, 2).epoch(epoch_seed=0):
+        with torch.inference_mode():
+            x, lengths, (gl, ga) = batch_inputs(cfg, b, 0, None, noise, torch.device("cpu"))
+            out = model(x, lengths, gumbel_noise=(gl, ga))
+        for key, score, g in (("lm_mask", out.lm_score, gl), ("dementia_mask", out.ad_score, ga)):
+            m = ((score + g)[..., 0] - (score + g)[..., 1]).numpy()
+            for i, path in enumerate(b.paths):
+                margin[path, key] = m[i, : int(out.frame_lengths[i])]
+    err, n_mask, flips, smallest = 0.0, 0, [], float("inf")
+    for g, c in zip(rows["cuda"], rows["cpu"]):
+        assert g.path == c.path
+        err = max(err, float(np.abs(g.hidden_states - c.hidden_states).max()))
+        for k in ("lm_mask", "dementia_mask"):
+            m, differ = margin[c.path, k], getattr(g, k)[...] != getattr(c, k)
+            assert np.array_equal(getattr(c, k), (m > 0).astype(np.float32)), (c.path, k)
+            flips += list(np.abs(m[differ]))
+            smallest = min(smallest, float(np.abs(m).min()))
+            n_mask += m.size
+        assert (g.pred_str, g.pred_AD) == (c.pred_str, c.pred_AD), g.path
+    assert err <= 1e-3, err
+    assert all(f < NEAR_TIE for f in flips), flips
+    log(f"[extract-e2e] 4-layer fp32 extraction of 3 utterances (0.3-0.8 s, batch 2, a "
+        f"padding row), same injected noise: card vs CPU hidden states max|err| {err:.2e} "
+        f"(limit 1e-3); of {n_mask} mask elements {len(flips)} differ, all at Gumbel "
+        f"margins |m| < {NEAR_TIE:.0e} ({[f'{f:.1e}' for f in flips]}; the smallest margin "
+        f"{smallest:.1e}); pred_str and pred_AD equal")
+
+    x_train, y_train, x_test = features
+    dec, pred = {}, {}
+    for dev in ("cuda", "cpu"):
+        a, b = standard_scale(*(torch.from_numpy(x).to(dev, torch.float64)
+                                for x in (x_train, x_test)))
+        svc = RbfSVC().fit(a, torch.from_numpy(y_train).to(dev))
+        dec[dev] = svc.decision_function(b).cpu().numpy()
+        pred[dev] = svc.predict(b).cpu().numpy()
+    gap = float(np.abs(dec["cuda"] - dec["cpu"]).max())
+    scale = float(np.abs(dec["cpu"]).max())
+    assert np.array_equal(pred["cuda"], pred["cpu"]) and gap <= 1e-6 * scale, (gap, scale)
+    log(f"[svm-e2e] phase 10's SVM (fp64) card vs CPU: predictions equal, decision values "
+        f"max|diff| {gap:.2e} of max|f| {scale:.3f} (limit 1e-6 of it)")
+
+
 def _shape_times(row: dict, **shape) -> dict:
     return {**shape, **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                             "library_ms")}}
@@ -1119,8 +1401,11 @@ def main(argv=None) -> None:
     end_to_end_vs_cpu()
     training = train_full_width()
     train_step_vs_cpu()
-    federated = federated_full_width()
-    federated_round_vs_cpu()
+    with tempfile.TemporaryDirectory() as tmp:
+        federated = federated_full_width(Path(tmp))
+        federated_round_vs_cpu()
+        chain = extraction_chain(Path(tmp))
+    extraction_vs_cpu(chain["features"])
     t = kern["times"][(TS[-1], "bfloat16")]
     tb = bwd["times"][(*BWD_SHAPES[0], "bfloat16")]
     line = {"kernels": [{
@@ -1128,14 +1413,15 @@ def main(argv=None) -> None:
         "route": "cuda",
         "source": "privacy_preserve_federated_asr_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "privacy_preserve_federated_asr_tpu/ops/attention.py:101",
-        "launches": serving["launches"] + training["b1"] + federated["b1"],
+        "launches": (serving["launches"] + training["b1"] + federated["b1"]
+                     + sum(chain["launches"].values())),
         "max_abs_err": max(kern["max_abs_err"], serving["served_err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-        "times": [_shape_times(kern["times"][(ts, "bfloat16")], B=B, T=ts, rate=0.0,
-                               lse=False) for ts in TS]
+        "times": [_shape_times(kern["times"][(ts, dt)], B=B, T=ts, dtype=dt, rate=0.0,
+                               lse=False) for dt in ("bfloat16", "float32") for ts in TS]
         + [_shape_times(bwd["fwd_train"], B=BWD_SHAPES[0][0], T=BWD_SHAPES[0][1],
-                        rate=TRAIN_RATE, lse=True)],
+                        dtype="bfloat16", rate=TRAIN_RATE, lse=True)],
     }, {
         "name": "flash_bwd",
         "route": "cuda",
@@ -1146,14 +1432,15 @@ def main(argv=None) -> None:
         "ms": tb["ms"], "plain_ms": tb["plain_ms"], "bound_ms": tb["bound_ms"],
         "bound_by": tb["bound_by"], "library_ms": tb["library_ms"],
         "times": [_shape_times(bwd["times"][(bb, ts, "bfloat16")], B=bb, T=ts,
-                               rate=TRAIN_RATE) for bb, ts in BWD_SHAPES],
+                               dtype="bfloat16", rate=TRAIN_RATE) for bb, ts in BWD_SHAPES],
     }]}
     log(f"[kernels] flash_fwd launches: serving {serving['launches']} + training "
-        f"{training['b1']} + federated {federated['b1']}; times at B={B} T={TS[-1]} bf16. "
+        f"{training['b1']} + federated {federated['b1']} + extraction "
+        f"{chain['launches']}; times at B={B} T={TS[-1]} bf16. "
         f"flash_bwd: training {training['b2']} + federated {federated['b2']} (per stage "
         f"(B1, B2): {federated['stages']}); times at B={BWD_SHAPES[0][0]} "
         f"T={BWD_SHAPES[0][1]} bf16 rate {TRAIN_RATE}; each kernel's \"times\" at every "
-        f"main-path bf16 shape")
+        f"main-path shape (B1 in fp32 too: extraction's precision)")
     print(json.dumps(line))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

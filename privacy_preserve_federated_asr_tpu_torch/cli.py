@@ -1,5 +1,7 @@
-"""Command-line interface of the port: ``train``, ``federated`` and
-``serve`` (the JAX package's subcommands of those names, same flag names).
+"""Command-line interface of the port: ``train``, ``federated``, ``serve``,
+``extract``, ``svm``, ``detail-wer``, ``feat-scoring``, ``pkl2csv`` and
+``dp-budget`` (the JAX package's subcommands of those names, same flag
+names).
 
     python -m privacy_preserve_federated_asr_tpu_torch.cli train \
         --model_type data2vec -st 0 --epochs 30 --audio_dir ... \
@@ -10,16 +12,30 @@
         --spk2label ... -model_out ./saves/model
     python -m privacy_preserve_federated_asr_tpu_torch.cli serve \
         --model_type data2vec --STAGE 2 --port 8008 [--model_in ckpt.bin]
+    python -m privacy_preserve_federated_asr_tpu_torch.cli extract \
+        --model_type data2vec -st 2 -model_in ./saves/model_final_global/final \
+        --audio_dir ... --train_csv ... --test_csv ... --spk2label ... \
+        -csv extract --csv_out_dir ./saves/results
+    python -m privacy_preserve_federated_asr_tpu_torch.cli svm \
+        --train_pkl ./saves/results/extract_train.pkl \
+        --test_pkl ./saves/results/extract.pkl --spk2label ... -sq mean
+    python -m privacy_preserve_federated_asr_tpu_torch.cli detail-wer \
+        --pkl ./saves/results/extract.pkl -t 2
+    python -m privacy_preserve_federated_asr_tpu_torch.cli feat-scoring \
+        --pkl ./saves/results/extract.pkl
 
 ``--model_in`` takes a port checkpoint (a ``final/`` export or a
 ``checkpoint-<step>/`` directory of ``train``), or a ForCTC torch state dict
 as the JAX package's ``cli export-hf`` writes it (or an HF encoder/ForCTC
 ``pytorch_model.bin``); heads the file lacks keep their random init. Without
-it the weights are a random init from ``--seed``. Every command runs on
-``--device`` (default ``cuda``; with no GPU it exits with an error rather
-than run on the CPU). ``federated`` writes ``<model_out>_FLASR_global/final``,
-``<model_out>_FLAD_global/final`` and ``<model_out>_final_global/final``
-(per ``-fl_st``), each loadable with ``--model_in``.
+it the weights are a random init from ``--seed``. Every command that runs a
+model or the SVM runs on ``--device`` (default ``cuda``; with no GPU it
+exits with an error rather than run on the CPU). ``federated`` writes
+``<model_out>_FLASR_global/final``, ``<model_out>_FLAD_global/final`` and
+``<model_out>_final_global/final`` (per ``-fl_st``), each loadable with
+``--model_in``. ``extract`` writes ``<csv_name>.pkl`` (test CSV),
+``<csv_name>_train.pkl`` and the test set's ``Result.csv``; the analysis
+commands read those pickles without pandas (``evaluation/extract.py``).
 """
 
 from __future__ import annotations
@@ -211,6 +227,132 @@ def cmd_federated(args):
     return eng
 
 
+def cmd_extract(args):
+    """Extraction rows of the test and train CSVs: ``<csv_name>.pkl``,
+    ``<csv_name>_train.pkl`` and the test set's ``Result.csv``."""
+    from .evaluation import extract_embeddings, rows_to_pickle, write_results_csv
+    from .serving.engine import resolve_device
+
+    device = resolve_device(args.device)
+    if args.dp > 1:
+        raise NotImplementedError("extract --dp > 1 (data-parallel extraction) is not "
+                                  "ported yet")
+    if args.beam_size > 0 or args.lm_train_csv:
+        raise NotImplementedError("extract --beam_size > 0 / --lm_train_csv (beam "
+                                  "search) is not ported yet")
+    cfg = _dacs_cfg(args)
+    sd = load_weights(cfg, args.model_in_path, args.seed, device)
+    out_dir = Path(args.csv_out_dir)
+    for split, csv_path in (("", args.test_csv), ("_train", args.train_csv)):
+        exs, tok = _load_examples(args, csv_path)
+        rows = extract_embeddings(cfg, sd, exs, tok, batch_size=args.eval_batch_size,
+                                  compute_dtype=args.compute_dtype, device=device)
+        rows_to_pickle(rows, str(out_dir / f"{args.csv_name}{split}.pkl"))
+        if split == "":  # the reference writes Result.csv for the test set
+            write_results_csv(rows, str(out_dir))
+        print(f"[extract] wrote {len(rows)} rows -> {out_dir}/{args.csv_name}{split}.pkl")
+
+
+def cmd_svm(args):
+    from .data.dataset import load_spk2label
+    from .evaluation import predict_ad_svm, read_records
+    from .serving.engine import resolve_device
+
+    device = resolve_device(args.device)
+    if args.text_train_pkl or args.text_test_pkl:
+        raise NotImplementedError("svm --text_train_pkl/--text_test_pkl (session text "
+                                  "embeddings) is not ported yet")
+    m = predict_ad_svm(
+        read_records(args.train_pkl), read_records(args.test_pkl),
+        load_spk2label(args.spk2label), pooling=args.squeeze, masked=args.masked,
+        mode=args.mode, par_only=not args.INV, results_csv=args.results_csv,
+        title=args.title, device=device)
+    print(json.dumps(m))
+
+
+def cmd_detail_wer(args):
+    import numpy as np
+
+    from .evaluation import detailed_wer_report, read_records
+
+    id2mmse = None
+    if args.id2mmse:
+        id2mmse = np.load(args.id2mmse, allow_pickle=True).tolist()
+    rep = detailed_wer_report(read_records(args.pkl), level=args.type, id2mmse=id2mmse,
+                              out_dir=args.out_dir)
+    print(json.dumps(rep, indent=2))
+
+
+def cmd_feat_scoring(args):
+    import numpy as np
+
+    from .evaluation import mask_node_statistics, per_utt_on_rates, read_records
+
+    rows = read_records(args.pkl)
+    stats = mask_node_statistics(rows)
+    rates = per_utt_on_rates(rows)
+    out = Path(args.out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    np.savez(out / "node_stats.npz", **stats)
+    np.savez(out / "utt_on_rates.npz", **rates)
+    print(json.dumps({k: float(np.mean(v)) for k, v in {**stats, **rates}.items()}))
+
+
+def cmd_pkl2csv(args):
+    """Extraction pkl -> CSV with the text columns (reference:
+    centralized/utils/PKL2csv.py — path/text/dementia_labels/pred_str
+    [+Summary] kept, arrays dropped), the bytes of pandas' ``to_csv``."""
+    import csv
+
+    from .evaluation import read_records
+
+    rows = read_records(args.pkl)
+    cols = [c for c in ("path", "text", "dementia_labels", "pred_str", "Summary")
+            if rows and c in rows[0]]
+    out = args.out or str(Path(args.pkl).with_suffix(".csv"))
+    with open(out, "w", newline="", encoding="utf-8") as f:
+        w = csv.writer(f, lineterminator=os.linesep)
+        w.writerow(cols)
+        for r in rows:
+            w.writerow(["" if r[c] is None else r[c] for c in cols])
+    print(json.dumps({"rows": len(rows), "columns": cols, "csv": out}))
+
+
+def cmd_dp_budget(args):
+    """Plan a DP-FedAvg run's privacy budget before spending any compute:
+    epsilon after each stage's rounds for the given sampling fraction and
+    noise multiplier (the RDP accountant ``federated/privacy.py`` that the
+    engine logs as dp_epsilon during a run)."""
+    from .federated.privacy import DpAccountant, noise_for_epsilon
+
+    if (args.noise_multiplier is None) == (args.target_epsilon is None):
+        raise SystemExit("dp-budget: give exactly one of --noise_multiplier "
+                         "(forward) or --target_epsilon (inverse)")
+    k = args.num_users
+    q = max(int(args.frac * k), 1) / k
+    if args.target_epsilon is not None:
+        z = noise_for_epsilon(args.rounds, q, args.target_epsilon, args.delta)
+        print(json.dumps({
+            "num_users": k, "frac": args.frac, "q": round(q, 6),
+            "rounds": args.rounds, "delta": args.delta,
+            "target_epsilon": args.target_epsilon,
+            "noise_multiplier": round(z, 4),
+        }))
+        return
+    acc = DpAccountant(delta=args.delta)
+    trace = []
+    for rnd in range(1, args.rounds + 1):
+        acc.step(q, args.noise_multiplier)
+        if rnd % max(args.report_every, 1) == 0 or rnd == args.rounds:
+            trace.append({"round": rnd, "epsilon": round(acc.epsilon(), 4)})
+    print(json.dumps({
+        "num_users": k, "frac": args.frac, "q": round(q, 6),
+        "noise_multiplier": args.noise_multiplier, "delta": args.delta,
+        "rounds": args.rounds, "epsilon": round(acc.epsilon(), 4),
+        "trace": trace,
+    }))
+
+
 def _add_train(p) -> None:
     """The JAX ``_add_common`` flags the port's Trainer takes (the
     parallelism and layout flags are accepted and refused by the Trainer
@@ -335,6 +477,71 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no_warmup", action="store_true",
                    help="skip running one batch per time bucket at startup")
     p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("extract", help="dump embeddings/masks/transcripts")
+    _add_train(p)
+    p.add_argument("-csv", "--csv_name", default="extract")
+    p.add_argument("--csv_out_dir", default="./saves/results")
+    p.add_argument("--beam_size", type=int, default=0,
+                   help="0 = greedy (reference parity); beam search is not ported yet")
+    p.add_argument("--lm_train_csv", default=None,
+                   help="shallow-fusion LM for beam search (not ported yet)")
+    p.add_argument("--lm_alpha", type=float, default=0.3)
+    p.add_argument("--lm_beta", type=float, default=0.0)
+    # reference extraction runs fp32 (no .half() in the eval scripts);
+    # opt into bf16 explicitly for speed
+    p.set_defaults(fn=cmd_extract, compute_dtype="float32")
+
+    p = sub.add_parser("detail-wer", help="grouped WER report")
+    p.add_argument("--pkl", required=True)
+    p.add_argument("-t", "--type", type=int, default=2, choices=[1, 2, 3])
+    p.add_argument("--id2mmse", default=None)
+    p.add_argument("--out_dir", default=None)
+    p.set_defaults(fn=cmd_detail_wer)
+
+    p = sub.add_parser("svm", help="SVM AD prediction with speaker vote")
+    p.add_argument("--train_pkl", required=True)
+    p.add_argument("--test_pkl", required=True)
+    p.add_argument("--spk2label", default="./meta-data/test_dic.npy")
+    p.add_argument("-sq", "--squeeze", default="min",
+                   choices=["mean", "min", "max", "median"])
+    p.add_argument("--mode", default="audio", choices=["audio", "text", "fusion"])
+    p.add_argument("--masked", action="store_true")
+    p.add_argument("-INV", "--INV", action="store_true")
+    p.add_argument("--text_train_pkl", default=None)
+    p.add_argument("--text_test_pkl", default=None)
+    p.add_argument("--results_csv", default="./saves/results/SVM/results.csv")
+    p.add_argument("--title", default="dacs_tpu")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the scaler and the SVC; cpu only when asked")
+    p.set_defaults(fn=cmd_svm)
+
+    p = sub.add_parser("pkl2csv", help="extraction pkl -> text-columns CSV")
+    p.add_argument("--pkl", required=True)
+    p.add_argument("--out", default=None, help="default: <pkl>.csv")
+    p.set_defaults(fn=cmd_pkl2csv)
+
+    p = sub.add_parser("feat-scoring", help="mask statistics")
+    p.add_argument("--pkl", required=True)
+    p.add_argument("--out_dir", default="./saves/results/FSM_info")
+    p.set_defaults(fn=cmd_feat_scoring)
+
+    p = sub.add_parser("dp-budget",
+                       help="plan DP-FedAvg (epsilon, delta) before a run "
+                            "(RDP accountant, no compute)")
+    p.add_argument("--rounds", type=int, required=True,
+                   help="total noised FedAvg rounds (sum over stages)")
+    p.add_argument("--num_users", type=int, default=54)
+    p.add_argument("--frac", type=float, default=1.0)
+    p.add_argument("--noise_multiplier", type=float, default=None,
+                   help="forward mode: epsilon for this noise level")
+    p.add_argument("--target_epsilon", type=float, default=None,
+                   help="inverse mode: smallest noise multiplier reaching "
+                        "this epsilon (exclusive with --noise_multiplier)")
+    p.add_argument("--delta", type=float, default=1e-5)
+    p.add_argument("--report_every", type=int, default=1,
+                   help="trace granularity in rounds")
+    p.set_defaults(fn=cmd_dp_budget)
     return parser
 
 

@@ -79,10 +79,13 @@ class DACSModel(nn.Module):
                 gumbel_noise: tuple[torch.Tensor, torch.Tensor] | None = None,
                 generator: torch.Generator | None = None,
                 seed_generator: torch.Generator | None = None,
-                need_masks: bool = True) -> DACSOutputs:
+                need_masks: bool = True,
+                mask_override: tuple[torch.Tensor | None, torch.Tensor | None] | None = None,
+                ) -> DACSOutputs:
         """``generator`` draws the Gumbel noise (on the model's device) unless
         ``gumbel_noise`` is given; ``seed_generator`` (CPU) the
-        attention-dropout seeds in training."""
+        attention-dropout seeds in training; ``mask_override`` as in
+        :meth:`apply_heads`."""
         bb = self.cfg.backbone
         b, n = input_values.shape
         t_frames = feat_extract_output_lengths(bb, n)
@@ -94,7 +97,7 @@ class DACSModel(nn.Module):
                       < frame_lengths[:, None]).to(torch.int32)
         h = self.backbone(input_values, frame_mask, seed_generator=seed_generator)
         return self.apply_heads(h, frame_mask, frame_lengths, gumbel_noise, generator,
-                                need_masks)
+                                need_masks, mask_override)
 
     def apply_from_features(self, features: torch.Tensor, frame_mask: torch.Tensor,
                             frame_lengths: torch.Tensor,
@@ -116,8 +119,13 @@ class DACSModel(nn.Module):
                     frame_lengths: torch.Tensor,
                     gumbel_noise: tuple[torch.Tensor, torch.Tensor] | None = None,
                     generator: torch.Generator | None = None,
-                    need_masks: bool = True) -> DACSOutputs:
-        """Everything after the backbone, the final dropout first."""
+                    need_masks: bool = True,
+                    mask_override: tuple[torch.Tensor | None, torch.Tensor | None] | None = None,
+                    ) -> DACSOutputs:
+        """Everything after the backbone, the final dropout first.
+        ``mask_override = (lm, ad)`` replaces the hard lm and/or AD mask
+        (``None`` keeps the sampled one) after sampling and before the cast:
+        the forced-toggle experiments (``evaluation/forced_toggle.py``)."""
         c = self.cfg
         d = c.hidden_size
         h = self.dropout(h)
@@ -143,6 +151,10 @@ class DACSModel(nn.Module):
             ad_noise = sample_gumbel(ad_score.shape, generator, h.device)
         lm_mask = gumbel_softmax(lm_score, lm_noise, c.gs_tau, hard=True)[..., 0]
         ad_mask = gumbel_softmax(ad_score, ad_noise, c.gs_tau, hard=True)[..., 0]
+        if mask_override is not None:
+            lm_over, ad_over = mask_override
+            lm_mask = lm_mask if lm_over is None else lm_over
+            ad_mask = ad_mask if ad_over is None else ad_over
         lm_mask = lm_mask.to(self.dtype)
         ad_mask = ad_mask.to(self.dtype)
         lm_masked = lm_mask * h

@@ -3,7 +3,8 @@
 ``dacs``, ``toggle_more`` and ``grl`` share :class:`DACSModel`; a
 :class:`Recipe` bundles what stage- and method-routed training and serving
 need: the loss, the per-stage trainable-parameter predicate, whether the
-encoder trains, and the streams greedy decode and the AD vote consume.
+encoder trains, the streams greedy decode and the AD vote consume, and what
+extraction dumps per utterance.
 ``single_toggle`` and ``fsm`` use their own models and wait for their
 slice.
 """
@@ -26,7 +27,10 @@ class Recipe:
     sample_mask, aux_metrics) -> (final_loss, metrics)``;
     ``trainable(stage)`` a predicate on a parameter's dotted-name path;
     ``uses_masks(stage)`` whether the stage's loss reads the Gumbel masks;
-    ``eval_streams(outputs, cfg) -> (ctc_logits, ad_logits)``."""
+    ``eval_streams(outputs, cfg) -> (ctc_logits, ad_logits)``;
+    ``extract_streams(outputs, cfg) -> (ctc_logits, ad_logits, lm_mask |
+    None, ad_mask | None)``, what the method's reference eval script dumps
+    (the ``evaluation/extract.py`` row schema)."""
 
     name: str
     stages: tuple[int, ...]
@@ -36,6 +40,7 @@ class Recipe:
     backbone_trains: Callable[[int], bool]
     uses_masks: Callable[[int], bool]
     eval_streams: Callable[[Any, DACSConfig], tuple[torch.Tensor, torch.Tensor]]
+    extract_streams: Callable[[Any, DACSConfig], tuple]
     # frozen-forward caching (the trainer's cache_frontend) is wired for the
     # DACS model only
     supports_cache: bool = False
@@ -80,6 +85,12 @@ def _dacs_eval_streams(out, cfg):
     return out.logits_unmask, out.dementia_logits_unmask
 
 
+def _dacs_extract_streams(out, cfg):
+    """eval_toggle_GS.py / eval_toggle_more.py row: both masks and the
+    AD-masked dementia logits."""
+    return out.logits, out.dementia_logits_ad, out.lm_mask, out.ad_mask
+
+
 def _toggle_more_eval_streams(out, cfg):
     if cfg.stage == 1:
         return out.logits_unmask, out.dementia_logits_unmask
@@ -115,18 +126,23 @@ DACS = Recipe(
     trainable=stage_trainable_predicate,
     backbone_trains=lambda stage: stage == 0,
     uses_masks=lambda stage: stage in (2, 3),
-    eval_streams=_dacs_eval_streams, supports_cache=True)
+    eval_streams=_dacs_eval_streams, extract_streams=_dacs_extract_streams,
+    supports_cache=True)
 TOGGLE_MORE = Recipe(
     name="toggle_more", stages=(1, 2, 3), make_model=_make_dacs, loss=_dacs_loss,
     trainable=stage_trainable_predicate,
     backbone_trains=lambda stage: False,  # only heads train in toggle_more
     uses_masks=lambda stage: stage in (2, 3),
-    eval_streams=_toggle_more_eval_streams, supports_cache=True)
+    eval_streams=_toggle_more_eval_streams, extract_streams=_dacs_extract_streams,
+    supports_cache=True)
 GRL = Recipe(
     name="grl", stages=(0, 1, 2), make_model=_make_dacs, loss=_grl_loss,
     trainable=_grl_trainable, backbone_trains=lambda stage: True,
     uses_masks=lambda stage: False,
-    eval_streams=lambda out, cfg: (out.logits_unmask, out.dementia_logits_unmask))
+    eval_streams=lambda out, cfg: (out.logits_unmask, out.dementia_logits_unmask),
+    # eval.py / eval_finetune.py rows carry no mask columns
+    extract_streams=lambda out, cfg: (out.logits_unmask, out.dementia_logits_unmask,
+                                      None, None))
 
 RECIPES: dict[str, Recipe] = {r.name: r for r in (DACS, TOGGLE_MORE, GRL)}
 _LATER = ("single_toggle", "fsm")

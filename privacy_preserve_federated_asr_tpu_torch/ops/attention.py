@@ -47,33 +47,52 @@ def keep_threshold(rate: float) -> int:
     return min(int(rate * 2147483648.0), 2147483647) if rate > 0.0 else 0
 
 
-def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """Low 32 bits of ``x * c`` for int64 ``x`` in [0, 2^32): split in 16-bit
-    halves so no int64 product overflows."""
-    lo = x * (c & 0xFFFF)
-    hi = ((x * (c >> 16)) & 0xFFFF) << 16
-    return (lo + hi) & _M32
+def _as_int32(x: torch.Tensor) -> torch.Tensor:
+    """uint32 values held in int64 -> the int32 tensor of the same bits."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
 
-def _fmix32(x: torch.Tensor) -> torch.Tensor:
-    """murmur3 finalizer on uint32 values held in int64 (logical shifts)."""
-    x = x ^ (x >> 16)
-    x = _mul32(x, _FMIX_C1)
-    x = x ^ (x >> 13)
-    x = _mul32(x, _FMIX_C2)
-    return x ^ (x >> 16)
+def _fmix32_(x: torch.Tensor) -> torch.Tensor:
+    """murmur3 finalizer, in place, on the int32 bits of uint32 values:
+    int32 products wrap mod 2^32 (the low 32 bits of the uint32 product),
+    and each arithmetic shift is masked to a logical one. One scratch
+    buffer; int32 halves the passes' bytes against an int64 emulation."""
+    t = torch.empty_like(x)
+    for c, shift in ((_FMIX_C1, 16), (_FMIX_C2, 13)):
+        torch.bitwise_right_shift(x, shift, out=t)
+        t &= (1 << (32 - shift)) - 1
+        x ^= t
+        x *= c - (1 << 32)  # the constant's int32 bits (both are >= 2^31)
+    torch.bitwise_right_shift(x, 16, out=t)
+    t &= 0xFFFF
+    x ^= t
+    return x
 
 
 def keep_mask(seed: int, bh: int, t_q: int, t_k: int, t_hash: int,
               rate: float, device=None) -> torch.Tensor:
     """``[bh, t_q, t_k]`` bool keep mask of the counter-based dropout."""
-    seed_bh = _fmix32((seed + torch.arange(bh, dtype=torch.int64, device=device)
-                       * _GOLDEN) & _M32)
+    seed_bh = _fmix32_(_as_int32((seed + torch.arange(bh, dtype=torch.int64, device=device)
+                                  * _GOLDEN) & _M32))
     rows = torch.arange(t_q, dtype=torch.int64, device=device)[:, None]
     cols = torch.arange(t_k, dtype=torch.int64, device=device)[None, :]
-    base = (rows * t_hash + cols) & _M32
-    h = _fmix32(base[None] ^ seed_bh[:, None, None])
-    return (h & 0x7FFFFFFF) >= keep_threshold(rate)
+    base = _as_int32((rows * t_hash + cols) & _M32)
+    h = _fmix32_(base[None] ^ seed_bh[:, None, None])
+    h &= 0x7FFFFFFF
+    return h >= keep_threshold(rate)
+
+
+def _masked_exp(s: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """``exp(s - rowmax)`` of scores whose masked keys hold ``NEG_INF``. On
+    the CPU an exp that underflows is ~10x slower and padding keys are most
+    of a bucket's, so there the exp runs only where it is not 0, bit-equal
+    to computing it everywhere: a masked key of a row with a valid key gives
+    exactly 0, and a row without one is all exp(0) = 1."""
+    if s.device.type != "cpu":
+        return torch.exp(s - s.amax(-1, keepdim=True))
+    live = valid | ~valid.any(-1, keepdim=True)
+    z = torch.where(live, s - s.amax(-1, keepdim=True), torch.zeros((), device=s.device))
+    return torch.where(live, torch.exp(z), torch.zeros((), device=s.device))
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -87,7 +106,7 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
     valid = (key_mask > 0)[:, None, None, :]
     s = torch.where(valid, s, torch.full((), NEG_INF, device=s.device))
-    p = torch.exp(s - s.amax(-1, keepdim=True))
+    p = _masked_exp(s, valid)
     l = p.sum(-1, keepdim=True)  # undropped denominator
     inv_keep = 1.0
     if rate > 0.0:
@@ -115,10 +134,10 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     zero = torch.zeros((), device=q.device)
     # 1. scores, masked keys replaced
     s = torch.einsum("bqhd,bkhd->bhqk", qs, kf)
-    s = torch.where((key_mask > 0)[:, None, None, :], s,
-                    torch.full((), NEG_INF, device=s.device))
+    valid = (key_mask > 0)[:, None, None, :]
+    s = torch.where(valid, s, torch.full((), NEG_INF, device=s.device))
     # 2. the undropped probabilities
-    e = torch.exp(s - s.amax(-1, keepdim=True))
+    e = _masked_exp(s, valid)
     p = e / e.sum(-1, keepdim=True).clamp_min(1e-30)
     # 3-4. the forward's keep mask; A = keep * p / (1 - r)
     a, inv_keep = p, 1.0

@@ -1,7 +1,8 @@
-"""The port package stands alone: it imports with jax/flax/optax/orbax
-blocked and loads nothing of the JAX package; neither its sources nor
-chip_smoke.py import them; and its entry points never carry on quietly on
-the CPU when the default device (cuda) is missing."""
+"""The port package stands alone: it imports with jax/flax/optax/orbax,
+scikit-learn and pandas blocked and loads nothing of the JAX package;
+neither its sources nor chip_smoke.py import JAX or the JAX package; and its
+entry points never carry on quietly on the CPU when the default device
+(cuda) is missing."""
 
 import ast
 import subprocess
@@ -29,7 +30,7 @@ JAX_PKG = "privacy_preserve_federated_asr_tpu"
 
 _CHILD = f"""
 import importlib, pkgutil, sys
-for m in {BLOCKED!r}:
+for m in {BLOCKED + ("sklearn", "pandas")!r}:
     sys.modules[m] = None  # any import of it raises ImportError
 import privacy_preserve_federated_asr_tpu_torch as p
 names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + ".")]
@@ -81,9 +82,10 @@ def test_default_device_without_gpu_raises(monkeypatch):
 
 
 def test_copied_numpy_modules_match_jax_package(tmp_path):
-    """data/audio.py, data/tokenizer.py, data/splits.py and
-    federated/privacy.py are copies, not imports: they must keep giving the
-    JAX package's answers."""
+    """data/audio.py, data/tokenizer.py, data/splits.py,
+    federated/privacy.py, evaluation/detail_wer.py and
+    evaluation/feat_scoring.py are copies, not imports: they must keep
+    giving the JAX package's answers."""
     from types import SimpleNamespace
 
     from scipy.io import wavfile
@@ -91,9 +93,12 @@ def test_copied_numpy_modules_match_jax_package(tmp_path):
     from privacy_preserve_federated_asr_tpu.data import audio as jax_audio
     from privacy_preserve_federated_asr_tpu.data import splits as jax_splits
     from privacy_preserve_federated_asr_tpu.data.tokenizer import CTCCharTokenizer as JaxTok
+    from privacy_preserve_federated_asr_tpu.evaluation import detail_wer as jax_detail_wer
+    from privacy_preserve_federated_asr_tpu.evaluation import feat_scoring as jax_feat_scoring
     from privacy_preserve_federated_asr_tpu.federated import privacy as jax_privacy
     from privacy_preserve_federated_asr_tpu_torch.data import audio, splits
     from privacy_preserve_federated_asr_tpu_torch.data.tokenizer import CTCCharTokenizer
+    from privacy_preserve_federated_asr_tpu_torch.evaluation import detail_wer, feat_scoring
     from privacy_preserve_federated_asr_tpu_torch.federated import privacy
 
     assert splits.CLIENT_SPLITS_ADRESS == jax_splits.CLIENT_SPLITS_ADRESS
@@ -128,3 +133,22 @@ def test_copied_numpy_modules_match_jax_package(tmp_path):
     ids = rng.integers(0, 32, 200)
     assert tok.decode(ids) == jtok.decode(ids)
     assert tok.decode(ids, group_tokens=False) == jtok.decode(ids, group_tokens=False)
+
+    words = ["THE", "BOY", "JAR", "SINK", "IS", "ON"]
+    rows = [{"path": f"S{i % 4:03d}_{'INV' if i % 3 == 0 else 'PAR'}_{i}.wav",
+             "text": " ".join(rng.choice(words, 1 + i % 5)),
+             "pred_str": " ".join(rng.choice(words, i % 4)),
+             "dementia_labels": i % 2,
+             "lm_mask": (rng.random((1, 7 + i, 6)) > 0.5).astype(np.float32),
+             "dementia_mask": (rng.random((1, 7 + i, 6)) > 0.4).astype(np.float32)}
+            for i in range(12)]
+    id2mmse = {"S000": 29, "S001": 23, "S002": 12, "S003": 4}
+    assert detail_wer.MMSE_BANDS == jax_detail_wer.MMSE_BANDS
+    for level in (1, 2, 3):
+        assert (detail_wer.detailed_wer_report(rows, level, id2mmse)
+                == jax_detail_wer.detailed_wer_report(rows, level, id2mmse))
+    for fn in ("mask_node_statistics", "per_utt_on_rates"):
+        got, want = getattr(feat_scoring, fn)(rows), getattr(jax_feat_scoring, fn)(rows)
+        assert got.keys() == want.keys()
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k])
