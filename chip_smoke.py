@@ -5,8 +5,9 @@
     python3 chip_smoke.py --kernels-only   # phases 1, 2 and 5: build and check
 
 Drives the port's serving path, its stage-0 training path, its federated
-3-stage pipeline and its system-run chain (extract, svm, detail-wer,
-feat-scoring; privacy_preserve_federated_asr_tpu_torch) and holds its
+3-stage pipeline, its system-run chain (extract, svm, detail-wer,
+feat-scoring) and the tools around it (the native loaders, transcribe,
+export-hf, sweep; privacy_preserve_federated_asr_tpu_torch) and holds its
 hand-written kernels against their plain versions. It imports nothing of JAX or of the
 JAX package. Phases, in order; any failure raises and ends the run with a
 non-zero exit:
@@ -72,7 +73,25 @@ non-zero exit:
    same injected noise (phase 4's tolerance; masks, transcripts, AD votes
    equal), and phase 10's SVM on both (equal predictions, decision values
    within 1e-6 of their largest magnitude);
-12. one JSON line listing each kernel (launches on the main paths, error
+12. the native loaders: ``native/libdacsaudio.so`` and ``libdacsbeam.so``
+   built by ``make`` where missing and loaded through the port's ctypes
+   shims (the run fails if they do not load), phase 8's corpus loaded
+   natively against the scipy loader (the same samples; both timed);
+13. ``cli transcribe`` of phase 8's final model over the test WAVs at full
+   width: greedy, then ``--beam_size 8`` with a bigram LM fitted on the train
+   CSV (24 B1 launches per batch forward; the native beam's ids equal the
+   Python decoder's on the same log-posteriors; utt/s and the host ms of the
+   beam decode per batch), and at stage 1 against ``cli serve`` of the same
+   weights and files (transcripts equal);
+14. ``cli export-hf`` of that model, then ``cli transcribe`` from the
+   exported ``pytorch_model.bin`` and from a directory holding only a
+   ``model.safetensors`` of it: the model's own transcripts;
+15. ``cli sweep svm --preset dementia-svm`` on phase 10's pickles: 4 rows,
+   the mean row equal to phase 10's ``svm -sq mean``;
+16. ``cli sweep asr -st 0 --grid learning_rate=1e-5,1e-4``, one epoch of the
+   corpus per combo: two rows, both combos from bit-equal params, exact B1
+   and B2 launch counts;
+17. one JSON line listing each kernel (launches on the main paths, error
    against the plain version, times and bound, and under "times" the same
    numbers at each main-path shape), the card's name and power limit, and
    last ``{"ok": true, "device": {...}}``.
@@ -1375,6 +1394,307 @@ def extraction_vs_cpu(features) -> None:
         f"max|diff| {gap:.2e} of max|f| {scale:.3f} (limit 1e-6 of it)")
 
 
+# ---------------------------------------------------------------------------
+# 12. the native loaders on the card's host
+# ---------------------------------------------------------------------------
+
+def native_loaders(root: Path) -> dict:
+    """``native/libdacsaudio.so`` and ``native/libdacsbeam.so`` built with
+    ``make`` (where the checkout lacks them) and loaded through the port's
+    ctypes shims, with no fallback; the corpus of phase 8 loaded natively
+    (threaded) against the scipy loader, the same samples, both timed."""
+    from privacy_preserve_federated_asr_tpu_torch.data import native_audio
+    from privacy_preserve_federated_asr_tpu_torch.data.audio import load_audio
+    from privacy_preserve_federated_asr_tpu_torch.ops import beam
+    from privacy_preserve_federated_asr_tpu_torch.utils.native import NATIVE_DIR
+
+    libs = ("libdacsaudio.so", "libdacsbeam.so")
+    had = {so: (NATIVE_DIR / so).exists() for so in libs}
+    t0 = time.perf_counter()
+    ok = native_audio.available(), beam.native_available()
+    build_s = time.perf_counter() - t0
+    if not all(ok):
+        raise RuntimeError(f"native libraries did not build or load: {dict(zip(libs, ok))}")
+    paths = sorted(str(p) for p in (root / "data/clips").iterdir())
+    times = {"native": [], "python": []}
+    for _ in range(3):
+        t0 = time.perf_counter()
+        nat = native_audio.load_many_native(paths)
+        times["native"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        ref = [load_audio(p) for p in paths]
+        times["python"].append(time.perf_counter() - t0)
+    diff = max(float(np.abs(a - b).max()) for a, b in zip(nat, ref))
+    assert all(a is not None and a.shape == b.shape for a, b in zip(nat, ref)), paths
+    assert diff <= 2e-6, diff
+    ms = {k: float(np.median(v)) * 1e3 for k, v in times.items()}
+    seconds = sum(len(a) for a in ref) / 16000
+    state = ", ".join(f"{so} ({'present' if had[so] else 'built by make'})" for so in libs)
+    log(f"[native] {state} loaded in {build_s:.2f} s; corpus of {len(paths)} WAVs "
+        f"({seconds:.0f} s of audio): native threaded {ms['native']:.1f} ms, scipy per file {ms['python']:.1f} ms (median of "
+        f"3; {ms['python'] / ms['native']:.1f}x), max|diff| {diff:.1e}  [{card_line()}]")
+    return {"native_ms": ms["native"], "python_ms": ms["python"]}
+
+
+# ---------------------------------------------------------------------------
+# 13. cli transcribe greedy and with beam search; cli serve on the same files
+# ---------------------------------------------------------------------------
+
+FINAL = "out/fl_final_global/final"
+MODEL_ARGS = ["--model_type", "data2vec", "--eval_batch_size", str(FL_BATCH),
+              "--device", "cuda"]
+
+
+def _transcribe(root: Path, model_in: str, *extra: str) -> tuple[list, float, int]:
+    """``cli transcribe`` of the test WAVs; (rows, host s, B1 launches)."""
+    from privacy_preserve_federated_asr_tpu_torch.ops.attention import flash_attention_fwd
+
+    flash_attention_fwd.launches = 0
+    rows, _, wall = _run_cli(root, ["transcribe", *MODEL_ARGS, "-model_in", model_in,
+                                    "--audio", "test_wavs", *extra])
+    return rows, wall, flash_attention_fwd.launches
+
+
+def _serve_transcripts(root: Path, paths: list[str], stage: str) -> tuple[list, int]:
+    """``cli serve`` (``cli.main`` in a thread) of phase 8's final model; each
+    file's samples (as ``transcribe`` loads them) posted alone, so each is
+    row 0 of its own batch. Returns the transcripts and B1 launches."""
+    import socket
+
+    from privacy_preserve_federated_asr_tpu_torch import cli
+    from privacy_preserve_federated_asr_tpu_torch.data.audio import load_audio
+    from privacy_preserve_federated_asr_tpu_torch.ops.attention import flash_attention_fwd
+    from privacy_preserve_federated_asr_tpu_torch.serving import server
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    made, make = [], server.make_server
+    server.make_server = lambda *a, **kw: made.append(make(*a, **kw)) or made[-1]
+    flash_attention_fwd.launches = 0
+    th = threading.Thread(target=lambda: cli.main(
+        ["serve", *MODEL_ARGS, "-st", stage, "-model_in", str(root / FINAL),
+         "--port", str(port), "--no_warmup"]), daemon=True)
+    th.start()
+    try:
+        deadline = time.time() + 300
+        while not made and th.is_alive() and time.time() < deadline:
+            time.sleep(0.1)
+        assert made, "cli serve did not start"
+        url = f"http://127.0.0.1:{port}/asr"
+        out = [_post(url, load_audio(p), "f32")[0]["transcript"] for p in paths]
+    finally:
+        server.make_server = make
+        if made:
+            made[0].shutdown()
+        th.join(timeout=60)
+    assert not th.is_alive(), "cli serve did not stop"
+    return out, flash_attention_fwd.launches
+
+
+def transcribe_phase(root: Path) -> dict:
+    """``cli transcribe`` of phase 8's final model over the test WAVs: greedy,
+    then ``--beam_size 8`` with a bigram LM fitted on the train CSV (the
+    beam's ids against the port's Python decoder on the same
+    log-posteriors, its host time per batch); ``cli serve`` of the same
+    weights gives the greedy transcripts of the same files (at stage 1,
+    whose streams carry no Gumbel noise, so a file's row in its batch
+    cannot matter)."""
+    import shutil
+
+    from privacy_preserve_federated_asr_tpu_torch.ops import beam
+    from privacy_preserve_federated_asr_tpu_torch.serving import engine as engine_mod
+
+    wavs = root / "test_wavs"
+    wavs.mkdir()
+    names = [line.split(",")[0] for line in (root / "data/test.csv").read_text().splitlines()[1:]]
+    for n in names:
+        shutil.copy(root / "data/clips" / n, wavs / n)
+    n_batches = -(-len(names) // FL_BATCH)
+    launches = {}
+    greedy, wall, launches["greedy"] = _transcribe(root, FINAL, "-st", "2")
+    assert launches["greedy"] == LAYERS * n_batches, launches
+    assert [Path(r["path"]).name for r in greedy] == sorted(names)
+    assert all(r["ad_pred"] in (0, 1) and 0.0 <= r["ad_prob"] <= 1.0 for r in greedy)
+    log(f"[transcribe] cli transcribe -st 2 (greedy, data2vec-audio-large DACS bf16, phase 8's "
+        f"final model, batch {FL_BATCH}) of {len(names)} test WAVs: {wall:.2f} s of host time "
+        f"(model load included), {len(names) / wall:.1f} utt/s; B1 {launches['greedy']} "
+        f"launches = {LAYERS} x {n_batches} batch forwards  [{card_line()}]")
+
+    calls, search = [], engine_mod.beam_search_batch
+
+    def timed(lp, flen, **kw):
+        t0 = time.perf_counter()
+        out = search(lp, flen, **kw)
+        calls.append((time.perf_counter() - t0, lp.copy(), np.array(flen), kw, out))
+        return out
+
+    engine_mod.beam_search_batch = timed
+    try:
+        beamed, bwall, launches["beam"] = _transcribe(
+            root, FINAL, "-st", "2", "--beam_size", "8", "--lm_train_csv", "data/train.csv")
+    finally:
+        engine_mod.beam_search_batch = search
+    assert launches["beam"] == LAYERS * n_batches and len(calls) == n_batches, launches
+    # the engine's decode is the native one (a CharBigramLM, the library
+    # loaded): the same ids as a direct call of the native decoder on the
+    # captured log-posteriors. The Python decoder is the same search in
+    # fp64, where the native one runs in fp32: at a near-tie on the beam's
+    # edge the two keep different prefixes, so their results are read side
+    # by side, not held equal (the JAX package's pair behaves the same).
+    same, gaps = 0, []
+    for _, lp, flen, kw, out in calls:
+        assert isinstance(kw["lm_fn"], beam.CharBigramLM) and beam.native_available()
+        for b, hyps in enumerate(out):
+            args = dict(beam_size=8, lm_alpha=kw["lm_alpha"], lm_beta=kw["lm_beta"])
+            x = lp[b, : int(flen[b])]
+            nat = beam.ctc_prefix_beam_search_native(x, lm=kw["lm_fn"], **args)
+            assert (hyps[0].ids, hyps[0].score) == (nat.ids, nat.score), b
+            py = beam.ctc_prefix_beam_search(x, lm_fn=kw["lm_fn"], **args)[0]
+            same += py.ids == nat.ids
+            if py.ids != nat.ids:
+                gaps.append(f"row {b}: native {nat.score:.3f}, Python {py.score:.3f}")
+    host_ms = [c[0] * 1e3 for c in calls]
+    changed = sum(a["transcript"] != b["transcript"] for a, b in zip(greedy, beamed))
+    log(f"[transcribe] --beam_size 8 with a bigram LM fitted on the train CSV: {bwall:.2f} s "
+        f"of host time, {len(names) / bwall:.1f} utt/s; B1 {launches['beam']} launches; the "
+        f"engine's ids equal the native decoder's on the captured log-posteriors; the Python "
+        f"decoder gives the same ids on {same} of {len(names)} (best fused scores where not: "
+        f"{gaps}); host beam decode {', '.join(f'{m:.1f}' for m in host_ms)} ms per batch of "
+        f"{FL_BATCH}; {changed} of {len(names)} transcripts differ from greedy  "
+        f"[{card_line()}]")
+
+    st1, _, launches["st1"] = _transcribe(root, FINAL, "-st", "1")
+    served, launches["serve"] = _serve_transcripts(root, [str(root / r["path"]) for r in st1],
+                                                   "1")
+    assert served == [r["transcript"] for r in st1], (served, st1)
+    assert launches["serve"] == LAYERS * len(names), launches
+    log(f"[transcribe] -st 1: cli transcribe's greedy transcripts equal cli serve's for the "
+        f"same {len(names)} files and weights (each request alone in its batch; serve B1 "
+        f"{launches['serve']} launches = {LAYERS} x {len(names)} requests)")
+    return {"greedy": greedy, "launches": launches, "utt_s": len(names) / wall,
+            "beam_utt_s": len(names) / bwall, "beam_host_ms": host_ms}
+
+
+# ---------------------------------------------------------------------------
+# 14. cli export-hf, then transcribe from the export (.bin and .safetensors)
+# ---------------------------------------------------------------------------
+
+def _write_safetensors(path: Path, sd: dict) -> None:
+    """F32 tensors in the safetensors layout: an 8-byte little-endian header
+    length, the JSON header (padded with spaces to 8 bytes), the bytes."""
+    header, offset, blobs = {}, 0, []
+    for k, v in sd.items():
+        b = v.detach().to("cpu", torch.float32).contiguous().numpy().tobytes()
+        header[k] = {"dtype": "F32", "shape": list(v.shape),
+                     "data_offsets": [offset, offset + len(b)]}
+        offset += len(b)
+        blobs.append(b)
+    h = json.dumps(header).encode()
+    h += b" " * (-len(h) % 8)
+    with open(path, "wb") as f:
+        f.write(len(h).to_bytes(8, "little") + h)
+        for b in blobs:
+            f.write(b)
+
+
+def export_phase(root: Path, greedy: list) -> dict:
+    """``cli export-hf`` of phase 8's final model; ``cli transcribe`` from the
+    exported ``pytorch_model.bin`` and from a directory holding only
+    ``model.safetensors`` of it gives the final model's transcripts."""
+    t0 = time.perf_counter()
+    out = _last_json(_run_cli(root, ["export-hf", *MODEL_ARGS, "-st", "2", "-model_in", FINAL,
+                                     "--out", "export/pytorch_model.bin"])[1])
+    export_s = time.perf_counter() - t0
+    sd = torch.load(root / "export/pytorch_model.bin", map_location="cpu", weights_only=True)
+    assert out["keys"] == len(sd) and all(k.startswith(("data2vec_audio.", "lm_head.",
+                                                        "dementia_head.", "arbitrator.",
+                                                        "criterion_similar.")) for k in sd)
+    (root / "export_st").mkdir()
+    _write_safetensors(root / "export_st/model.safetensors", sd)
+    launches = {}
+    want = [r["transcript"] for r in greedy]
+    for name, model_in in (("bin", "export/pytorch_model.bin"), ("safetensors", "export_st")):
+        rows, _, launches[name] = _transcribe(root, model_in, "-st", "2")
+        assert [r["transcript"] for r in rows] == want, name
+        assert [r["ad_pred"] for r in rows] == [r["ad_pred"] for r in greedy], name
+    log(f"[export] cli export-hf of phase 8's final model: {len(sd)} ForCTC keys in "
+        f"{export_s:.1f} s; cli transcribe -model_in the exported pytorch_model.bin and -model_in "
+        f"a directory holding only model.safetensors of it: transcripts and AD votes equal the "
+        f"final model's  [{card_line()}]")
+    return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# 15. cli sweep svm on phase 10's pickles; 16. cli sweep asr at stage 0
+# ---------------------------------------------------------------------------
+
+def sweep_svm_phase(root: Path, svm: dict) -> None:
+    res = root / "res_float32"
+    rows = _run_cli(root, ["sweep", "svm", "--train_pkl", str(res / "extract_train.pkl"),
+                           "--test_pkl", str(res / "extract.pkl"), "--spk2label",
+                           "data/spk2label.npy", "--preset", "dementia-svm", "--results_csv",
+                           str(res / "sweep_svm.csv"), "--device", "cuda"])[0]
+    assert [r["pooling"] for r in rows] == ["min", "max", "mean", "median"], rows
+    mean = next(r for r in rows if r["pooling"] == "mean")
+    assert {k: mean[k] for k in svm} == svm, (mean, svm)
+    assert len((res / "sweep_svm.csv").read_text().splitlines()) == 5
+    accs = ", ".join(f"{r['pooling']} ACC {r['ACC']:.3f}" for r in rows)
+    log(f"[sweep-svm] cli sweep svm --preset dementia-svm on phase 10's pickles: 4 rows "
+        f"({accs}); the mean row equals phase 10's svm -sq mean  [{card_line()}]")
+
+
+def _train_args(args: list[str]) -> list[str]:
+    """``args`` without the flags that only ``cli federated`` takes."""
+    fl_only = {"--num_users", "--local_ep", "--global_ep"}
+    pairs = list(zip(args[::2], args[1::2]))
+    return [x for flag, value in pairs if flag not in fl_only for x in (flag, value)]
+
+
+def sweep_asr_phase(root: Path) -> dict:
+    """``cli sweep asr -st 0 --grid learning_rate=1e-5,1e-4`` at full width,
+    one epoch of the smoke corpus per combo: two rows, each combo from
+    bit-equal initial params, the exact B1/B2 launch counts."""
+    import csv
+
+    from privacy_preserve_federated_asr_tpu_torch.ops.attention import (
+        flash_attention_bwd, flash_attention_fwd)
+    from privacy_preserve_federated_asr_tpu_torch.train.trainer import Trainer
+
+    inits, trainers, real_init = [], [], Trainer.__init__
+
+    def init(self, cfg, state_dict, *a, **kw):
+        inits.append({k: v.clone() for k, v in state_dict.items()})
+        trainers.append(self)
+        real_init(self, cfg, state_dict, *a, **kw)
+
+    Trainer.__init__ = init
+    flash_attention_fwd.launches = flash_attention_bwd.launches = 0
+    try:
+        rows, _, wall = _run_cli(root, [
+            "sweep", "asr", *_train_args(FL_ARGS), "-st", "0", "--epochs", "1",
+            "--grid", "learning_rate=1e-5,1e-4", "--results_csv", "sweep/asr.csv"])
+    finally:
+        Trainer.__init__ = real_init
+    b1, b2 = flash_attention_fwd.launches, flash_attention_bwd.launches
+    assert [r["learning_rate"] for r in rows] == [1e-5, 1e-4], rows
+    assert all(np.isfinite(r["eval_loss"]) for r in rows), rows
+    assert len(inits) == 2 and all(torch.equal(v, inits[1][k]) for k, v in inits[0].items())
+    steps = sum(len(t.train_batcher) for t in trainers)
+    evals = sum(len(t.eval_batcher) for t in trainers)
+    assert (b1, b2) == (LAYERS * (steps + evals), LAYERS * steps), (b1, b2, steps, evals)
+    with open(root / "sweep/asr.csv", newline="") as f:
+        assert [float(r["learning_rate"]) for r in csv.DictReader(f)] == [1e-5, 1e-4]
+    shown = ", ".join(f"lr {r['learning_rate']:g}: eval_loss {r['eval_loss']:.3f}, eval_wer "
+                      f"{r['eval_wer']:.3f}" for r in rows)
+    log(f"[sweep-asr] cli sweep asr -st 0 --grid learning_rate=1e-5,1e-4 (data2vec-audio-large "
+        f"DACS bf16, batch {FL_BATCH}, 1 epoch of {FL_TRAIN} train WAVs, eval on {FL_TEST}): 2 "
+        f"rows ({shown}) in {wall:.1f} s ({wall / 2:.1f} s per combo, model init and caches "
+        f"included); both combos from bit-equal params; B1 {b1} = {LAYERS} x ({steps} steps + {evals} eval "
+        f"batches), B2 {b2} = {LAYERS} x {steps}  [{card_line()}]")
+    return {"b1": b1, "b2": b2, "combo_s": wall / 2}
+
+
 def _shape_times(row: dict, **shape) -> dict:
     return {**shape, **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                             "library_ms")}}
@@ -1402,10 +1722,18 @@ def main(argv=None) -> None:
     training = train_full_width()
     train_step_vs_cpu()
     with tempfile.TemporaryDirectory() as tmp:
-        federated = federated_full_width(Path(tmp))
+        root = Path(tmp)
+        federated = federated_full_width(root)
         federated_round_vs_cpu()
-        chain = extraction_chain(Path(tmp))
-    extraction_vs_cpu(chain["features"])
+        chain = extraction_chain(root)
+        extraction_vs_cpu(chain["features"])
+        native_loaders(root)
+        transcribe = transcribe_phase(root)
+        export = export_phase(root, transcribe["greedy"])
+        sweep_svm_phase(root, chain["svm"])
+        sweep = sweep_asr_phase(root)
+    tools_b1 = (sum(transcribe["launches"].values()) + sum(export["launches"].values())
+                + sweep["b1"])
     t = kern["times"][(TS[-1], "bfloat16")]
     tb = bwd["times"][(*BWD_SHAPES[0], "bfloat16")]
     line = {"kernels": [{
@@ -1414,7 +1742,7 @@ def main(argv=None) -> None:
         "source": "privacy_preserve_federated_asr_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "privacy_preserve_federated_asr_tpu/ops/attention.py:101",
         "launches": (serving["launches"] + training["b1"] + federated["b1"]
-                     + sum(chain["launches"].values())),
+                     + sum(chain["launches"].values()) + tools_b1),
         "max_abs_err": max(kern["max_abs_err"], serving["served_err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -1427,7 +1755,7 @@ def main(argv=None) -> None:
         "route": "cuda",
         "source": "privacy_preserve_federated_asr_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "privacy_preserve_federated_asr_tpu/ops/attention.py:142",
-        "launches": training["b2"] + federated["b2"],
+        "launches": training["b2"] + federated["b2"] + sweep["b2"],
         "max_abs_err": bwd["max_abs_err"],
         "ms": tb["ms"], "plain_ms": tb["plain_ms"], "bound_ms": tb["bound_ms"],
         "bound_by": tb["bound_by"], "library_ms": tb["library_ms"],
@@ -1436,8 +1764,10 @@ def main(argv=None) -> None:
     }]}
     log(f"[kernels] flash_fwd launches: serving {serving['launches']} + training "
         f"{training['b1']} + federated {federated['b1']} + extraction "
-        f"{chain['launches']}; times at B={B} T={TS[-1]} bf16. "
-        f"flash_bwd: training {training['b2']} + federated {federated['b2']} (per stage "
+        f"{chain['launches']} + transcribe and serve {transcribe['launches']} + export "
+        f"reloads {export['launches']} + sweep asr {sweep['b1']}; times at B={B} T={TS[-1]} "
+        f"bf16. flash_bwd: training {training['b2']} + federated {federated['b2']} + sweep asr "
+        f"{sweep['b2']} (per stage "
         f"(B1, B2): {federated['stages']}); times at B={BWD_SHAPES[0][0]} "
         f"T={BWD_SHAPES[0][1]} bf16 rate {TRAIN_RATE}; each kernel's \"times\" at every "
         f"main-path shape (B1 in fp32 too: extraction's precision)")

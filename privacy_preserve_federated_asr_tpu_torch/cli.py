@@ -1,7 +1,7 @@
 """Command-line interface of the port: ``train``, ``federated``, ``serve``,
-``extract``, ``svm``, ``detail-wer``, ``feat-scoring``, ``pkl2csv`` and
-``dp-budget`` (the JAX package's subcommands of those names, same flag
-names).
+``extract``, ``svm``, ``detail-wer``, ``feat-scoring``, ``pkl2csv``,
+``dp-budget``, ``transcribe``, ``export-hf`` and ``sweep`` (the JAX
+package's subcommands of those names, same flag names).
 
     python -m privacy_preserve_federated_asr_tpu_torch.cli train \
         --model_type data2vec -st 0 --epochs 30 --audio_dir ... \
@@ -23,12 +23,22 @@ names).
         --pkl ./saves/results/extract.pkl -t 2
     python -m privacy_preserve_federated_asr_tpu_torch.cli feat-scoring \
         --pkl ./saves/results/extract.pkl
+    python -m privacy_preserve_federated_asr_tpu_torch.cli transcribe \
+        --model_type data2vec -st 2 -model_in ... --audio clips/ --out t.csv \
+        [--beam_size 8 --lm_train_csv train.csv]
+    python -m privacy_preserve_federated_asr_tpu_torch.cli export-hf \
+        --model_type data2vec -st 2 -model_in ... --out export/pytorch_model.bin
+    python -m privacy_preserve_federated_asr_tpu_torch.cli sweep asr \
+        --model_type data2vec -st 0 --grid learning_rate=1e-5,1e-4 ...
+    python -m privacy_preserve_federated_asr_tpu_torch.cli sweep svm \
+        --train_pkl ... --test_pkl ... --spk2label ... --preset dementia-svm
 
 ``--model_in`` takes a port checkpoint (a ``final/`` export or a
 ``checkpoint-<step>/`` directory of ``train``), or a ForCTC torch state dict
-as the JAX package's ``cli export-hf`` writes it (or an HF encoder/ForCTC
-``pytorch_model.bin``); heads the file lacks keep their random init. Without
-it the weights are a random init from ``--seed``. Every command that runs a
+as the JAX package's and the port's ``cli export-hf`` write it (or an HF
+encoder/ForCTC ``pytorch_model.bin`` or ``model.safetensors``); heads the
+file lacks keep their random init. Without it the weights are a random init
+from ``--seed``. Every command that runs a
 model or the SVM runs on ``--device`` (default ``cuda``; with no GPU it
 exits with an error rather than run on the CPU). ``federated`` writes
 ``<model_out>_FLASR_global/final``, ``<model_out>_FLAD_global/final`` and
@@ -36,6 +46,11 @@ exits with an error rather than run on the CPU). ``federated`` writes
 ``--model_in``. ``extract`` writes ``<csv_name>.pkl`` (test CSV),
 ``<csv_name>_train.pkl`` and the test set's ``Result.csv``; the analysis
 commands read those pickles without pandas (``evaluation/extract.py``).
+``serve``, ``extract`` and ``transcribe`` decode greedily unless
+``--beam_size > 0`` (CTC prefix beam search on the host, ``ops/beam.py``,
+with a character-bigram LM fitted on ``--lm_train_csv`` for shallow fusion).
+``sweep text`` and ``--compute_dtype int8`` raise ``NotImplementedError``
+(port slices 11 and 8).
 """
 
 from __future__ import annotations
@@ -63,7 +78,7 @@ def _dacs_cfg(args):
 
     train = dict(lambda_grl=args.LAMBDA, ad_loss=args.AD_loss,
                  w_loss=tuple(args.W_LOSS) if args.W_LOSS else (0.1, 0.9),
-                 grl_reverse=args.GRL) if args.cmd in ("train", "federated") else {}
+                 grl_reverse=args.GRL) if args.cmd in ("train", "federated", "sweep") else {}
     return DACSConfig(
         backbone=getattr(BackboneConfig, BACKBONES[args.model_type])(),
         method=args.method,
@@ -78,8 +93,11 @@ def load_weights(cfg, model_in: str | None, seed: int = 0,
                  device: str | torch.device = "cpu") -> dict[str, torch.Tensor]:
     """DACSModel weights: a seeded random init (generator on ``device``),
     with a port checkpoint or a torch checkpoint's encoder and heads carried
-    over it when ``model_in`` is given."""
+    over it when ``model_in`` is given. A torch checkpoint is a file
+    (``.bin`` or ``.safetensors``) or an HF directory holding
+    ``pytorch_model.bin`` or, failing that, ``model.safetensors``."""
     from .models import init_dacs_state_dict, state_dict_from_hf
+    from .models.port import read_safetensors
     from .train.checkpoint import load_state_dict
 
     gen = torch.Generator(device).manual_seed(seed)
@@ -96,11 +114,13 @@ def load_weights(cfg, model_in: str | None, seed: int = 0,
                            f"{sorted(set(own) - set(sd))[:5]}")
         return {k: v.float() for k, v in own.items()}
     path = Path(model_in)
-    if path.is_dir():
-        path = path / "pytorch_model.bin"
+    if path.is_dir():  # an HF directory: the JAX package's two candidates
+        path = next((path / c for c in ("pytorch_model.bin", "model.safetensors")
+                     if (path / c).exists()), path / "pytorch_model.bin")
     print(f"[init] torch checkpoint {path}")
-    ported = state_dict_from_hf(torch.load(str(path), map_location="cpu",
-                                           weights_only=True), cfg)
+    raw = (read_safetensors(str(path)) if path.suffix == ".safetensors"
+           else torch.load(str(path), map_location="cpu", weights_only=True))
+    ported = state_dict_from_hf(raw, cfg)
     for k, v in ported.items():
         if v.shape != sd[k].shape:
             raise ValueError(f"checkpoint {k} has shape {tuple(v.shape)}, the "
@@ -109,21 +129,45 @@ def load_weights(cfg, model_in: str | None, seed: int = 0,
     return sd
 
 
-def cmd_serve(args):
-    from .data.tokenizer import CTCCharTokenizer
-    from .serving import InferenceEngine, ServingConfig, serve_forever
-    from .serving.engine import resolve_device
+def _fit_shallow_fusion_lm(args, tok, cfg):
+    """Char-bigram LM for beam-search shallow fusion, fitted on the
+    transcripts CSV — shared by extract, serve and transcribe. None when
+    beam decoding or the LM CSV is not requested."""
+    if not (args.beam_size > 0 and args.lm_train_csv):
+        return None
+    import csv
 
-    device = resolve_device(args.device)
+    from .ops.beam import CharBigramLM
+
+    with open(args.lm_train_csv, newline="") as f:
+        seqs = [tok.encode(row["sentence"].upper())
+                for row in csv.DictReader(f) if row.get("sentence")]
+    return CharBigramLM(cfg.backbone.vocab_size).fit(seqs)
+
+
+def _engine(args, device):
+    """The InferenceEngine of ``serve`` and ``transcribe``."""
+    from .data.tokenizer import CTCCharTokenizer
+    from .serving import InferenceEngine, ServingConfig
+
     cfg = _dacs_cfg(args)
-    engine = InferenceEngine(
-        cfg, load_weights(cfg, args.model_in_path, args.seed, device),
-        CTCCharTokenizer(),
+    tok = CTCCharTokenizer()
+    return InferenceEngine(
+        cfg, load_weights(cfg, args.model_in_path, args.seed, device), tok,
         ServingConfig(batch_size=args.eval_batch_size,
                       max_seconds=args.max_seconds,
-                      batch_window_ms=args.batch_window_ms,
-                      compute_dtype=args.compute_dtype),
-        device=device)
+                      batch_window_ms=getattr(args, "batch_window_ms", 10.0),
+                      compute_dtype=args.compute_dtype,
+                      beam_size=args.beam_size, lm_alpha=args.lm_alpha,
+                      lm_beta=args.lm_beta),
+        lm_fn=_fit_shallow_fusion_lm(args, tok, cfg), device=device)
+
+
+def cmd_serve(args):
+    from .serving import serve_forever
+    from .serving.engine import resolve_device
+
+    engine = _engine(args, resolve_device(args.device))
     serve_forever(engine, host=args.host, port=args.port,
                   warmup=not args.no_warmup)
 
@@ -237,16 +281,18 @@ def cmd_extract(args):
     if args.dp > 1:
         raise NotImplementedError("extract --dp > 1 (data-parallel extraction) is not "
                                   "ported yet")
-    if args.beam_size > 0 or args.lm_train_csv:
-        raise NotImplementedError("extract --beam_size > 0 / --lm_train_csv (beam "
-                                  "search) is not ported yet")
     cfg = _dacs_cfg(args)
     sd = load_weights(cfg, args.model_in_path, args.seed, device)
     out_dir = Path(args.csv_out_dir)
+    lm_fn = None
     for split, csv_path in (("", args.test_csv), ("_train", args.train_csv)):
         exs, tok = _load_examples(args, csv_path)
+        if lm_fn is None:
+            lm_fn = _fit_shallow_fusion_lm(args, tok, cfg)
         rows = extract_embeddings(cfg, sd, exs, tok, batch_size=args.eval_batch_size,
-                                  compute_dtype=args.compute_dtype, device=device)
+                                  compute_dtype=args.compute_dtype, beam_size=args.beam_size,
+                                  lm_fn=lm_fn, lm_alpha=args.lm_alpha,
+                                  lm_beta=args.lm_beta, device=device)
         rows_to_pickle(rows, str(out_dir / f"{args.csv_name}{split}.pkl"))
         if split == "":  # the reference writes Result.csv for the test set
             write_results_csv(rows, str(out_dir))
@@ -353,6 +399,123 @@ def cmd_dp_budget(args):
     }))
 
 
+def cmd_transcribe(args):
+    """Batch-transcribe WAV files (a file or a directory) without the CSV
+    pipeline: audio -> InferenceEngine -> transcript + AD prediction per
+    file, printed as one JSON row each (and written to ``--out`` as CSV).
+    Greedy, or beam search with ``--beam_size``; returns the rows."""
+    import csv
+
+    from .data.audio import load_audio
+    from .serving.engine import resolve_device
+
+    if args.compute_dtype == "int8":
+        raise NotImplementedError("transcribe --compute_dtype int8 is not ported yet "
+                                  "(port slice 8: ops/quant.py)")
+    device = resolve_device(args.device)
+    src = Path(args.audio)
+    paths = sorted(src.glob("**/*.wav")) if src.is_dir() else [src]
+    if not paths:
+        raise SystemExit(f"no .wav files under {src}")
+    engine = _engine(args, device)
+    results = engine.infer_batch([load_audio(str(p)) for p in paths])
+    rows = [{"path": str(p), "transcript": r.transcript,
+             "ad_pred": r.ad_pred, "ad_prob": round(r.ad_prob, 4)}
+            for p, r in zip(paths, results)]
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        with open(args.out, "w", newline="") as f:
+            w = csv.DictWriter(f, fieldnames=["path", "transcript", "ad_pred", "ad_prob"])
+            w.writeheader()
+            w.writerows(rows)
+    for row in rows:
+        print(json.dumps(row))
+    return rows
+
+
+def cmd_export_hf(args):
+    """Export the model's weights to an HF torch state_dict
+    (pytorch_model.bin layout, ForCTC keys) so reference-style torch
+    pipelines can load them (models/export.py)."""
+    from .models.export import export_for_ctc_state_dict
+    from .serving.engine import resolve_device
+
+    cfg = _dacs_cfg(args)
+    sd = load_weights(cfg, args.model_in_path, args.seed, resolve_device(args.device))
+    out_sd = export_for_ctc_state_dict(sd, cfg.backbone,
+                                       weight_norm_style=args.weight_norm_style)
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({k: torch.from_numpy(v.copy()) for k, v in out_sd.items()}, out)
+    print(json.dumps({"keys": len(out_sd), "out": str(out)}))
+
+
+def cmd_sweep(args):
+    """Replay the reference's run_*.sh sweep grids as one command
+    (run_dementia_SVM.sh, run_HyperparameterTune.sh — see sweep.py for the
+    full mapping); returns the rows. ``sweep text`` is not ported yet."""
+    from .sweep import (
+        ASR_PRESETS,
+        SVM_PRESETS,
+        TEXT_PRESETS,
+        parse_grid,
+        sweep_asr,
+        sweep_svm,
+        sweep_text,
+    )
+
+    presets = {"asr": ASR_PRESETS, "text": TEXT_PRESETS, "svm": SVM_PRESETS}[args.target]
+    grid = presets[args.preset]() if args.preset else {}
+    grid.update(parse_grid(args.grid))  # explicit --grid axes override presets
+    if not grid:
+        raise SystemExit(f"sweep {args.target}: give --preset "
+                         f"({', '.join(sorted(presets))}) and/or --grid key=v1,v2")
+    if args.target == "text":
+        return sweep_text(grid, args.train_pkl, args.test_pkl,
+                          results_csv=args.results_csv, seed=args.seed)
+    from .serving.engine import resolve_device
+
+    device = resolve_device(args.device)
+    if args.target == "svm":
+        from .data.dataset import load_spk2label
+        from .evaluation import read_records
+
+        def load_rows(pkl):
+            rows = read_records(pkl)
+            for r in rows:
+                r.setdefault("text", r.get("pred_str"))
+            return rows
+
+        return sweep_svm(grid, load_rows(args.train_pkl), load_rows(args.test_pkl),
+                         load_spk2label(args.spk2label), results_csv=args.results_csv,
+                         device=device)
+    from .train.trainer import TrainerConfig
+
+    cfg = _dacs_cfg(args)
+    train_exs, tok = _load_examples(args, args.train_csv)
+    test_exs, _ = _load_examples(args, args.test_csv)
+    sd = load_weights(cfg, args.model_in_path, args.seed, device)
+    tcfg = TrainerConfig(
+        num_epochs=args.epochs, batch_size=args.train_batch_size,
+        eval_batch_size=args.eval_batch_size, seed=args.seed,
+        compute_dtype=args.compute_dtype, log_file=args.log_path,
+        scan_layers=args.scan_layers, dp=args.dp, tp=args.tp)
+    return sweep_asr(grid, cfg, tcfg, sd, train_exs, test_exs, tok,
+                     results_csv=args.results_csv, device=device)
+
+
+def _add_beam(p) -> None:
+    """Beam decoding flags of ``serve``, ``extract`` and ``transcribe``."""
+    p.add_argument("--beam_size", type=int, default=0,
+                   help="0 = greedy (reference parity); >0 = CTC prefix beam search "
+                        "(ops/beam.py)")
+    p.add_argument("--lm_train_csv", default=None,
+                   help="fit a char-bigram shallow-fusion LM on this train CSV's "
+                        "transcripts (needs --beam_size > 0)")
+    p.add_argument("--lm_alpha", type=float, default=0.3)
+    p.add_argument("--lm_beta", type=float, default=0.0)
+
+
 def _add_train(p) -> None:
     """The JAX ``_add_common`` flags the port's Trainer takes (the
     parallelism and layout flags are accepted and refused by the Trainer
@@ -376,7 +539,9 @@ def _add_train(p) -> None:
     p.add_argument("-lr", "--learning_rate", type=float, default=None)
     p.add_argument("--eval_steps", type=int, default=500)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--compute_dtype", default="bfloat16", choices=["float32", "bfloat16"])
+    p.add_argument("--compute_dtype", default="bfloat16",
+                   choices=["float32", "bfloat16", "int8"],
+                   help="int8 (the JAX package's W8A8 matmuls) is not ported yet")
     p.add_argument("--remat", action="store_true")
     p.add_argument("--scan_layers", action="store_true")
     p.add_argument("--dp", type=int, default=1)
@@ -467,7 +632,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--eval_batch_size", type=int, default=8)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--compute_dtype", default="bfloat16",
-                   choices=["float32", "bfloat16"])
+                   choices=["float32", "bfloat16", "int8"],
+                   help="int8 (the JAX package's W8A8 matmuls) is not ported yet")
     p.add_argument("--device", default="cuda",
                    help="torch device; cpu only when asked for explicitly")
     p.add_argument("--host", default="127.0.0.1")
@@ -476,18 +642,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch_window_ms", type=float, default=10.0)
     p.add_argument("--no_warmup", action="store_true",
                    help="skip running one batch per time bucket at startup")
+    _add_beam(p)
     p.set_defaults(fn=cmd_serve)
 
     p = sub.add_parser("extract", help="dump embeddings/masks/transcripts")
     _add_train(p)
     p.add_argument("-csv", "--csv_name", default="extract")
     p.add_argument("--csv_out_dir", default="./saves/results")
-    p.add_argument("--beam_size", type=int, default=0,
-                   help="0 = greedy (reference parity); beam search is not ported yet")
-    p.add_argument("--lm_train_csv", default=None,
-                   help="shallow-fusion LM for beam search (not ported yet)")
-    p.add_argument("--lm_alpha", type=float, default=0.3)
-    p.add_argument("--lm_beta", type=float, default=0.0)
+    _add_beam(p)
     # reference extraction runs fp32 (no .half() in the eval scripts);
     # opt into bf16 explicitly for speed
     p.set_defaults(fn=cmd_extract, compute_dtype="float32")
@@ -542,6 +704,58 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--report_every", type=int, default=1,
                    help="trace granularity in rounds")
     p.set_defaults(fn=cmd_dp_budget)
+
+    p = sub.add_parser("transcribe",
+                       help="batch-transcribe WAV file(s) without the CSV "
+                            "pipeline (ASR transcript + AD prediction)")
+    _add_train(p)
+    p.add_argument("--audio", required=True,
+                   help="a .wav file or a directory (searched recursively)")
+    p.add_argument("--out", default=None, help="optional output CSV")
+    p.add_argument("--max_seconds", type=float, default=30.0)
+    _add_beam(p)
+    p.set_defaults(fn=cmd_transcribe)
+
+    p = sub.add_parser("export-hf",
+                       help="model weights -> HF torch state_dict "
+                            "(pytorch_model.bin) for reference-world use")
+    _add_train(p)
+    p.add_argument("--out", default="./saves/export/pytorch_model.bin")
+    p.add_argument("--weight_norm_style", default="parametrizations",
+                   choices=["parametrizations", "legacy"],
+                   help="pos-conv weight-norm key layout (torch>=2 modules "
+                        "use parametrizations.*; older checkpoints "
+                        "weight_g/weight_v)")
+    p.set_defaults(fn=cmd_export_hf)
+
+    p = sub.add_parser("sweep", help="replay the reference run_*.sh sweep grids")
+    sweep_sub = p.add_subparsers(dest="target", required=True)
+    sp = sweep_sub.add_parser("asr", help="ASR/DACS hyperparameter grid "
+                              "(run_HyperparameterTune.sh)")
+    _add_train(sp)
+    sp.add_argument("--epochs", type=int, default=5)
+    sp.add_argument("--preset", default=None, choices=["hyperparameter-tune"])
+    sp.add_argument("--grid", nargs="*", default=[], metavar="key=v1,v2",
+                    help="DACSConfig/TrainerConfig axes, e.g. gs_tau=0.5,1.0")
+    sp.add_argument("--results_csv", default="./saves/results/sweep/asr_results.csv")
+    sp.set_defaults(fn=cmd_sweep, target="asr")
+    for name, choices, hlp in (
+        ("text", ["bert", "bert-regression", "bert-params-tuning"],
+         "text-branch grids (run_dementia_BERT*.sh; not ported yet)"),
+        ("svm", ["dementia-svm"], "SVM grids (run_dementia_SVM.sh)"),
+    ):
+        sp = sweep_sub.add_parser(name, help=hlp)
+        sp.add_argument("--train_pkl", required=True)
+        sp.add_argument("--test_pkl", required=True)
+        sp.add_argument("--preset", default=None, choices=choices)
+        sp.add_argument("--grid", nargs="*", default=[], metavar="key=v1,v2")
+        sp.add_argument("--spk2label", default="./meta-data/test_dic.npy")
+        sp.add_argument("--results_csv",
+                        default=f"./saves/results/sweep/{name}_results.csv")
+        sp.add_argument("--seed", type=int, default=0)
+        sp.add_argument("--device", default="cuda",
+                        help="torch device of the SVM; cpu only when asked")
+        sp.set_defaults(fn=cmd_sweep, target=name)
     return parser
 
 

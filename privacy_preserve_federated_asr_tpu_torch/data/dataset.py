@@ -1,8 +1,9 @@
 """CSV -> examples pipeline (the reference's ``csv2dataset`` capability).
 
 A copy of ``privacy_preserve_federated_asr_tpu/data/dataset.py`` (the port
-imports nothing of the JAX package): audio loads through the scipy path only;
-the native threaded loader (``native/libdacsaudio.so``) waits for its shim.
+imports nothing of the JAX package): audio loads through the native threaded
+loader (``native/libdacsaudio.so``, ``data/native_audio.py``) with a per-file
+scipy retry.
 
 Reference behavior reproduced (federated/src/utils.py:97-149,
 centralized/utils.py:62-111):
@@ -107,16 +108,28 @@ def csv_to_examples(
 
 
 def _load_all_audio(wav_paths: list[str], target_sr: int) -> list:
-    """Per-file scipy load; a failed file becomes None (logged), matching the
-    reference's skip-and-print behavior (federated/src/utils.py csv2dataset)."""
-    out = []
-    for p in wav_paths:
-        try:
-            out.append(load_audio(p, target_sr=target_sr))
-        except (ValueError, FileNotFoundError) as e:  # unreadable file
-            print(f"Err file = {p}: {e}")
-            out.append(None)
-    return out
+    """Corpus audio load: the native threaded loader (native/wavio.cpp via
+    data/native_audio.py, bit-equal to the scipy path) when the shared
+    library is available, then per-file scipy for whatever it did not load
+    (all files without the library). A file that fails both becomes None
+    (logged), matching the reference's skip-and-print behavior
+    (federated/src/utils.py csv2dataset)."""
+    from . import native_audio
+
+    sigs = (native_audio.load_many_native(wav_paths, target_sr=target_sr)
+            if native_audio.available() else [None] * len(wav_paths))
+    # the native parser covers PCM 8/16/24/32 + IEEE float32; scipy also
+    # reads e.g. float64 WAVs — a corpus must not shrink just because the
+    # C++ loader was buildable
+    for i, (p, s) in enumerate(zip(wav_paths, sigs)):
+        if s is None:
+            try:
+                sigs[i] = load_audio(p, target_sr=target_sr)
+            except Exception as e:  # any decode error (struct.error on a
+                # truncated file, IsADirectoryError, ...): one bad file is
+                # skipped, not the corpus build aborted
+                print(f"Err file = {p}: {e}")
+    return sigs
 
 
 def prepare_examples(

@@ -47,6 +47,7 @@ from ..data.tokenizer import CTCCharTokenizer
 from ..models.backbone import feat_extract_output_lengths
 from ..models.config import DACSConfig
 from ..models.recipes import get_recipe
+from ..ops.beam import beam_search_batch
 from ..ops.decode import ad_vote, greedy_ids
 from ..ops.gumbel import sample_gumbel
 from ..serving.engine import resolve_device
@@ -120,6 +121,8 @@ def extract_embeddings(
     compute_dtype: str = "float32",
     beam_size: int = 0,
     lm_fn=None,
+    lm_alpha: float = 0.3,
+    lm_beta: float = 0.0,
     mesh=None,
     device: str | torch.device = "cuda",
     gumbel_noise: NoiseFn | None = None,
@@ -128,13 +131,13 @@ def extract_embeddings(
 
     ``state_dict`` holds the port's DACSModel weights. ``compute_dtype``
     "float32" (the reference's extraction precision, the default) or
-    "bfloat16" (the serving precision; rows are fp32 either way). Beam search
-    (``beam_size > 0``, ``lm_fn``), ``mesh`` data parallelism and
-    ``compute_dtype="int8"`` are not ported yet and raise. Runs on ``device``
-    (``cuda`` unless the caller asks for the CPU)."""
-    if beam_size > 0 or lm_fn is not None:
-        raise NotImplementedError("beam search in extraction is not ported yet "
-                                  "(beam_size=0, lm_fn=None)")
+    "bfloat16" (the serving precision; rows are fp32 either way).
+    ``beam_size > 0`` decodes ``pred_str`` with CTC prefix beam search on the
+    host over the forward's fp32 log-posteriors (ops/beam.py; optional
+    shallow LM fusion ``lm_fn``) instead of the reference's greedy argmax.
+    ``mesh`` data parallelism and ``compute_dtype="int8"`` are not ported yet
+    and raise. Runs on ``device`` (``cuda`` unless the caller asks for the
+    CPU)."""
     if mesh is not None:
         raise NotImplementedError("data-parallel extraction (mesh) is not ported yet")
     device = resolve_device(device)
@@ -155,6 +158,17 @@ def extract_embeddings(
             h, dlog, lm, ad = map(_host, (out.hidden_states, ad_logits, lm_mask, ad_mask))
             pred, ad_pred, flen = (t.cpu().numpy() for t in (pred, ad_pred,
                                                              out.frame_lengths))
+            if beam_size > 0:
+                lp = torch.log_softmax(ctc_logits.float(), dim=-1).cpu().numpy()
+        n_real = len(b.paths)
+        if beam_size > 0:
+            beams = beam_search_batch(
+                lp[:n_real], flen[:n_real], beam_size=beam_size,
+                blank_id=cfg.backbone.pad_token_id, lm_fn=lm_fn,
+                lm_alpha=lm_alpha, lm_beta=lm_beta)
+            texts = [tokenizer.decode(bm[0].ids, group_tokens=False) for bm in beams]
+        else:
+            texts = [tokenizer.decode(pred[i]) for i in range(n_real)]
         for i, path in enumerate(b.paths):
             n = int(flen[i])
             ex = by_path[path]
@@ -165,7 +179,7 @@ def extract_embeddings(
                 hidden_states=h[i, :n],
                 lm_mask=None if lm is None else lm[i, :n],
                 dementia_mask=None if ad is None else ad[i, :n],
-                pred_str=tokenizer.decode(pred[i]),
+                pred_str=texts[i],
                 pred_AD=int(ad_pred[i]),
                 dementia_logits=dlog[i, :n],
             ))

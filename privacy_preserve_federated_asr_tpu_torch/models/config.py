@@ -159,11 +159,11 @@ class DACSConfig:
     def resolve_compute(self, compute_dtype: str) -> tuple["DACSConfig", torch.dtype]:
         """(cfg, torch dtype) for an inference surface's ``compute_dtype``
         choice: "float32" / "bfloat16" pick the matmul dtype. "int8" (the
-        JAX package's dynamic-W8A8 Dense matmuls) waits for the quant
-        slice."""
+        JAX package's dynamic-W8A8 Dense matmuls) waits for port slice
+        8."""
         if compute_dtype == "int8":
             raise NotImplementedError(
-                "compute_dtype='int8' is not ported yet (quant slice)")
+                "compute_dtype='int8' is not ported yet (port slice 8: ops/quant.py)")
         dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
         if compute_dtype not in dtypes:
             raise ValueError(f"unknown compute_dtype {compute_dtype!r}")

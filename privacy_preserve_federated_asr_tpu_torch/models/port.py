@@ -1,5 +1,6 @@
 """Weights into the port's modules: from the JAX package's flax params, from
-HF / ForCTC torch state dicts, or a seeded random init; and back from the
+HF / ForCTC torch state dicts (``pytorch_model.bin`` or ``model.safetensors``,
+the latter read by :func:`read_safetensors`), or a seeded random init; and back from the
 port's state dict to a flax params tree (``flax_from_state_dict``), so a
 test can hold updated params against the JAX package's.
 
@@ -19,7 +20,9 @@ them to each module's dtype and device.
 
 from __future__ import annotations
 
+import json
 import re
+import struct
 from typing import Any, Mapping
 
 import numpy as np
@@ -162,6 +165,45 @@ def state_dict_from_hf(sd: Mapping[str, Any],
         for leaf in ("weight", "bias"):
             if f"{src}.{leaf}" in sd:
                 out[f"{dst}.{leaf}"] = _tensor(sd[f"{src}.{leaf}"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# safetensors files, read without the safetensors package
+# ---------------------------------------------------------------------------
+
+_SAFETENSORS_DTYPES = {"F32": torch.float32, "F16": torch.float16,
+                       "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32}
+
+
+def read_safetensors(path: str) -> dict[str, torch.Tensor]:
+    """A ``.safetensors`` file as CPU tensors (HF's ``model.safetensors``).
+    The format: an 8-byte little-endian header length, a JSON header
+    mapping each name to its ``dtype``, ``shape`` and ``data_offsets``
+    (begin, end) into the bytes after the header, then those bytes. Reads
+    F32, F16, BF16, I64 and I32; the card's machine may lack the
+    ``safetensors`` package, so it is not used."""
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+        data = bytearray(f.read())
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        if info["dtype"] not in _SAFETENSORS_DTYPES:
+            raise ValueError(f"{path}: tensor {name!r} has dtype {info['dtype']}, "
+                             f"not one of {sorted(_SAFETENSORS_DTYPES)}")
+        begin, end = info["data_offsets"]
+        dtype = _SAFETENSORS_DTYPES[info["dtype"]]
+        numel = int(np.prod(info["shape"], dtype=np.int64))
+        if end - begin != numel * dtype.itemsize or end > len(data):
+            raise ValueError(f"{path}: tensor {name!r} has {end - begin} bytes at "
+                             f"offsets {begin}..{end}, its shape needs "
+                             f"{numel * dtype.itemsize}")
+        t = (torch.frombuffer(data, dtype=dtype, count=numel, offset=begin)
+             if numel else torch.empty(0, dtype=dtype))
+        out[name] = t.reshape(info["shape"]).clone()
     return out
 
 

@@ -32,6 +32,7 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -90,9 +91,28 @@ def _masked_exp(s: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     exactly 0, and a row without one is all exp(0) = 1."""
     if s.device.type != "cpu":
         return torch.exp(s - s.amax(-1, keepdim=True))
-    live = valid | ~valid.any(-1, keepdim=True)
-    z = torch.where(live, s - s.amax(-1, keepdim=True), torch.zeros((), device=s.device))
-    return torch.where(live, torch.exp(z), torch.zeros((), device=s.device))
+    live = (valid | ~valid.any(-1, keepdim=True)).to(s.dtype)
+    z = s - s.amax(-1, keepdim=True)
+    if s.requires_grad:  # autograd through the plain version: no in-place ops
+        return torch.exp(z * live) * live
+    # zeroing by the 0/1 mask in place is several times cheaper than torch.where
+    return z.mul_(live).exp_().mul_(live)
+
+
+def _live_keys(key_mask: torch.Tensor) -> int:
+    """How many leading keys the plain versions compute over. Keys after the
+    last one valid in any row are masked in every row, so they take
+    probability exactly 0 and add nothing to an output or gradient; unless
+    a row has no valid key at all, whose softmax spans all T keys. Only on
+    the CPU, where padding keys are most of a bucket's: on the card reading
+    the mask would cost a device sync."""
+    t = key_mask.shape[1]
+    if key_mask.device.type != "cpu" or t == 0:
+        return t
+    valid = key_mask > 0
+    if not bool(valid.any(1).all()):
+        return t
+    return int(valid.any(0).nonzero().max()) + 1
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -102,6 +122,9 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``key_mask`` ``[B, T]`` (> 0 = valid). Returns ``[B, T, H, D]`` in q's
     dtype; every intermediate is fp32."""
     b, t, h, d = q.shape
+    n = _live_keys(key_mask)
+    t_hash = t if t_hash is None else t_hash
+    k, v, key_mask = k[:, :n], v[:, :n], key_mask[:, :n]
     scale = 1.0 / math.sqrt(d)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
     valid = (key_mask > 0)[:, None, None, :]
@@ -110,8 +133,7 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l = p.sum(-1, keepdim=True)  # undropped denominator
     inv_keep = 1.0
     if rate > 0.0:
-        keep = keep_mask(seed, b * h, t, t, t if t_hash is None else t_hash,
-                         rate, device=q.device).view(b, h, t, t)
+        keep = keep_mask(seed, b * h, t, n, t_hash, rate, device=q.device).view(b, h, t, n)
         p = torch.where(keep, p, torch.zeros((), device=p.device))
         inv_keep = 1.0 / (1.0 - rate)
     acc = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
@@ -129,6 +151,9 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     output ``o`` and its cotangent ``do`` are ``[B, T, H, D]``; returns
     ``(dq, dk, dv)`` in q's dtype, every intermediate fp32."""
     b, t, h, d = q.shape
+    n = _live_keys(key_mask)
+    t_hash = t if t_hash is None else t_hash
+    k, v, key_mask = k[:, :n], v[:, :n], key_mask[:, :n]
     scale = 1.0 / math.sqrt(d)
     qs, kf, vf, dof = q.float() * scale, k.float(), v.float(), do.float()
     zero = torch.zeros((), device=q.device)
@@ -142,8 +167,7 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # 3-4. the forward's keep mask; A = keep * p / (1 - r)
     a, inv_keep = p, 1.0
     if rate > 0.0:
-        keep = keep_mask(seed, b * h, t, t, t if t_hash is None else t_hash,
-                         rate, device=q.device).view(b, h, t, t)
+        keep = keep_mask(seed, b * h, t, n, t_hash, rate, device=q.device).view(b, h, t, n)
         inv_keep = 1.0 / (1.0 - rate)
         a = torch.where(keep, p, zero) * inv_keep
     # 5. dV = A^T dO
@@ -159,6 +183,8 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # 9. dQ = dS K scale;  10. dK = dS^T (q scale)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qs)
+    # the keys past the live ones: exactly zero gradient (p = 0 there)
+    dk, dv = (F.pad(g, (0, 0, 0, 0, 0, t - n)) for g in (dk, dv))
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 

@@ -43,6 +43,17 @@ def _ctc_structure(labels: torch.Tensor, label_lengths: torch.Tensor,
     return onehot, valid_s.float(), can_skip.float(), final_ind.float()
 
 
+def _frames_run(len_f: torch.Tensor, t_max: int) -> int:
+    """Frames the recursions step through. On the CPU they stop after the
+    longest row (at least frame 0): past it no row is active, so the alphas
+    only repeat and the betas hold the sentinel, written without the loop;
+    the values are those of the full loop. On the card the loop runs all
+    ``t_max`` frames, so that reading the lengths costs no device sync."""
+    if len_f.device.type != "cpu":
+        return t_max
+    return min(max(int(len_f.max()), 1), t_max) if len_f.numel() else t_max
+
+
 def _alphas(emit, valid_s, can_skip, len_f):
     """Forward recursion -> alphas [T, B, S]. Every value is floored at the
     sentinel, so ``logaddexp`` gives the JAX step's max-shifted logsumexp;
@@ -58,13 +69,15 @@ def _alphas(emit, valid_s, can_skip, len_f):
     a0 = torch.where(s_iota < 2, emit_inv[0], torch.full_like(emit_inv[0], neg))
     buf[0, :, 2:] = a0.clamp_min(neg)
     active = (torch.arange(t_max, device=emit.device)[:, None] < len_f[None, :])[:, :, None]
-    for t in range(1, t_max):
+    t_run = _frames_run(len_f, t_max)
+    for t in range(1, t_run):
         prev = buf[t - 1]
         alpha, prev1 = prev[:, 2:], prev[:, 1:-1]
         prev2 = (prev[:, :-2] + skip_pen).clamp_min_(neg)
         new = torch.logaddexp(torch.logaddexp(alpha, prev1), prev2)
         new = new.add_(emit_inv[t]).clamp_min_(neg)
         torch.where(active[t], new, alpha, out=buf[t, :, 2:])
+    buf[t_run:] = buf[t_run - 1]  # no row is active there: each frame copies the last
     return buf[:, :, 2:]
 
 
@@ -85,7 +98,9 @@ def _betas(emit, valid_s, can_skip, final_ind, len_f):
     betas = torch.empty((t_max, b, s_max), device=emit.device)
     c = torch.full((b, s_max + 2), neg, device=emit.device)
     beta = neg_row = torch.full((b, s_max), neg, device=emit.device)
-    for t in range(t_max - 1, -1, -1):
+    t_run = _frames_run(len_f, t_max)
+    betas[t_run:] = neg_row  # beyond every row's length
+    for t in range(t_run - 1, -1, -1):
         torch.add(emit_t[min(t + 1, t_max - 1)], beta, out=c[:, :s_max]).clamp_min_(neg)
         nxt2 = (c[:, 2:] + skip_fwd).clamp_min_(neg)
         new = torch.logaddexp(torch.logaddexp(c[:, :s_max], c[:, 1:-1]), nxt2)

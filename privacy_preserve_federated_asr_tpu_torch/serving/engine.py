@@ -10,9 +10,11 @@
   batch (up to ``batch_size``, waiting at most ``batch_window_ms``) by a
   single dispatcher thread.
 
-Outputs per utterance: greedy CTC transcript, the reference's frame-majority
-AD vote (federated/src/update.py:162-212 ``map_to_result``) and the mean AD
-probability over valid frames.
+Outputs per utterance: the CTC transcript (greedy, or with ``beam_size > 0``
+prefix beam search on the host over the forward's fp32 log-posteriors,
+``ops/beam.py``, optionally with shallow LM fusion through ``lm_fn``), the
+reference's frame-majority AD vote (federated/src/update.py:162-212
+``map_to_result``) and the mean AD probability over valid frames.
 
 **Stage-2 Gumbel noise.** The model draws its toggling masks from Gumbel
 noise. Every forward reseeds the engine's own ``torch.Generator`` (on the
@@ -25,8 +27,8 @@ parity with JAX is held at the model level with injected noise. Stages 0
 and 1 serve unmasked streams, where the noise plays no part.
 
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``; with
-the default device and no GPU it raises. Only ``transport="float32"`` and
-greedy decoding (``beam_size=0``) are ported; other values raise.
+the default device and no GPU it raises. Only ``transport="float32"`` is
+ported; ``"int16"`` raises.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from ..data.audio import normalize_input_values
 from ..data.tokenizer import CTCCharTokenizer
 from ..models.config import DACSConfig
 from ..models.recipes import get_recipe
+from ..ops.beam import beam_search_batch
 from ..ops.decode import ad_vote, greedy_ids
 
 
@@ -56,7 +59,12 @@ class ServingConfig:
     batch_window_ms: float = 10.0    # micro-batch coalescing window
     normalize: bool = True           # feature-extractor normalization
     compute_dtype: str = "bfloat16"  # "float32" | "bfloat16"
-    beam_size: int = 0               # greedy only (beam search waits)
+    # 0 = greedy (reference parity); >0 = CTC prefix beam search on the
+    # host over the device log-posteriors (ops/beam.py), optionally with
+    # shallow LM fusion via ``lm_fn`` passed to InferenceEngine
+    beam_size: int = 0
+    lm_alpha: float = 0.3
+    lm_beta: float = 0.0
     transport: str = "float32"       # "int16" waits for its slice
 
 
@@ -83,7 +91,9 @@ def resolve_device(device: str | torch.device) -> torch.device:
 class InferenceEngine:
     """Bucketed, micro-batched forward over the method's model.
 
-    ``state_dict`` holds the port's DACSModel weights (models/port.py).
+    ``state_dict`` holds the port's DACSModel weights (models/port.py);
+    ``lm_fn`` is the beam search's shallow-fusion LM (``prefix ids -> [V]
+    log P(next | prefix)``, e.g. ``ops.beam.CharBigramLM``).
     ``infer_batch`` is the synchronous core; ``submit``/``infer`` go through
     the micro-batching dispatcher (start it with :meth:`start`).
     """
@@ -91,17 +101,17 @@ class InferenceEngine:
     def __init__(self, cfg: DACSConfig, state_dict: Mapping[str, torch.Tensor],
                  tokenizer: CTCCharTokenizer | None = None,
                  scfg: ServingConfig | None = None,
+                 lm_fn=None,
                  device: str | torch.device = "cuda"):
         scfg = scfg if scfg is not None else ServingConfig()
         if scfg.transport != "float32":
             raise NotImplementedError(
                 f"transport={scfg.transport!r} is not ported yet (float32 only)")
-        if scfg.beam_size != 0:
-            raise NotImplementedError("beam search is not ported yet (beam_size=0)")
         self.device = resolve_device(device)
         cfg, dtype = cfg.resolve_compute(scfg.compute_dtype)
         self.cfg, self.scfg = cfg, scfg
         self.tokenizer = tokenizer or CTCCharTokenizer()
+        self._lm_fn = lm_fn
         self.recipe = get_recipe(cfg.method)
         with torch.device("meta"):
             model = self.recipe.make_model(cfg, dtype)
@@ -134,9 +144,11 @@ class InferenceEngine:
             probs = torch.softmax(dlog.float(), dim=-1)[..., 1]
             fmf = fm.float()
             ad_prob = (probs * fmf).sum(-1) / fmf.sum(-1).clamp_min(1.0)
+            got = [pred, ad_pred, ad_prob, out.frame_lengths]
+            if self.scfg.beam_size > 0:  # the host's beam decode reads them
+                got.append(torch.log_softmax(logits.float(), dim=-1))
             self.forwards += 1
-            return tuple(t.cpu().numpy() for t in
-                         (pred, ad_pred, ad_prob, out.frame_lengths))
+            return tuple(t.cpu().numpy() for t in got)
 
     # ---- shape management ----
 
@@ -192,10 +204,22 @@ class InferenceEngine:
             n = min(len(a), t)
             iv[i, :n] = a[:n]
             il[i] = n
-        pred, ad_pred, ad_prob, flen = self._forward(iv, il)
+        got = self._forward(iv, il)
+        pred, ad_pred, ad_prob, flen = got[:4]
+        n = len(xs)
+        if self.scfg.beam_size > 0:
+            beams = beam_search_batch(
+                got[4][:n], flen[:n], beam_size=self.scfg.beam_size,
+                blank_id=self.cfg.backbone.pad_token_id, lm_fn=self._lm_fn,
+                lm_alpha=self.scfg.lm_alpha, lm_beta=self.scfg.lm_beta)
+            # beam ids are already CTC-collapsed: decode without grouping
+            # (legitimate repeated characters must survive)
+            texts = [self.tokenizer.decode(b[0].ids, group_tokens=False) for b in beams]
+        else:
+            texts = [self.tokenizer.decode(pred[i]) for i in range(n)]
         return [
             InferenceResult(
-                transcript=self.tokenizer.decode(pred[i]),
+                transcript=texts[i],
                 ad_pred=int(ad_pred[i]),
                 ad_prob=float(ad_prob[i]),
                 frames=int(flen[i]),

@@ -16,6 +16,17 @@ B, H, D = 2, 4, 16
 TOL = dict(rtol=1e-4, atol=1e-5)  # fp32 on both sides, sums in another order
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Tiny shapes: one intra-op thread avoids oversubscribing the cores the
+    parallel test workers share (restored after the module). Defined here,
+    not imported from test_torch_backbone, which imports JAX."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(t, seed=0):
     rng = np.random.default_rng(seed)
     q, k, v = (rng.normal(0, 1, (B, t, H, D)).astype(np.float32) for _ in range(3))

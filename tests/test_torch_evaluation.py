@@ -42,6 +42,7 @@ from privacy_preserve_federated_asr_tpu_torch.models import (
 )
 from privacy_preserve_federated_asr_tpu_torch.train.checkpoint import save_params
 from test_torch_backbone import TINY, one_torch_thread, random_flax_params  # noqa: F401
+from test_torch_tools import native_libs  # noqa: F401
 
 TOK = CTCCharTokenizer()
 SAMPLES, BS = 3200, 2   # one 3200-sample bucket, batches of 2 (the last one padded)
@@ -120,6 +121,7 @@ def extracted(jax_model, jev):
                                                exs), got
         return cache[method]
 
+    get.batches = batches  # (paths, JAX model outputs) per batch
     return get
 
 
@@ -286,6 +288,61 @@ def test_svc_matches_sklearn(jev):
         assert got["ACC"] == 1.0
 
 
+def test_extract_beam_pred_str_matches_jax(extracted, jax_model, native_libs):
+    """``beam_size > 0`` with a bigram LM: ``pred_str`` as the JAX extraction
+    decodes it (its ``beam_search_batch`` over the fp32 ``log_softmax`` of
+    the recipe's CTC stream, ids decoded without grouping) under the same
+    injected noise; every other field as in the greedy run."""
+    from privacy_preserve_federated_asr_tpu.data.tokenizer import CTCCharTokenizer as JaxTok
+    from privacy_preserve_federated_asr_tpu.ops import beam as jax_beam
+    from privacy_preserve_federated_asr_tpu_torch.ops.beam import CharBigramLM
+
+    cfg, sd, _, greedy = extracted("dacs")
+    jcfg = jax_model[0]
+    seqs = [TOK.encode(t) for t in TEXTS]
+    got = ev.extract_embeddings(cfg, sd, _examples(), TOK, batch_size=BS,
+                                time_multiple=SAMPLES, device="cpu", gumbel_noise=_noise,
+                                beam_size=4, lm_fn=CharBigramLM(32).fit(seqs), lm_alpha=0.5)
+    jlm, jtok, want = jax_beam.CharBigramLM(32).fit(seqs), JaxTok(), []
+    for paths, out in extracted.batches:
+        ctc = jax_recipe(jcfg.method).extract_streams(out, jcfg)[0]
+        lp, flen = jax.device_get((jax.nn.log_softmax(ctc.astype(np.float32), axis=-1),
+                                   out.frame_lengths))
+        beams = jax_beam.beam_search_batch(lp[:len(paths)], flen[:len(paths)], beam_size=4,
+                                           blank_id=0, lm_fn=jlm, lm_alpha=0.5)
+        want += [jtok.decode(b[0].ids, group_tokens=False) for b in beams]
+    assert [r.pred_str for r in got] == want
+    assert any(a.pred_str != b.pred_str for a, b in zip(got, greedy))
+    for a, b in zip(got, greedy):
+        assert (a.path, a.pred_AD) == (b.path, b.pred_AD)
+        np.testing.assert_array_equal(a.hidden_states, b.hidden_states)
+
+
+def test_sweep_svm_matches_jax(jev, tmp_path):
+    """``sweep_svm`` over the ``dementia-svm`` preset (four poolings) on
+    separable rows: the JAX sweep's rows (scikit-learn's SVC) with the
+    metrics equal as ``predict_ad_svm``'s, one results-CSV row per combo."""
+    from privacy_preserve_federated_asr_tpu import sweep as jax_sweep
+    from privacy_preserve_federated_asr_tpu_torch import sweep
+
+    rng = np.random.default_rng(6)
+    labels = np.repeat([0, 1], 12)
+    xs = (rng.normal(size=(24, 16)) + 3.0 * labels[:, None]).astype(np.float32)
+    spk = np.arange(24) // 3
+    spk2label = {f"S{s:03d}": int(labels[3 * s]) for s in range(8)}
+    train = _svm_rows(xs[::2], labels[::2], spk[::2])
+    test = _svm_rows(xs[1::2], labels[1::2], spk[1::2])
+    grid = sweep.SVM_PRESETS["dementia-svm"]()
+    got = sweep.sweep_svm(grid, train, test, spk2label, results_csv=str(tmp_path / "r.csv"),
+                          device="cpu")
+    want = jax_sweep.sweep_svm(grid, train, test, spk2label)
+    assert [r["pooling"] for r in got] == [r["pooling"] for r in want] == [
+        "min", "max", "mean", "median"]
+    for a, b in zip(got, want):
+        assert a == pytest.approx(b)
+    assert len((tmp_path / "r.csv").read_text().splitlines()) == 1 + len(got)
+
+
 def _block(monkeypatch, *roots):
     """Make any import of the ``roots`` packages raise ImportError."""
     for name in list(sys.modules):
@@ -414,17 +471,22 @@ def test_cli_chain_on_cpu(tmp_path, monkeypatch):
                 == _json_out(jax_cli.main, ["dp-budget", *args]))
 
 
+TINY_CPU = ["--model_type", "tiny", "--device", "cpu"]
+
+
 @pytest.mark.parametrize("call", [
-    dict(beam_size=2), dict(lm_fn=len), dict(mesh=object()), dict(compute_dtype="int8"),
-    ["extract", "--dp", "2"], ["extract", "--beam_size", "1"],
-    dict(mode="text"), ["svm", "--text_train_pkl", "t.pkl"]])
+    dict(mesh=object()), dict(compute_dtype="int8"), dict(mode="text"),
+    ["extract", "--dp", "2", *TINY_CPU],
+    ["svm", "--text_train_pkl", "t.pkl", "--train_pkl", "a.pkl", "--test_pkl", "b.pkl",
+     "--device", "cpu"],
+    ["transcribe", "--compute_dtype", "int8", "--audio", "a.wav", *TINY_CPU],
+    ["serve", "--compute_dtype", "int8", "--no_warmup", *TINY_CPU],
+    ["sweep", "text", "--train_pkl", "a.pkl", "--test_pkl", "b.pkl", "--preset", "bert"]])
 def test_options_not_ported_raise(call):
     cfg = DACSConfig(backbone=BackboneConfig.tiny_for_tests(), stage=2)
     with pytest.raises(NotImplementedError, match="not ported"):
-        if isinstance(call, list) and call[0] == "extract":
-            cli.main(call + ["--model_type", "tiny", "--device", "cpu"])
-        elif isinstance(call, list):
-            cli.main(call + ["--train_pkl", "a.pkl", "--test_pkl", "b.pkl", "--device", "cpu"])
+        if isinstance(call, list):
+            cli.main(call)
         elif "mode" in call:
             ev.predict_ad_svm([], [], {}, device="cpu", **call)
         else:

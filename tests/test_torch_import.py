@@ -1,5 +1,6 @@
 """The port package stands alone: it imports with jax/flax/optax/orbax,
-scikit-learn and pandas blocked and loads nothing of the JAX package;
+scikit-learn and pandas blocked and loads nothing of the JAX package (its
+native-library shims included);
 neither its sources nor chip_smoke.py import JAX or the JAX package; and its
 entry points never carry on quietly on the CPU when the default device
 (cuda) is missing."""
@@ -36,6 +37,10 @@ import privacy_preserve_federated_asr_tpu_torch as p
 names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+# the ctypes shims load the native libraries without the JAX package
+from privacy_preserve_federated_asr_tpu_torch.data import native_audio
+from privacy_preserve_federated_asr_tpu_torch.ops import beam
+assert native_audio.available() and beam.native_available()
 bad = [m for m in sys.modules if m == {JAX_PKG!r} or m.startswith({JAX_PKG + "."!r})]
 print(len(names), bad)
 """
@@ -46,7 +51,7 @@ def test_port_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     n, bad = res.stdout.split(maxsplit=1)
-    assert int(n) >= 15 and bad.strip() == "[]", res.stdout
+    assert int(n) >= 50 and bad.strip() == "[]", res.stdout
 
 
 def _imported_roots(path: Path) -> set[str]:
