@@ -14,12 +14,16 @@ non-zero exit:
 
 1. header: the card (nvidia-smi), torch and CUDA versions, and the nvcc
    builds of the kernels in csrc/ (one nvcc process per source, together);
+   nvcc's register and spill lines of each fp32 kernel (3xTF32 on the
+   tensor cores), and the run fails if any of them spills;
 2. kernel B1 (csrc/flash_fwd.cu) against ``attention_ref`` at the serving
    shapes (B=8, H=16, D=64; T=249 and T=1499, and the ragged T=1, 63, 65,
    129; bf16 and fp32; mixed key lengths and one row with every key masked;
    dropout 0 and 0.1; q/k/v as separate tensors and as strided views of one
    [B, T, 3*H*64] projection), and its time beside the plain version's and
-   PyTorch's SDPA (a yardstick only: the port never calls SDPA);
+   PyTorch's SDPA (a yardstick only: the port never calls SDPA) and the
+   bound: bf16 on the tensor cores, fp32 as three TF32 products on them
+   (3xTF32), with the fp32 FMA bound printed beside;
 3. serving at full width: data2vec-audio-large DACS at stage 2 in bf16 with
    seeded random weights, an InferenceEngine (batch 8) behind the HTTP
    server, a burst of concurrent /asr requests of 1-30 s (JSON and
@@ -35,9 +39,10 @@ non-zero exit:
    T=1, 63, 65, 129; H=16, D=64; bf16 and fp32; dropout 0 and 0.1; mixed key
    lengths and a zero-length row, the cotangent zeroed on padded query rows
    and then whole; separate q/k/v and strided views of one projection),
-   every call made twice and held bit-equal (B2 is deterministic), its time
-   beside the plain version's, the bound and SDPA's backward; B1's time at
-   the training shape with dropout 0.1;
+   every call made twice and held bit-equal (B2 is deterministic in both
+   dtypes), its time in both dtypes at both training shapes beside the plain
+   version's, the bound and SDPA's backward; B1's time at the training shape
+   with dropout 0.1;
 6. training at full width: ``cli train`` (``cli.main``) of data2vec-audio-
    large DACS stage 0 in bf16, batch 16, on synthetic 4-5 s WAVs for 12
    steps and one evaluation: 24 B1 and 24 B2 calls per step, the frozen
@@ -91,10 +96,13 @@ non-zero exit:
 16. ``cli sweep asr -st 0 --grid learning_rate=1e-5,1e-4``, one epoch of the
    corpus per combo: two rows, both combos from bit-equal params, exact B1
    and B2 launch counts;
-17. one JSON line listing each kernel (launches on the main paths, error
-   against the plain version, times and bound, and under "times" the same
-   numbers at each main-path shape), the card's name and power limit, and
-   last ``{"ok": true, "device": {...}}``.
+17. one JSON line listing each kernel (launches on the main paths, in all
+   and by dtype: each phase that drives a main path sets the wrappers'
+   counts to 0 just before and reads them just after, the fp32 card-vs-CPU
+   phases 4, 7, 9 and 11 included; error against the plain version, times
+   and bound, and under "times" the same numbers at each main-path shape in
+   both dtypes), the card's name and power limit, and last
+   ``{"ok": true, "device": {...}}``.
 
 ``--kernels-only`` runs phases 1, 2 and 5 and prints neither of the last
 two lines.
@@ -107,6 +115,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -121,7 +130,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
-PEAK_F32_FLOPS = 67e12     # H100 SXM fp32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12   # H100 SXM dense TF32: the fp32 paths run 3 TF32 products each
+PEAK_F32_FLOPS = 67e12     # H100 SXM fp32 outside the tensor cores (the FMA bound, shown beside)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 B, H, D = 8, 16, 64        # serving batch, heads, head dim
 TS = (249, 1499)           # frames of the 5 s and 30 s buckets
@@ -172,9 +182,39 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
+# Launches of the main paths by phase, kernel and dtype: each wrapper's
+# counts are set to 0 just before a main path runs (reset_counts) and read
+# just after (tally); launches made to compare a kernel with its plain
+# version are never tallied.
+COUNTS: dict[str, dict[str, dict[str, int]]] = {}
+
+
+def _wrappers():
+    from privacy_preserve_federated_asr_tpu_torch.ops.attention import (
+        flash_attention_bwd, flash_attention_fwd)
+
+    return {"flash_fwd": flash_attention_fwd, "flash_bwd": flash_attention_bwd}
+
+
+def reset_counts() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0
+        fn.dtype_launches.update(dict.fromkeys(fn.dtype_launches, 0))
+
+
+def tally(phase: str) -> None:
+    for name, fn in _wrappers().items():
+        counts = COUNTS.setdefault(phase, {}).setdefault(name, {})
+        for dt, n in fn.dtype_launches.items():
+            counts[dt] = counts.get(dt, 0) + n
+
+
 # ---------------------------------------------------------------------------
 # 1. header and build
 # ---------------------------------------------------------------------------
+
+FP32_KERNELS = ("flash_fwd_f32_kernel", "flash_bwd_dkdv_f32_kernel", "flash_bwd_dq_f32_kernel")
+
 
 def header() -> None:
     from privacy_preserve_federated_asr_tpu_torch.ops import cuda_build
@@ -187,10 +227,22 @@ def header() -> None:
         cuda_build.load(name)
     log(f"[build] {', '.join(cuda_build.SOURCES)}: nvcc (concurrent) and load in "
         f"{time.perf_counter() - t0:.1f} s")
+    # nvcc's -Xptxas -v report of each fp32 kernel (3xTF32 on the tensor
+    # cores): its registers, and its spills, which must be 0
+    seen = {}
     for name in cuda_build.SOURCES:
-        for line in cuda_build.build_logs.get(name, "(already built)").splitlines():
-            if "registers" in line or "spill" in line or "built" in line:
-                log(f"[build]   {name}: {line.strip()}")
+        kernel = None
+        for line in cuda_build.build_logs[name].splitlines():
+            if "Function properties for" in line:
+                kernel = next((k for k in FP32_KERNELS if k in line), None)
+            elif kernel and ("spill" in line or "registers" in line):
+                log(f"[build]   {kernel}: {line.strip()}")
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+                if m:
+                    seen[kernel] = (int(m[1]), int(m[2]))
+    assert set(seen) == set(FP32_KERNELS), seen
+    assert all(v == (0, 0) for v in seen.values()), f"an fp32 kernel spills: {seen}"
+    log(f"[build] fp32 kernels {', '.join(FP32_KERNELS)}: 0 bytes of spill stores and loads")
 
 
 # ---------------------------------------------------------------------------
@@ -265,14 +317,12 @@ def check_kernel() -> dict:
             }
             flops = 4.0 * B * H * t * t * D
             nbytes = 4.0 * B * t * H * D * q.element_size() + B * t * 4
-            peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
-            bound_ops, bound_bytes = flops / peak, nbytes / PEAK_BYTES
-            row["bound_ms"] = max(bound_ops, bound_bytes) * 1e3
-            row["bound_by"] = "operations" if bound_ops >= bound_bytes else "bytes"
+            row["bound_ms"], row["bound_by"] = _bound(flops, nbytes, dtype)
             times[(t, str(dtype)[6:])] = row
             log(f"[kernel-time] T={t} {str(dtype)[6:]}: kernel {row['ms']:.4f} ms, "
                 f"plain {row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms, "
-                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}"
+                f"{_fma_note(flops, nbytes, dtype)})  [{card_line()}]")
     return {"max_abs_err": worst, "times": times}
 
 
@@ -412,7 +462,7 @@ def serve_full_width() -> dict:
         seconds = (1.0, 2.5, 4.0, 5.0, 7.0, 9.5, 12.0, 15.0, 18.0, 22.0, 26.0, 30.0)
         kinds = ("json", "f32", "s16")
         audios = [_utterance(s, 100 + i) for i, s in enumerate(seconds)]
-        flash_attention_fwd.launches = 0   # counts of the main path's run
+        reset_counts()   # counts of the main path's run
         f0 = engine.forwards
         t0 = time.perf_counter()
         with ThreadPoolExecutor(len(audios)) as pool:
@@ -420,6 +470,7 @@ def serve_full_width() -> dict:
                                     enumerate(audios)))
         wall = time.perf_counter() - t0
         launches, forwards = flash_attention_fwd.launches, engine.forwards - f0
+        tally("serving")
         for a, (out, _) in zip(audios, replies):
             assert out["samples"] == len(a), (out["samples"], len(a))
             assert out["frames"] == feat_extract_output_lengths(cfg.backbone, len(a))
@@ -497,6 +548,7 @@ def end_to_end_vs_cpu() -> None:
     noise = [rng.gumbel(size=(1, t, cfg.hidden_size, 2)).astype(np.float32)
              for _ in range(2)]
     outs = {}
+    reset_counts()  # the CPU runs the plain version: only the card's launches count
     for dev in ("cuda", "cpu"):
         with torch.device("meta"):
             model = DACSModel(cfg, torch.float32)
@@ -508,6 +560,7 @@ def end_to_end_vs_cpu() -> None:
                         gumbel_noise=tuple(torch.from_numpy(n).to(dev) for n in noise))
         outs[dev] = {k: getattr(out, k).float().cpu()
                      for k in ("hidden_states", "logits_unmask", "logits")}
+    tally("serving, card vs CPU")
     g, c = outs["cuda"], outs["cpu"]
     errs = {k: (g[k] - c[k]).abs().max().item() for k in ("hidden_states", "logits_unmask")}
     for k, e in errs.items():
@@ -545,10 +598,23 @@ def _lengths(b: int, t: int) -> list[int]:
     return (base * (b // len(base) + 1))[:b]
 
 
-def _bound(flops: float, nbytes: float, dtype: torch.dtype) -> tuple[float, str]:
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+def _bound(flops: float, nbytes: float, dtype: torch.dtype,
+           peak: float | None = None) -> tuple[float, str]:
+    """The least time for the work: its bytes at 3.35 TB/s, or its
+    operations at the tensor cores' rate, bf16 or, for fp32, three TF32
+    products (3xTF32) per product."""
+    if peak is None:
+        peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_TF32_FLOPS / 3
     ops_s, bytes_s = flops / peak, nbytes / PEAK_BYTES
     return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
+
+
+def _fma_note(flops: float, nbytes: float, dtype: torch.dtype) -> str:
+    """For fp32: the bound of the same work on FMA outside the tensor cores
+    (67 TFLOP/s), shown beside the 3xTF32 bound."""
+    if dtype != torch.float32:
+        return ""
+    return f"; FMA bound {_bound(flops, nbytes, dtype, PEAK_F32_FLOPS)[0]:.4f} ms"
 
 
 def check_bwd_kernel() -> dict:
@@ -632,7 +698,7 @@ def check_bwd_kernel() -> dict:
             log(f"[bwd-time] B={b} T={t} {str(dtype)[6:]} rate={rate}: kernel "
                 f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa backward "
                 f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-                f"({row['bound_by']})  [{card_line()}]")
+                f"({row['bound_by']}{_fma_note(flops, nbytes, dtype)})  [{card_line()}]")
 
     # B1 at the training shape with dropout, saving the LSE as training does
     b, t = BWD_SHAPES[0]
@@ -735,13 +801,14 @@ def train_full_width() -> dict:
         cwd, out = os.getcwd(), io.StringIO()
         os.chdir(root)
         try:
-            flash_attention_fwd.launches = flash_attention_bwd.launches = 0
+            reset_counts()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(out):
                 tr = cli.main(args)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             b1, b2 = flash_attention_fwd.launches, flash_attention_bwd.launches
+            tally("cli train")
         finally:
             os.chdir(cwd)
     steps, n_eval = tr.state.step, len(tr.eval_batcher)
@@ -865,6 +932,7 @@ def train_step_vs_cpu() -> None:
     # the frozen frontend (the stage-0 cache) on each device, compared
     # alone; the steps under test then take the same (CPU) features
     feats, fl = {}, {}
+    reset_counts()  # the CPU runs the plain versions: only the card's launches count
     for dev in ("cuda", "cpu"):
         with torch.device("meta"):
             fe = DACSModel(cfg, torch.float32)
@@ -877,6 +945,7 @@ def train_step_vs_cpu() -> None:
     m_gpu, p_gpu = run("cuda", feats["cpu"], fl["cpu"])
     m_cpu, p_cpu = run("cpu", feats["cpu"], fl["cpu"])
     m_own, _ = run("cuda", feats["cuda"], fl["cuda"])
+    tally("training step, card vs CPU")
     log(f"[train-e2e] frontend card vs CPU max|err|/max|ref| {fe_err:.2e}; per step "
         f"(loss, grad norm) card {[(m['loss'], m['grad_norm']) for m in m_gpu]}, CPU "
         f"{[(m['loss'], m['grad_norm']) for m in m_cpu]}, card on its own frontend "
@@ -994,11 +1063,12 @@ def federated_full_width(root: Path) -> dict:
     log(f"[federated] wrote {FL_TRAIN} train and {FL_TEST} test WAVs of 4-5 s in "
         f"{time.perf_counter() - t0:.1f} s")
     try:
-        flash_attention_fwd.launches = flash_attention_bwd.launches = 0
+        reset_counts()
         eng, out, wall = _run_cli(root, ["federated", *FL_ARGS, "--epochs", "1",
                                          "-fl_st", "0", "-model_out", "out/fl"])
         ev = _last_json(out)
         b1, b2 = flash_attention_fwd.launches, flash_attention_bwd.launches
+        tally("cli federated")
     finally:
         for name, fn in originals.items():
             setattr(FederatedEngine, name, fn)
@@ -1114,6 +1184,7 @@ def federated_round_vs_cpu() -> None:
 
     clients = {0: client(3, 40), 1: client(2, 50)}
     out = {}
+    reset_counts()  # the CPU runs the plain versions: only the card's launches count
     for dev in ("cuda", "cpu"):
         eng = FederatedEngine(cfg, FederatedConfig(
             num_rounds=1, local_ep=1, batch_size=2, eval_batch_size=2, learning_rate=lr,
@@ -1123,6 +1194,7 @@ def federated_round_vs_cpu() -> None:
         assert row["phase"] == "res_h" and row["dead_step_frac"] > 0, row
         out[dev] = (row, {k: v.cpu() for k, v in params.items()})
         del eng
+    tally("federated round, card vs CPU")
     (rg, pg), (rc, pc) = out["cuda"], out["cpu"]
     losses = [(rg[f"client{c}_loss"], rc[f"client{c}_loss"]) for c in (0, 1)]
     for g, c in losses:
@@ -1213,10 +1285,11 @@ def extraction_chain(root: Path) -> dict:
               for p in (root / "data/clips").iterdir()}
     runs = {}
     for dtype in ("float32", "bfloat16"):
-        flash_attention_fwd.launches = 0   # counts of the main path's run
+        reset_counts()   # counts of the main path's run
         _, _, wall = _run_cli(root, [*EXTRACT_ARGS, "--compute_dtype", dtype,
                                      "--csv_out_dir", f"res_{dtype}"])
         launches = flash_attention_fwd.launches
+        tally("cli extract")
         assert launches == LAYERS * n_batches, (dtype, launches, n_batches)
         test = read_records(str(root / f"res_{dtype}/extract.pkl"))
         train = read_records(str(root / f"res_{dtype}/extract_train.pkl"))
@@ -1345,8 +1418,10 @@ def extraction_vs_cpu(features) -> None:
         rng = np.random.default_rng(list(shape))
         return tuple(rng.gumbel(size=shape).astype(np.float32) for _ in range(2))
 
+    reset_counts()  # the CPU runs the plain version: only the card's launches count
     rows = {dev: extract_embeddings(cfg, sd, exs, tok, batch_size=2, device=dev,
                                     gumbel_noise=noise) for dev in ("cuda", "cpu")}
+    tally("extraction, card vs CPU")
     # each mask element's Gumbel argmax margin (s0 + g0) - (s1 + g1) in the
     # CPU run: the scores differ by rounding between the devices, so an
     # element whose margin is within rounding may take either side
@@ -1445,13 +1520,15 @@ MODEL_ARGS = ["--model_type", "data2vec", "--eval_batch_size", str(FL_BATCH),
               "--device", "cuda"]
 
 
-def _transcribe(root: Path, model_in: str, *extra: str) -> tuple[list, float, int]:
+def _transcribe(root: Path, model_in: str, *extra: str,
+                phase: str = "cli transcribe") -> tuple[list, float, int]:
     """``cli transcribe`` of the test WAVs; (rows, host s, B1 launches)."""
     from privacy_preserve_federated_asr_tpu_torch.ops.attention import flash_attention_fwd
 
-    flash_attention_fwd.launches = 0
+    reset_counts()
     rows, _, wall = _run_cli(root, ["transcribe", *MODEL_ARGS, "-model_in", model_in,
                                     "--audio", "test_wavs", *extra])
+    tally(phase)
     return rows, wall, flash_attention_fwd.launches
 
 
@@ -1471,7 +1548,7 @@ def _serve_transcripts(root: Path, paths: list[str], stage: str) -> tuple[list, 
         port = sk.getsockname()[1]
     made, make = [], server.make_server
     server.make_server = lambda *a, **kw: made.append(make(*a, **kw)) or made[-1]
-    flash_attention_fwd.launches = 0
+    reset_counts()
     th = threading.Thread(target=lambda: cli.main(
         ["serve", *MODEL_ARGS, "-st", stage, "-model_in", str(root / FINAL),
          "--port", str(port), "--no_warmup"]), daemon=True)
@@ -1489,6 +1566,7 @@ def _serve_transcripts(root: Path, paths: list[str], stage: str) -> tuple[list, 
             made[0].shutdown()
         th.join(timeout=60)
     assert not th.is_alive(), "cli serve did not stop"
+    tally("cli serve")
     return out, flash_attention_fwd.launches
 
 
@@ -1615,7 +1693,8 @@ def export_phase(root: Path, greedy: list) -> dict:
     launches = {}
     want = [r["transcript"] for r in greedy]
     for name, model_in in (("bin", "export/pytorch_model.bin"), ("safetensors", "export_st")):
-        rows, _, launches[name] = _transcribe(root, model_in, "-st", "2")
+        rows, _, launches[name] = _transcribe(root, model_in, "-st", "2",
+                                              phase="cli export-hf reloads")
         assert [r["transcript"] for r in rows] == want, name
         assert [r["ad_pred"] for r in rows] == [r["ad_pred"] for r in greedy], name
     log(f"[export] cli export-hf of phase 8's final model: {len(sd)} ForCTC keys in "
@@ -1669,7 +1748,7 @@ def sweep_asr_phase(root: Path) -> dict:
         real_init(self, cfg, state_dict, *a, **kw)
 
     Trainer.__init__ = init
-    flash_attention_fwd.launches = flash_attention_bwd.launches = 0
+    reset_counts()
     try:
         rows, _, wall = _run_cli(root, [
             "sweep", "asr", *_train_args(FL_ARGS), "-st", "0", "--epochs", "1",
@@ -1677,6 +1756,7 @@ def sweep_asr_phase(root: Path) -> dict:
     finally:
         Trainer.__init__ = real_init
     b1, b2 = flash_attention_fwd.launches, flash_attention_bwd.launches
+    tally("cli sweep asr")
     assert [r["learning_rate"] for r in rows] == [1e-5, 1e-4], rows
     assert all(np.isfinite(r["eval_loss"]) for r in rows), rows
     assert len(inits) == 2 and all(torch.equal(v, inits[1][k]) for k, v in inits[0].items())
@@ -1734,6 +1814,19 @@ def main(argv=None) -> None:
         sweep = sweep_asr_phase(root)
     tools_b1 = (sum(transcribe["launches"].values()) + sum(export["launches"].values())
                 + sweep["b1"])
+    by_dtype = {name: {dt: sum(c.get(name, {}).get(dt, 0) for c in COUNTS.values())
+                       for dt in ("bfloat16", "float32")} for name in ("flash_fwd", "flash_bwd")}
+    # the tallies hold the counts that each phase asserted, and the card's
+    # launches of the fp32 card-vs-CPU phases besides
+    e2e = ("serving, card vs CPU", "training step, card vs CPU",
+           "federated round, card vs CPU", "extraction, card vs CPU")
+    main_b1 = (serving["launches"] + training["b1"] + federated["b1"]
+               + sum(chain["launches"].values()) + tools_b1)
+    main_b2 = training["b2"] + federated["b2"] + sweep["b2"]
+    assert sum(sum(c["flash_fwd"].values()) for p, c in COUNTS.items() if p not in e2e) \
+        == main_b1, (COUNTS, main_b1)
+    assert sum(sum(c["flash_bwd"].values()) for p, c in COUNTS.items() if p not in e2e) \
+        == main_b2, (COUNTS, main_b2)
     t = kern["times"][(TS[-1], "bfloat16")]
     tb = bwd["times"][(*BWD_SHAPES[0], "bfloat16")]
     line = {"kernels": [{
@@ -1741,8 +1834,8 @@ def main(argv=None) -> None:
         "route": "cuda",
         "source": "privacy_preserve_federated_asr_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "privacy_preserve_federated_asr_tpu/ops/attention.py:101",
-        "launches": (serving["launches"] + training["b1"] + federated["b1"]
-                     + sum(chain["launches"].values()) + tools_b1),
+        "launches": sum(by_dtype["flash_fwd"].values()),
+        "launches_by_dtype": by_dtype["flash_fwd"],
         "max_abs_err": max(kern["max_abs_err"], serving["served_err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -1755,22 +1848,22 @@ def main(argv=None) -> None:
         "route": "cuda",
         "source": "privacy_preserve_federated_asr_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "privacy_preserve_federated_asr_tpu/ops/attention.py:142",
-        "launches": training["b2"] + federated["b2"] + sweep["b2"],
+        "launches": sum(by_dtype["flash_bwd"].values()),
+        "launches_by_dtype": by_dtype["flash_bwd"],
         "max_abs_err": bwd["max_abs_err"],
         "ms": tb["ms"], "plain_ms": tb["plain_ms"], "bound_ms": tb["bound_ms"],
         "bound_by": tb["bound_by"], "library_ms": tb["library_ms"],
-        "times": [_shape_times(bwd["times"][(bb, ts, "bfloat16")], B=bb, T=ts,
-                               dtype="bfloat16", rate=TRAIN_RATE) for bb, ts in BWD_SHAPES],
+        "times": [_shape_times(bwd["times"][(bb, ts, dt)], B=bb, T=ts, dtype=dt,
+                               rate=TRAIN_RATE)
+                  for dt in ("bfloat16", "float32") for bb, ts in BWD_SHAPES],
     }]}
-    log(f"[kernels] flash_fwd launches: serving {serving['launches']} + training "
-        f"{training['b1']} + federated {federated['b1']} + extraction "
-        f"{chain['launches']} + transcribe and serve {transcribe['launches']} + export "
-        f"reloads {export['launches']} + sweep asr {sweep['b1']}; times at B={B} T={TS[-1]} "
-        f"bf16. flash_bwd: training {training['b2']} + federated {federated['b2']} + sweep asr "
-        f"{sweep['b2']} (per stage "
-        f"(B1, B2): {federated['stages']}); times at B={BWD_SHAPES[0][0]} "
-        f"T={BWD_SHAPES[0][1]} bf16 rate {TRAIN_RATE}; each kernel's \"times\" at every "
-        f"main-path shape (B1 in fp32 too: extraction's precision)")
+    for name in ("flash_fwd", "flash_bwd"):
+        log(f"[kernels] {name} launches by dtype {by_dtype[name]}; by phase "
+            + "; ".join(f"{p} {c[name]}" for p, c in COUNTS.items() if any(c[name].values())))
+    log(f"[kernels] times: flash_fwd at B={B} T={TS[-1]} bf16, flash_bwd at "
+        f"B={BWD_SHAPES[0][0]} T={BWD_SHAPES[0][1]} bf16 rate {TRAIN_RATE}; each kernel's "
+        f"\"times\" at every main-path shape in both dtypes (per stage (B1, B2) in cli "
+        f"federated: {federated['stages']}); fp32 bounds are 3xTF32 on the tensor cores")
     print(json.dumps(line))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -64,8 +64,38 @@
 // keep hash at dropout 0.1) do not overlap, since both warpgroups run the
 // same phase at once (no ping-pong), and each tile pays two block barriers
 // and the dQ hand-off.
-// The fp32 path (tests, and the card-vs-CPU check) keeps the two-kernel
-// split on plain FMA, one thread per key or query row.
+//
+// The fp32 path (the programmatic API's default dtype, --compute_dtype
+// float32 in train, federated and sweep asr) keeps the two-kernel split:
+// flash_bwd_delta, then flash_bwd_dkdv_f32 (dK, dV) and flash_bwd_dq_f32
+// (dQ), each recomputing S and dP (14 units of FLOPs instead of 10). Each
+// output has one owner that sums in a fixed order, so two calls give
+// bit-equal gradients with no ordering machinery. Every product runs on the
+// tensor cores in TF32 with the 3xTF32 split of flash_common.cuh (x = hi +
+// lo, both TF32; lo.hi + hi.lo + hi.hi into one fp32 accumulator), on wgmma
+// (m64n64k8, m64n32k8). wgmma takes tf32 shared-memory operands K-major
+// only, so each B operand is split once per block into swizzled K-major
+// hi/lo planes, as stored or transposed, and each A operand into registers:
+//   * dK/dV: one block of 2 warpgroups per 128 keys walks 32-query tiles.
+//     Its raw K and V stay resident, their A fragments split as read.
+//     cp.async lands the next raw q, dO, lse and delta while this tile
+//     computes; the block splits q (scaled in fp32) and dO as stored (B of
+//     S^T = K q^T and dP^T = V dO^T) and transposed with the queries
+//     permuted within each 8 (B of dV += A^T dO and dK += dS^T q, whose A^T
+//     and dS^T are the S^T and dP^T accumulators with no shuffle).
+//   * dQ: one block of 2 warpgroups per 128 queries (raw q and dO resident,
+//     A fragments split as read) walks 64-key tiles; K is split as stored
+//     (S = q K^T) and transposed (dQ += dS K), V as stored (dP = dO V^T).
+//   The element-wise work: p = exp(s' - lse) (precise expf), the keep hash,
+//   dP and A scaled by inv_keep where kept, dS = p (dP - delta). The two A operands of S and dP are built and used
+//   one after the other: both would not fit beside the accumulators. nvcc's
+//   -Xptxas -v report reads 0 bytes of spill (chip_smoke.py phase 1).
+// Bound: 3 TF32 products per product at 495 TFLOP/s, 3 * 10*B*H*T^2*D /
+// 495e12 s (1.116 ms at B=8, H=16, T=1499; on FMA: 2.747 ms); the
+// split pays 14 units, so it can reach at most 10/14 of that bound. What
+// holds it besides: in each tile the split pass, the products and the
+// element-wise work run in turn in both warpgroups between two block
+// barriers.
 
 #include "flash_common.cuh"
 
@@ -444,13 +474,20 @@ flash_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// fp32: one thread per key (dK/dV) or query (dQ) row, FMA on the CUDA cores
+// fp32: 3xTF32 on wgmma, the dK/dV and dQ kernels
 // ---------------------------------------------------------------------------
 
-constexpr int kB32 = 64;  // rows per block = threads per block
-constexpr int kT32 = 16;  // rows per staged tile (keeps static smem < 48 KB)
+// dK/dV: one block of 2 warpgroups per 128 keys (64 a warpgroup, 16 a warp)
+// walks 32-query tiles
+constexpr int kDkThreads = 256;
+constexpr int kDkBK = 128;                               // keys per block
+constexpr int kDkBQ = 32;                                // queries per tile
+constexpr int kDkRaw = kDkBQ * kLdF;                     // floats of one raw q or dO tile
+constexpr int kDkPlane = kDkBQ * kD * 4;                 // bytes of a plane of q, dO or their T
+constexpr int kDkSmemBytes =                             // + slack to align the planes to 1 KB
+    1024 + 8 * kDkPlane + (2 * kDkBK * kLdF + 2 * kDkRaw + 4 * kDkBQ) * 4;
 
-__global__ void __launch_bounds__(kB32)
+__global__ void __launch_bounds__(kDkThreads, 1)
 flash_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v,
                           const int* __restrict__ key_mask,
@@ -461,84 +498,165 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__
                           Strides ks, Strides vs, Strides ds, float scale,
                           uint32_t seed, uint32_t t_hash, uint32_t threshold,
                           float inv_keep) {
-  __shared__ float Ks[kB32][kD + 1];
-  __shared__ float Vs[kB32][kD + 1];
-  __shared__ float Qs[kT32][kD];  // q * scale, as the forward's fp32 path
-  __shared__ float Ds[kT32][kD];
-  __shared__ float lse_s[kT32], delta_s[kT32];
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  // tile it: the planes (hi, lo) of q * scale and dO, and of their
+  // transposes (queries permuted)
+  const uint32_t sq = smem_u32(smem);
+  const uint32_t sd = sq + 2 * kDkPlane;
+  const uint32_t sqt = sd + 2 * kDkPlane;
+  const uint32_t sdt = sqt + 2 * kDkPlane;
+  float* sK = reinterpret_cast<float*>(smem + 8 * kDkPlane);  // the block's raw K and V
+  float* sV = sK + kDkBK * kLdF;
+  float* rawQ = sV + kDkBK * kLdF;  // tile it+1 lands here
+  float* rawD = rawQ + kDkRaw;
+  float* rawL = rawD + kDkRaw;      // lse, then delta
+  float* ls = rawL + 2 * kDkBQ;     // tile it's lse (as p reads it), then delta
+  float* dl = ls + kDkBQ;
 
   const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh - b * H;
-  const int k0 = blockIdx.x * kB32;
-  const int key = k0 + tid;
+  const int k0 = blockIdx.x * kDkBK;
+  const int n_qt = (T + kDkBQ - 1) / kDkBQ;
   const uint32_t seed_bh = seed_of(seed, bh);
   const float* qb = q + b * qs.b + h * qs.h;
   const float* kb = k + b * ks.b + h * ks.h;
   const float* vb = v + b * vs.b + h * vs.h;
   const float* db = dout + b * ds.b + h * ds.h;
+  const float* lse_b = lse + (long long)bh * T;
+  const float* delta_b = delta + (long long)bh * T;
 
-  for (int i = tid; i < kB32 * kD; i += kB32) {
-    const int r = i / kD, d = i - r * kD;
-    const bool in = k0 + r < T;
-    Ks[r][d] = in ? kb[(long long)(k0 + r) * ks.t + d] : 0.f;
-    Vs[r][d] = in ? vb[(long long)(k0 + r) * vs.t + d] : 0.f;
+  auto load_q = [&](int it) {
+    load_tile_f32_async<kDkBQ, kDkThreads>(rawQ, qb, qs.t, it * kDkBQ, T, tid);
+    load_tile_f32_async<kDkBQ, kDkThreads>(rawD, db, ds.t, it * kDkBQ, T, tid);
+    load_vec_async<kDkBQ>(rawL, lse_b, it * kDkBQ, T, tid);
+    load_vec_async<kDkBQ>(rawL + kDkBQ, delta_b, it * kDkBQ, T, tid - kDkBQ);
+    cp_async_commit();
+  };
+  load_tile_f32_async<kDkBK, kDkThreads>(sK, kb, ks.t, k0, T, tid);
+  load_tile_f32_async<kDkBK, kDkThreads>(sV, vb, vs.t, k0, T, tid);
+  load_q(0);
+
+  const NoKeyShift nk(lse_b, T);
+  // this thread's keys: rows g and g+8 of its warp's 16
+  const int r0 = 16 * warp;
+  const int keys[2] = {k0 + r0 + g, k0 + r0 + g + 8};
+  const int kcode[2] = {key_code(key_mask + (long long)b * T, keys[0], T),
+                        key_code(key_mask + (long long)b * T, keys[1], T)};
+
+  float dka[kD / 8][4], dva[kD / 8][4];
+#pragma unroll
+  for (int i = 0; i < kD / 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dka[i][j] = dva[i][j] = 0.f;
+
+  for (int it = 0; it < n_qt; ++it) {
+    const int q0 = it * kDkBQ;
+    cp_async_wait<0>();
+    __syncthreads();  // raw tile it landed; tile it-1's planes are free
+    split_rows_sw<kDkBQ, kDkThreads>(sq, rawQ, tid, scale);  // q is scaled in fp32
+    split_cols_sw<kDkBQ, kDkThreads>(sqt, rawQ, tid, scale);
+    split_rows_sw<kDkBQ, kDkThreads>(sd, rawD, tid);
+    split_cols_sw<kDkBQ, kDkThreads>(sdt, rawD, tid);
+    if (tid < kDkBQ)  // p = 0 past T
+      ls[tid] = q0 + tid < T ? nk.lse(rawL[tid]) : CUDART_INF_F;
+    else if (tid < 2 * kDkBQ)
+      dl[tid - kDkBQ] = rawL[tid];
+    fence_proxy_async();
+    __syncthreads();  // planes written; the raw stage is free
+    if (it + 1 < n_qt) load_q(it + 1);  // in flight while tile it computes
+
+    // S^T = K (q * scale)^T and dP^T = V dO^T: 64 keys x 32 queries a
+    // warpgroup; K's, then V's A fragments (split as read: both would not
+    // fit beside the accumulators)
+    float stt[kDkBQ / 8][4], dpt[kDkBQ / 8][4];
+    FragA xa[kD / 8];
+#pragma unroll
+    for (int kc = 0; kc < kD / 8; ++kc) xa[kc] = frag_a(sK, r0 + g, kc * 8 + t4);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < kD / 8; ++kc)
+      wgmma_3xtf32(stt, xa[kc], sq, kDkPlane, kc, kDkBQ, kc == 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int kc = 0; kc < kD / 8; ++kc) xa[kc] = frag_a(sV, r0 + g, kc * 8 + t4);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < kD / 8; ++kc)
+      wgmma_3xtf32(dpt, xa[kc], sd, kDkPlane, kc, kDkBQ, kc == 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(stt);
+    fence_acc(dpt);
+
+    // A^T = keep p inv_keep and dS^T = p (dP - delta), dP = keep dP inv_keep
+#pragma unroll
+    for (int nt = 0; nt < kDkBQ / 8; ++nt) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = j >> 1, qc = nt * 8 + t4 * 2 + (j & 1);
+        const float p = expf(replace_masked(stt[nt][j], kcode[r], nk.fill) - ls[qc]);
+        float a = p, dp = dpt[nt][j];
+        if (threshold) {
+          const bool keep = keep_elem(seed_bh, (uint32_t)(q0 + qc), (uint32_t)keys[r], t_hash,
+                                      threshold);
+          a = keep ? p * inv_keep : 0.f;
+          dp = keep ? dp * inv_keep : 0.f;
+        }
+        stt[nt][j] = a;
+        dpt[nt][j] = p * (dp - dl[qc]);
+      }
+    }
+
+    // dV += A^T dO and dK += dS^T (q * scale): A^T and dS^T from the
+    // accumulators (queries permuted), B from the transposed planes
+    FragA aa[kDkBQ / 8], sa[kDkBQ / 8];
+#pragma unroll
+    for (int kc = 0; kc < kDkBQ / 8; ++kc) {
+      aa[kc] = acc_as_frag_a(stt[kc]);
+      sa[kc] = acc_as_frag_a(dpt[kc]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < kDkBQ / 8; ++kc)
+      wgmma_3xtf32(dva, aa[kc], sdt, kDkPlane, kc, kD, false);
+#pragma unroll
+    for (int kc = 0; kc < kDkBQ / 8; ++kc)
+      wgmma_3xtf32(dka, sa[kc], sqt, kDkPlane, kc, kD, false);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(dva);
+    fence_acc(dka);
   }
-  const int code = key_code(key_mask + (long long)b * T, key, T);
-  const NoKeyShift nk(lse + (long long)bh * T, T);
-
-  float dka[kD], dva[kD];
 #pragma unroll
-  for (int d = 0; d < kD; ++d) dka[d] = dva[d] = 0.f;
-
-  for (int q0 = 0; q0 < T; q0 += kT32) {
-    __syncthreads();
-    for (int i = tid; i < kT32 * kD; i += kB32) {
-      const int r = i / kD, d = i - r * kD;
-      const bool in = q0 + r < T;
-      Qs[r][d] = in ? qb[(long long)(q0 + r) * qs.t + d] * scale : 0.f;
-      Ds[r][d] = in ? db[(long long)(q0 + r) * ds.t + d] : 0.f;
-    }
-    if (tid < kT32) {
-      const int qi = q0 + tid;
-      lse_s[tid] = qi < T ? nk.lse(lse[(long long)bh * T + qi]) : CUDART_INF_F;
-      delta_s[tid] = qi < T ? delta[(long long)bh * T + qi] : 0.f;
-    }
-    __syncthreads();
-    for (int i = 0; i < kT32; ++i) {
-      float s = 0.f, dp = 0.f;
+  for (int r = 0; r < 2; ++r) {
+    if (keys[r] >= T) continue;
+    const long long off = ((long long)b * T + keys[r]) * ((long long)H * kD) + (long long)h * kD;
 #pragma unroll
-      for (int d = 0; d < kD; ++d) {
-        s = fmaf(Qs[i][d], Ks[tid][d], s);
-        dp = fmaf(Ds[i][d], Vs[tid][d], dp);
-      }
-      const float p = expf(replace_masked(s, code, nk.fill) - lse_s[i]);
-      float a = p;
-      if (threshold) {
-        const bool keep = keep_elem(seed_bh, (uint32_t)(q0 + i), (uint32_t)key, t_hash,
-                                    threshold);
-        a = keep ? p * inv_keep : 0.f;
-        dp = keep ? dp * inv_keep : 0.f;
-      }
-      const float dsv = p * (dp - delta_s[i]);
-#pragma unroll
-      for (int d = 0; d < kD; ++d) {
-        dva[d] = fmaf(a, Ds[i][d], dva[d]);
-        dka[d] = fmaf(dsv, Qs[i][d], dka[d]);  // Qs is pre-scaled
-      }
-    }
-  }
-  if (key < T) {
-    const long long off = ((long long)b * T + key) * ((long long)H * kD) + (long long)h * kD;
-#pragma unroll
-    for (int d = 0; d < kD; ++d) {
-      dk[off + d] = dka[d];
-      dv[off + d] = dva[d];
+    for (int dn = 0; dn < kD / 8; ++dn) {
+      *reinterpret_cast<float2*>(dk + off + dn * 8 + 2 * t4) =
+          make_float2(dka[dn][2 * r], dka[dn][2 * r + 1]);
+      *reinterpret_cast<float2*>(dv + off + dn * 8 + 2 * t4) =
+          make_float2(dva[dn][2 * r], dva[dn][2 * r + 1]);
     }
   }
 }
 
-__global__ void __launch_bounds__(kB32)
+// dQ: one block of 2 warpgroups per 128 queries (64 a warpgroup, 16 a warp)
+// walks 64-key tiles
+constexpr int kDqThreads = 256;
+constexpr int kDqBQ = 128;                               // queries per block
+constexpr int kDqBK = 64;                                // keys per tile
+constexpr int kDqRaw = kDqBK * kLdF;                     // floats of one raw K or V tile
+constexpr int kDqPlane = kDqBK * kD * 4;                 // bytes of a plane of K, K^T or V
+constexpr int kDqSmemBytes =                             // + slack to align the planes to 1 KB
+    1024 + 6 * kDqPlane + (2 * kDqBQ * kLdF + 2 * kDqRaw + 2 * kDqBK) * 4;
+
+__global__ void __launch_bounds__(kDqThreads, 1)
 flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v,
                         const int* __restrict__ key_mask,
@@ -548,17 +666,26 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
                         int T, int H, Strides qs, Strides ks, Strides vs,
                         Strides ds, float scale, uint32_t seed, uint32_t t_hash,
                         uint32_t threshold, float inv_keep) {
-  __shared__ float Qs[kB32][kD + 1];  // q * scale
-  __shared__ float Ds[kB32][kD + 1];
-  __shared__ float Ks[kT32][kD];
-  __shared__ float Vs[kT32][kD];
-  __shared__ int mcode[kT32];
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  // tile kt: the planes (hi, lo) of K, of K^T (keys permuted) and of V
+  const uint32_t sk = smem_u32(smem);
+  const uint32_t skt = sk + 2 * kDqPlane;
+  const uint32_t sv = skt + 2 * kDqPlane;
+  float* sQ = reinterpret_cast<float*>(smem + 6 * kDqPlane);  // the block's raw q and dO
+  float* sD = sQ + kDqBQ * kLdF;
+  float* rawK = sD + kDqBQ * kLdF;  // tile kt+1 lands here
+  float* rawV = rawK + kDqRaw;
+  int* rawM = reinterpret_cast<int*>(rawV + kDqRaw);
+  int* mc = rawM + kDqBK;  // tile kt's key mask
 
   const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh - b * H;
-  const int q0 = blockIdx.x * kB32;
-  const int row = q0 + tid;
+  const int q0 = blockIdx.x * kDqBQ;
+  const int n_kt = (T + kDqBK - 1) / kDqBK;
   const uint32_t seed_bh = seed_of(seed, bh);
   const float* qb = q + b * qs.b + h * qs.h;
   const float* kb = k + b * ks.b + h * ks.h;
@@ -566,50 +693,98 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
   const float* db = dout + b * ds.b + h * ds.h;
   const int* mb = key_mask + (long long)b * T;
 
-  for (int i = tid; i < kB32 * kD; i += kB32) {
-    const int r = i / kD, d = i - r * kD;
-    const bool in = q0 + r < T;
-    Qs[r][d] = in ? qb[(long long)(q0 + r) * qs.t + d] * scale : 0.f;
-    Ds[r][d] = in ? db[(long long)(q0 + r) * ds.t + d] : 0.f;
-  }
+  auto load_kv = [&](int kt) {
+    load_tile_f32_async<kDqBK, kDqThreads>(rawK, kb, ks.t, kt * kDqBK, T, tid);
+    load_tile_f32_async<kDqBK, kDqThreads>(rawV, vb, vs.t, kt * kDqBK, T, tid);
+    load_vec_async<kDqBK>(rawM, mb, kt * kDqBK, T, tid);
+    cp_async_commit();
+  };
+  load_tile_f32_async<kDqBQ, kDqThreads>(sQ, qb, qs.t, q0, T, tid);
+  load_tile_f32_async<kDqBQ, kDqThreads>(sD, db, ds.t, q0, T, tid);
+  load_kv(0);
+
   const NoKeyShift nk(lse + (long long)bh * T, T);
-  const float lse_r = row < T ? nk.lse(lse[(long long)bh * T + row]) : CUDART_INF_F;
-  const float delta_r = row < T ? delta[(long long)bh * T + row] : 0.f;
-
-  float dqa[kD];
+  const int r0 = 16 * warp;
+  const int rows[2] = {q0 + r0 + g, q0 + r0 + g + 8};
+  float lse_r[2], delta_r[2];
 #pragma unroll
-  for (int d = 0; d < kD; ++d) dqa[d] = 0.f;
-
-  for (int k0 = 0; k0 < T; k0 += kT32) {
-    __syncthreads();
-    for (int i = tid; i < kT32 * kD; i += kB32) {
-      const int r = i / kD, d = i - r * kD;
-      const bool in = k0 + r < T;
-      Ks[r][d] = in ? kb[(long long)(k0 + r) * ks.t + d] : 0.f;
-      Vs[r][d] = in ? vb[(long long)(k0 + r) * vs.t + d] : 0.f;
-    }
-    if (tid < kT32) mcode[tid] = key_code(mb, k0 + tid, T);
-    __syncthreads();
-    for (int j = 0; j < kT32; ++j) {
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int d = 0; d < kD; ++d) {
-        s = fmaf(Qs[tid][d], Ks[j][d], s);
-        dp = fmaf(Ds[tid][d], Vs[j][d], dp);
-      }
-      const float p = expf(replace_masked(s, mcode[j], nk.fill) - lse_r);
-      if (threshold)
-        dp = keep_elem(seed_bh, (uint32_t)row, (uint32_t)(k0 + j), t_hash, threshold)
-                 ? dp * inv_keep : 0.f;
-      const float dsv = p * (dp - delta_r);
-#pragma unroll
-      for (int d = 0; d < kD; ++d) dqa[d] = fmaf(dsv, Ks[j][d], dqa[d]);
-    }
+  for (int r = 0; r < 2; ++r) {
+    lse_r[r] = rows[r] < T ? nk.lse(lse[(long long)bh * T + rows[r]]) : CUDART_INF_F;
+    delta_r[r] = rows[r] < T ? delta[(long long)bh * T + rows[r]] : 0.f;
   }
-  if (row < T) {
-    float* orow = dq + ((long long)b * T + row) * ((long long)H * kD) + (long long)h * kD;
+
+  float dqa[kD / 8][4];
 #pragma unroll
-    for (int d = 0; d < kD; ++d) orow[d] = dqa[d] * scale;
+  for (int i = 0; i < kD / 8; ++i) dqa[i][0] = dqa[i][1] = dqa[i][2] = dqa[i][3] = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    cp_async_wait<0>();
+    __syncthreads();  // raw tile kt landed; tile kt-1's planes are free
+    split_rows_sw<kDqBK, kDqThreads>(sk, rawK, tid);
+    split_cols_sw<kDqBK, kDqThreads>(skt, rawK, tid);
+    split_rows_sw<kDqBK, kDqThreads>(sv, rawV, tid);
+    if (tid < kDqBK) mc[tid] = rawM[tid];
+    fence_proxy_async();
+    __syncthreads();  // planes written; the raw stage is free
+    if (kt + 1 < n_kt) load_kv(kt + 1);  // in flight while tile kt computes
+    const int k0 = kt * kDqBK;
+
+    // S = (q * scale) K^T and dP = dO V^T: 64 queries x 64 keys a
+    // warpgroup; q's, then dO's A fragments (split as read: both would not
+    // fit beside the accumulators)
+    float s[kDqBK / 8][4], dp[kDqBK / 8][4];
+    FragA xa[kD / 8];
+#pragma unroll
+    for (int kc = 0; kc < kD / 8; ++kc) xa[kc] = frag_a(sQ, r0 + g, kc * 8 + t4, scale);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < kD / 8; ++kc) wgmma_3xtf32(s, xa[kc], sk, kDqPlane, kc, kDqBK, kc == 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int kc = 0; kc < kD / 8; ++kc) xa[kc] = frag_a(sD, r0 + g, kc * 8 + t4);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < kD / 8; ++kc) wgmma_3xtf32(dp, xa[kc], sv, kDqPlane, kc, kDqBK, kc == 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+    fence_acc(dp);
+
+#pragma unroll
+    for (int nt = 0; nt < kDqBK / 8; ++nt) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = j >> 1, col = nt * 8 + t4 * 2 + (j & 1);
+        const int code = k0 + col < T ? (mc[col] > 0 ? 1 : 0) : -1;
+        const float p = expf(replace_masked(s[nt][j], code, nk.fill) - lse_r[r]);
+        float dpv = dp[nt][j];
+        if (threshold)
+          dpv = keep_elem(seed_bh, (uint32_t)rows[r], (uint32_t)(k0 + col), t_hash, threshold)
+                    ? dpv * inv_keep : 0.f;
+        s[nt][j] = p * (dpv - delta_r[r]);
+      }
+    }
+
+    // dQ += dS K: dS from the accumulators (keys permuted), K^T's planes
+    FragA sa[kDqBK / 8];
+#pragma unroll
+    for (int kc = 0; kc < kDqBK / 8; ++kc) sa[kc] = acc_as_frag_a(s[kc]);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < kDqBK / 8; ++kc) wgmma_3xtf32(dqa, sa[kc], skt, kDqPlane, kc, kD, false);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(dqa);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= T) continue;
+    float* orow = dq + ((long long)b * T + rows[r]) * ((long long)H * kD) + (long long)h * kD;
+#pragma unroll
+    for (int dn = 0; dn < kD / 8; ++dn)
+      *reinterpret_cast<float2*>(orow + dn * 8 + 2 * t4) =
+          make_float2(dqa[dn][2 * r] * scale, dqa[dn][2 * r + 1] * scale);
   }
 }
 
@@ -672,11 +847,19 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v,
     flash_bwd_delta_kernel<<<delta_blocks, 256, 0, st>>>(static_cast<const float*>(o), df,
                                                          delta_f, T, H, rows, os, ds, 1.f);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    flash_bwd_dkdv_f32_kernel<<<dim3((T + kB32 - 1) / kB32, B * H), kB32, 0, st>>>(
+    static const cudaError_t attr_dk = cudaFuncSetAttribute(
+        flash_bwd_dkdv_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkSmemBytes);
+    if (attr_dk != cudaSuccess) return (int)attr_dk;
+    static const cudaError_t attr_dq = cudaFuncSetAttribute(
+        flash_bwd_dq_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmemBytes);
+    if (attr_dq != cudaSuccess) return (int)attr_dq;
+    flash_bwd_dkdv_f32_kernel<<<dim3((T + kDkBK - 1) / kDkBK, B * H), kDkThreads, kDkSmemBytes,
+                                st>>>(
         qf, kf, vf, km, df, lse_f, delta_f, static_cast<float*>(dk), static_cast<float*>(dv),
         T, H, qs, ks, vs, ds, scale, (uint32_t)seed, (uint32_t)t_hash, threshold, inv_keep);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    flash_bwd_dq_f32_kernel<<<dim3((T + kB32 - 1) / kB32, B * H), kB32, 0, st>>>(
+    flash_bwd_dq_f32_kernel<<<dim3((T + kDqBQ - 1) / kDqBQ, B * H), kDqThreads, kDqSmemBytes,
+                              st>>>(
         qf, kf, vf, km, df, lse_f, delta_f, static_cast<float*>(dq), T, H, qs, ks, vs, ds,
         scale, (uint32_t)seed, (uint32_t)t_hash, threshold, inv_keep);
     return (int)cudaGetLastError();

@@ -1,8 +1,9 @@
 // What kernels B1 (flash_fwd.cu) and B2 (flash_bwd.cu) share, so that the
 // two cannot drift apart: the constants and the keep hash of the TPU
 // kernels, the swizzled shared-memory tile layout, the asynchronous tile
-// loaders (cp.async with zero fill past T), and the wgmma descriptors,
-// instructions and fences.
+// loaders (cp.async with zero fill past T), the wgmma descriptors,
+// instructions and fences, and the fp32 paths' 3xTF32 split, planes and
+// TF32 wgmma products (last section).
 //
 // Tile layout. A [rows, 64] bf16 tile is stored as 128-byte rows of eight
 // 16-byte chunks; chunk c of row r sits at chunk c ^ (r & 7). That is the
@@ -247,6 +248,193 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4], const uint32_t (&
         "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
         "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TB));
+}
+
+// ---------------------------------------------------------------------------
+// fp32: 3xTF32 products on wgmma
+// ---------------------------------------------------------------------------
+//
+// Each fp32 operand x is split into hi = rna(x) and lo = rna(x - hi) in TF32,
+// and a product is lo.hi + hi.lo + hi.hi, small terms first, into one fp32
+// accumulator: about fp32's accuracy (the dropped lo.lo term is 2^-22 of the
+// product) where one TF32 product keeps about three decimal digits.
+//
+// wgmma takes tf32 operands from shared memory K-major only (no transpose
+// bit), or A from registers. So each B operand is split once per block
+// into a hi and a lo plane in the 128-byte swizzle of the descriptors,
+// either as the raw tile is stored (split_rows_sw) or transposed
+// (split_cols_sw), and an A operand is split into registers (frag_a, or
+// acc_as_frag_a from the accumulator of the product before).
+//
+// Tiles. A raw tile is fp32 as cp.async lands it, [rows, 64] with rows
+// kLdF = 68 floats apart: the 4-float pad puts the 8 rows x 4 columns of an
+// A fragment on distinct banks. A plane of R rows holds K = 64 (or R) tf32
+// columns as atoms of 32 columns (128-byte rows, 16-byte chunk c of row r at
+// c ^ (r & 7)), R * 128 bytes apart, each 1024-byte aligned.
+
+constexpr int kLdF = kD + 4;  // floats per raw tile row
+
+// rows [row0, row0 + R) of a [T, 64] fp32 slice with row stride `rs` -> the
+// raw tile at `dst`; rows past T are zero-filled
+template <int R, int NT>
+__device__ __forceinline__ void load_tile_f32_async(float* dst, const float* base, long long rs,
+                                                    int row0, int T, int tid) {
+  static_assert((R * 16) % NT == 0, "whole chunks per thread");
+#pragma unroll
+  for (int i = 0; i < R * 16 / NT; ++i) {
+    const int c = tid + i * NT, r = c >> 4, ch = c & 15;
+    const bool in = row0 + r < T;
+    const float* src = base + (in ? (long long)(row0 + r) * rs : 0) + ch * 4;
+    cp_async16(smem_u32(dst + r * kLdF + ch * 4), src, in ? 16 : 0);
+  }
+}
+
+struct Tf32Pair {
+  uint32_t hi, lo;
+};
+
+// x rounded to TF32, to nearest with ties away from zero: the value of
+// cvt.rna.tf32.f32 for every input but a NaN, in two integer operations
+// where that instruction compiles to a NaN-guarded sequence
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+__device__ __forceinline__ Tf32Pair split_tf32(float x) {
+  const uint32_t hi = tf32_rna(x);
+  return {hi, tf32_rna(x - __uint_as_float(hi))};  // x - hi is exact
+}
+
+// byte offset of element (r, k) of a plane of `rows` rows
+__device__ __forceinline__ uint32_t swz32(int r, int k, int rows) {
+  return (uint32_t)((k >> 5) * (rows * 128) + r * 128 + ((((k & 31) >> 2) ^ (r & 7)) << 4));
+}
+
+// descriptor of k columns [8kc, 8kc + 8) of the plane at `base`
+__device__ __forceinline__ uint64_t plane_desc(uint32_t base, int kc, int rows) {
+  return gmma_desc(base + (kc >> 2) * (rows * 128)) + 2 * (kc & 3);
+}
+
+// x times f, split: hi's 16 bytes at `hi`, lo's at `lo` (shared addresses)
+__device__ __forceinline__ void st_split4(uint32_t hi, uint32_t lo, float4 x, float f) {
+  const Tf32Pair p0 = split_tf32(x.x * f), p1 = split_tf32(x.y * f), p2 = split_tf32(x.z * f),
+                 p3 = split_tf32(x.w * f);
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(hi), "r"(p0.hi), "r"(p1.hi),
+               "r"(p2.hi), "r"(p3.hi) : "memory");
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(lo), "r"(p0.lo), "r"(p1.lo),
+               "r"(p2.lo), "r"(p3.lo) : "memory");
+}
+
+// the raw tile (rows [0, R)) times f -> its hi plane at dst ([R rows, 64 k])
+// and its lo plane after it
+template <int R, int NT>
+__device__ __forceinline__ void split_rows_sw(uint32_t dst, const float* raw, int tid,
+                                              float f = 1.f) {
+  static_assert((R * 16) % NT == 0, "whole chunks per thread");
+#pragma unroll
+  for (int i = 0; i < R * 16 / NT; ++i) {
+    const int c = tid + i * NT, r = c >> 4, ch = c & 15;
+    const uint32_t at = dst + swz32(r, ch * 4, R);
+    st_split4(at, at + R * kD * 4, *reinterpret_cast<const float4*>(raw + r * kLdF + ch * 4), f);
+  }
+}
+
+// the transpose of the raw tile (rows [0, R)) times f -> hi plane at dst
+// ([64 rows, R k]) and lo after it, the R columns permuted within each 8:
+// source rows 8a + e + 2j (j = 0..3) land at k = 8a + 4e + j, the order in
+// which acc_as_frag_a holds them
+template <int R, int NT>
+__device__ __forceinline__ void split_cols_sw(uint32_t dst, const float* raw, int tid,
+                                              float f = 1.f) {
+  static_assert((R / 4 * kD) % NT == 0, "whole items per thread");
+#pragma unroll
+  for (int i = 0; i < R / 4 * kD / NT; ++i) {
+    const int it = tid + i * NT, c = it & (kD - 1), grp = it / kD;
+    const int r0 = (grp >> 1) * 8 + (grp & 1);
+    const float4 x = make_float4(raw[r0 * kLdF + c], raw[(r0 + 2) * kLdF + c],
+                                 raw[(r0 + 4) * kLdF + c], raw[(r0 + 6) * kLdF + c]);
+    const uint32_t at = dst + swz32(c, (grp >> 1) * 8 + (grp & 1) * 4, kD);
+    st_split4(at, at + kD * R * 4, x, f);
+  }
+}
+
+// a warp's A fragment of a k8 step (a0 row g col t4, a1 row g+8, a2 col
+// t4+4, a3 both: mma.sync m16n8k8's layout, which wgmma's tf32 A in
+// registers shares, warp w of the warpgroup holding rows 16w..16w+15), split
+struct FragA {
+  uint32_t hi[4], lo[4];
+  __device__ __forceinline__ void set(int i, float x) {
+    const Tf32Pair p = split_tf32(x);
+    hi[i] = p.hi;
+    lo[i] = p.lo;
+  }
+};
+
+// A fragment from a raw tile: rows r, r + 8, columns c, c + 4, times f
+__device__ __forceinline__ FragA frag_a(const float* tile, int r, int c, float f = 1.f) {
+  FragA a;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) a.set(i, tile[(r + (i & 1) * 8) * kLdF + c + (i >> 1) * 4] * f);
+  return a;
+}
+
+// The accumulator of an n-tile (c0 row g col 2t4, c1 col 2t4+1, c2 row g+8,
+// c3 both) as the A fragment of the next product over those 8 columns, whose
+// k positions t4 and t4 + 4 then stand for columns 2t4 and 2t4 + 1: the
+// order of split_cols_sw, so the sum over k is the same.
+__device__ __forceinline__ FragA acc_as_frag_a(const float (&c)[4]) {
+  FragA a;
+  a.set(0, c[0]);
+  a.set(1, c[2]);
+  a.set(2, c[1]);
+  a.set(3, c[3]);
+  return a;
+}
+
+#define FLASH_ACC16(d)                                                                       \
+  "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), \
+      "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]),            \
+      "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+
+// D[64 x 64] (+)= A . B, TF32: A from registers, B K-major from a plane
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[8][4], const uint32_t (&a)[4],
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : FLASH_ACC16(d), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 32] (+)= A . B, TF32: A from registers, B K-major from a plane
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[4][4], const uint32_t (&a)[4],
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : FLASH_ACC16(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+#undef FLASH_ACC16
+
+// D (+)= A . B over k columns [8kc, 8kc + 8) in 3xTF32, lo.hi + hi.lo +
+// hi.hi: B's hi plane (of `rows` rows) at `hi`, its lo plane at hi + lo_off;
+// `first` overwrites D
+template <int N>
+__device__ __forceinline__ void wgmma_3xtf32(float (&d)[N][4], const FragA& a, uint32_t hi,
+                                             uint32_t lo_off, int kc, int rows, bool first) {
+  wgmma_tf32_rs(d, a.lo, plane_desc(hi, kc, rows), first ? 0 : 1);
+  wgmma_tf32_rs(d, a.hi, plane_desc(hi + lo_off, kc, rows), 1);
+  wgmma_tf32_rs(d, a.hi, plane_desc(hi, kc, rows), 1);
 }
 
 }  // namespace flash

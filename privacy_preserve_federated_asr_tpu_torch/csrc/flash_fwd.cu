@@ -40,7 +40,32 @@
 // What holds it now: each warpgroup waits for its products before its
 // softmax (no overlap of the two within a warpgroup) and the element-wise
 // work (exp, the keep hash) runs on the CUDA cores beside them.
-// The fp32 path (tests and the fp32 serving option) uses plain FMA.
+//
+// The fp32 path (cli extract's default, the federated evaluations, fp32
+// training and serving) is flash_fwd_f32_kernel: the same function with
+// every product on the tensor cores in TF32 and fp32's accuracy kept by the
+// 3xTF32 split of flash_common.cuh (x = hi + lo, both TF32; a product is
+// lo.hi + hi.lo + hi.hi into one fp32 accumulator), on wgmma m64n64k8.
+// wgmma takes tf32 shared-memory operands K-major only, which decides the
+// layout:
+//   * one block of 2 warpgroups per (b*h, 128-query tile); each warp's q
+//     rows, scaled in fp32 and split once, stay in registers as S's A
+//     operand for the whole key loop;
+//   * per 64-key tile, cp.async lands the next raw K, V and key mask (zero
+//     fill past T) while this tile computes; the block splits each raw tile
+//     once into swizzled K-major hi and lo planes: K as stored (S = q K^T
+//     contracts over D), V transposed with its keys permuted within each 8
+//     (P V contracts over keys);
+//   * S's accumulators become P's register A operand with no shuffle: a
+//     thread's accumulator columns 2t4, 2t4+1 stand for k positions t4,
+//     t4+4, the key order of V^T's planes; the online softmax (precise
+//     expf), the keep hash and the epilogue are the bf16 path's.
+// Bound: 3 TF32 products per product at 495 TFLOP/s (dense TF32), so
+// 3 * 4*B*H*T^2*D / 495e12 s, 0.446 ms at B=8, H=16, T=1499 (on FMA at
+// 67 TFLOP/s: 1.099 ms). What holds it: in each tile the split pass, the
+// products and the softmax run in turn in both warpgroups between two block
+// barriers, so the tensor cores idle outside the products; the q fragments
+// take 64 of a thread's registers, so one block runs per SM.
 
 #include "flash_common.cuh"
 
@@ -225,95 +250,174 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// fp32: one thread per query row, FMA on the CUDA cores
+// fp32: 3xTF32 on wgmma; the next raw K/V tile lands by cp.async while the
+// planes of this one compute
 // ---------------------------------------------------------------------------
 
-constexpr int kBQ32 = 64;  // queries per block = threads per block
-constexpr int kBK32 = 32;  // keys per tile
+constexpr int kF32Threads = 256;                   // 2 warpgroups, 64 query rows each
+constexpr int kF32BQ = 128;                        // queries per block
+constexpr int kF32BK = 64;                         // keys per tile
+constexpr int kF32Raw = kF32BK * kLdF;             // floats of one raw K or V tile
+constexpr int kF32Plane = kF32BK * kD * 4;         // bytes of one plane of K or V^T
+constexpr int kF32SmemBytes =                      // + slack to align the planes to 1 KB
+    1024 + 4 * kF32Plane + (2 * kF32Raw + 2 * kF32BK) * 4;
 
-__global__ void __launch_bounds__(kBQ32)
+__global__ void __launch_bounds__(kF32Threads, 1)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const int* __restrict__ key_mask, float* __restrict__ o,
                      float* __restrict__ lse, int T, int H, Strides qs,
                      Strides ks, Strides vs, float scale, uint32_t seed, uint32_t t_hash,
                      uint32_t threshold, float inv_keep) {
-  __shared__ float Qs[kBQ32][kD + 1];
-  __shared__ float Ks[kBK32][kD];
-  __shared__ float Vs[kBK32][kD];
-  __shared__ int mcode[kBK32];
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sK = smem_u32(smem);       // tile kt: K's planes (hi, lo)
+  const uint32_t sVt = sK + 2 * kF32Plane;  // V^T's planes, keys permuted
+  float* rawK = reinterpret_cast<float*>(smem + 4 * kF32Plane);  // tile kt+1 lands here
+  float* rawV = rawK + kF32Raw;
+  int* rawM = reinterpret_cast<int*>(rawV + kF32Raw);
+  int* mc = rawM + kF32BK;  // tile kt's key mask
 
   const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh - b * H;
-  const int q0 = blockIdx.x * kBQ32;
+  const int q0 = blockIdx.x * kF32BQ;
   const uint32_t seed_bh = seed_of(seed, bh);
   const float* qb = q + b * qs.b + h * qs.h;
   const float* kb = k + b * ks.b + h * ks.h;
   const float* vb = v + b * vs.b + h * vs.h;
   const int* mb = key_mask + (long long)b * T;
+  const int n_tiles = (T + kF32BK - 1) / kF32BK;
 
-  // q is scaled in fp32 before the dot, as the TPU kernel does
-  for (int i = tid; i < kBQ32 * kD; i += kBQ32) {
-    const int r = i / kD, d = i - r * kD;
-    Qs[r][d] = q0 + r < T ? qb[(long long)(q0 + r) * qs.t + d] * scale : 0.f;
+  auto load_kv = [&](int kt) {
+    load_tile_f32_async<kF32BK, kF32Threads>(rawK, kb, ks.t, kt * kF32BK, T, tid);
+    load_tile_f32_async<kF32BK, kF32Threads>(rawV, vb, vs.t, kt * kF32BK, T, tid);
+    load_vec_async<kF32BK>(rawM, mb, kt * kF32BK, T, tid);
+    cp_async_commit();
+  };
+  load_kv(0);
+
+  // this warp's 16 query rows (of its warpgroup's 64), scaled in fp32 (as
+  // the TPU kernel does) and split once: S's A operand for the whole loop
+  const uint32_t rows[2] = {(uint32_t)(q0 + warp * 16 + g), (uint32_t)(q0 + warp * 16 + g + 8)};
+  FragA qa[kD / 8];
+#pragma unroll
+  for (int kc = 0; kc < kD / 8; ++kc)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = (int)rows[i & 1], col = kc * 8 + t4 + (i >> 1) * 4;
+      qa[kc].set(i, row < T ? qb[(long long)row * qs.t + col] * scale : 0.f);
+    }
+
+  float oacc[kD / 8][4];
+#pragma unroll
+  for (int i = 0; i < kD / 8; ++i)
+    oacc[i][0] = oacc[i][1] = oacc[i][2] = oacc[i][3] = 0.f;
+  float m[2] = {kMaskFill, kMaskFill};
+  float l[2] = {0.f, 0.f};  // per-thread partial row sums (quad-reduced at the end)
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    cp_async_wait<0>();
+    __syncthreads();  // raw tile kt landed; tile kt-1's planes are free
+    split_rows_sw<kF32BK, kF32Threads>(sK, rawK, tid);
+    split_cols_sw<kF32BK, kF32Threads>(sVt, rawV, tid);
+    if (tid < kF32BK) mc[tid] = rawM[tid];
+    fence_proxy_async();
+    __syncthreads();  // planes written; the raw stage is free
+    if (kt + 1 < n_tiles) load_kv(kt + 1);  // in flight while tile kt computes
+    const int k0 = kt * kF32BK;
+
+    // S = (q * scale) K^T: 64 rows x 64 keys per warpgroup
+    float s[kF32BK / 8][4];
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < kD / 8; ++kc)
+      wgmma_3xtf32(s, qa[kc], sK, kF32Plane, kc, kF32BK, kc == 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+
+    // mask, then the online-softmax statistics (precise expf, as fp32 wants)
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int nt = 0; nt < kF32BK / 8; ++nt) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = nt * 8 + t4 * 2 + (j & 1);
+        const int code = k0 + col < T ? (mc[col] > 0 ? 1 : 0) : -1;
+        const float x = replace_masked(s[nt][j], code, kMaskFill);
+        s[nt][j] = x;
+        mx[j >> 1] = fmaxf(mx[j >> 1], x);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = expf(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int nt = 0; nt < kF32BK / 8; ++nt) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = j >> 1;
+        float p = expf(s[nt][j] - m[r]);
+        l[r] += p;  // the denominator sees the undropped p
+        if (threshold) {
+          const uint32_t col = (uint32_t)(k0 + nt * 8 + t4 * 2 + (j & 1));
+          if (!keep_elem(seed_bh, rows[r], col, t_hash, threshold)) p = 0.f;
+        }
+        s[nt][j] = p;
+      }
+    }
+#pragma unroll
+    for (int dn = 0; dn < kD / 8; ++dn) {
+      oacc[dn][0] *= alpha[0];
+      oacc[dn][1] *= alpha[0];
+      oacc[dn][2] *= alpha[1];
+      oacc[dn][3] *= alpha[1];
+    }
+
+    // O += P V: P from the S accumulators (keys permuted), V^T's planes
+    FragA pa[kF32BK / 8];
+#pragma unroll
+    for (int kc = 0; kc < kF32BK / 8; ++kc) pa[kc] = acc_as_frag_a(s[kc]);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < kF32BK / 8; ++kc)
+      wgmma_3xtf32(oacc, pa[kc], sVt, kF32Plane, kc, kD, false);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(oacc);
   }
 
-  float acc[kD];
+  // epilogue: the full row sums, then acc * inv_keep / max(l, 1e-30)
+  float f[2];
 #pragma unroll
-  for (int d = 0; d < kD; ++d) acc[d] = 0.f;
-  float m = kMaskFill, l = 0.f;
-  const uint32_t row = (uint32_t)(q0 + tid);
-
-  for (int k0 = 0; k0 < T; k0 += kBK32) {
-    __syncthreads();
-    for (int i = tid; i < kBK32 * kD; i += kBQ32) {
-      const int r = i / kD, d = i - r * kD;
-      const bool in = k0 + r < T;
-      Ks[r][d] = in ? kb[(long long)(k0 + r) * ks.t + d] : 0.f;
-      Vs[r][d] = in ? vb[(long long)(k0 + r) * vs.t + d] : 0.f;
-    }
-    if (tid < kBK32) mcode[tid] = key_code(mb, k0 + tid, T);
-    __syncthreads();
-
-    float s[kBK32];
-#pragma unroll
-    for (int j = 0; j < kBK32; ++j) s[j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < kD; ++d) {
-      const float qd = Qs[tid][d];
-#pragma unroll
-      for (int j = 0; j < kBK32; ++j) s[j] = fmaf(qd, Ks[j][d], s[j]);
-    }
-    float mx = -CUDART_INF_F;
-#pragma unroll
-    for (int j = 0; j < kBK32; ++j) {
-      s[j] = replace_masked(s[j], mcode[j], kMaskFill);
-      mx = fmaxf(mx, s[j]);
-    }
-    const float m_new = fmaxf(m, mx);
-    const float alpha = expf(m - m_new);
-    m = m_new;
-    l *= alpha;
-#pragma unroll
-    for (int d = 0; d < kD; ++d) acc[d] *= alpha;
-#pragma unroll
-    for (int j = 0; j < kBK32; ++j) {
-      float p = expf(s[j] - m);
-      l += p;
-      if (threshold && !keep_elem(seed_bh, row, (uint32_t)(k0 + j), t_hash, threshold))
-        p = 0.f;
-#pragma unroll
-      for (int d = 0; d < kD; ++d) acc[d] = fmaf(p, Vs[j][d], acc[d]);
-    }
+  for (int r = 0; r < 2; ++r) {
+    float lr = l[r];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    f[r] = inv_keep / fmaxf(lr, 1e-30f);
+    if (lse != nullptr && t4 == 0 && (int)rows[r] < T)
+      lse[(long long)bh * T + rows[r]] = row_lse(m[r], lr);
   }
-
-  if ((int)row < T) {
-    const float f = inv_keep / fmaxf(l, 1e-30f);
-    if (lse != nullptr) lse[(long long)bh * T + row] = row_lse(m, l);
-    float* orow = o + ((long long)b * T + row) * ((long long)H * kD) + (long long)h * kD;
+  const long long ost = (long long)H * kD;
 #pragma unroll
-    for (int d = 0; d < kD; ++d) orow[d] = acc[d] * f;
+  for (int r = 0; r < 2; ++r) {
+    const int row = (int)rows[r];
+    if (row >= T) continue;
+    float* orow = o + ((long long)b * T + row) * ost + (long long)h * kD;
+#pragma unroll
+    for (int dn = 0; dn < kD / 8; ++dn)
+      *reinterpret_cast<float2*>(orow + dn * 8 + t4 * 2) =
+          make_float2(oacc[dn][2 * r] * f[r], oacc[dn][2 * r + 1] * f[r]);
   }
 }
 
@@ -346,8 +450,11 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
         static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), T, H, qs, ks,
         vs, scale, (uint32_t)seed, (uint32_t)t_hash, threshold, inv_keep);
   } else if (dtype == 0) {
-    const dim3 grid((T + kBQ32 - 1) / kBQ32, B * H);
-    flash_fwd_f32_kernel<<<grid, kBQ32, 0, st>>>(
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        flash_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kF32SmemBytes);
+    if (attr != cudaSuccess) return (int)attr;
+    const dim3 grid((T + kF32BQ - 1) / kF32BQ, B * H);
+    flash_fwd_f32_kernel<<<grid, kF32Threads, kF32SmemBytes, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const int*>(key_mask),
         static_cast<float*>(o), static_cast<float*>(lse), T, H, qs, ks, vs,

@@ -276,7 +276,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``[B, T]`` (> 0 = valid). Returns a new contiguous ``[B, T, H, D]``, and
     with ``return_lse`` also each row's fp32 log-sum-exp ``[B, H, T]`` of the
     scaled, mask-replaced scores (what kernel B2 reads). Counts each launch
-    in ``flash_attention_fwd.launches``."""
+    in ``flash_attention_fwd.launches`` and, by dtype name, in
+    ``flash_attention_fwd.dtype_launches``."""
     _check_inputs("flash_attention_fwd", q, k, v, key_mask)
     b, t, h, d = q.shape
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
@@ -292,10 +293,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {rc}")
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.dtype_launches[str(q.dtype)[6:]] += 1
     return (out, lse) if return_lse else out
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.dtype_launches = {"float32": 0, "bfloat16": 0}
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -307,9 +310,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``do``, each a new contiguous ``[B, T, H, D]`` in q's dtype. q, k, v,
     key_mask, rate, seed and t_hash are the forward's; ``lse`` is the
     forward's ``return_lse`` output. Counts each call (one per layer
-    backward, three CUDA launches) in ``flash_attention_bwd.launches``. Two
-    calls on the same inputs give bit-equal gradients: the bf16 kernel sums
-    dQ over its key tiles in a fixed order."""
+    backward, three CUDA launches) in ``flash_attention_bwd.launches`` and,
+    by dtype name, in ``flash_attention_bwd.dtype_launches``. Two calls on
+    the same inputs give bit-equal gradients in either dtype: the bf16
+    kernel sums dQ over its key tiles in a fixed order, and the fp32 path
+    (3xTF32 on the tensor cores) gives each of dq, dk and dv one owner that
+    sums in a fixed order."""
     _check_inputs("flash_attention_bwd", q, k, v, key_mask)
     b, t, h, d = q.shape
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype:
@@ -342,10 +348,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"flash_bwd kernel launch failed: CUDA error {rc}")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.dtype_launches[str(q.dtype)[6:]] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.dtype_launches = {"float32": 0, "bfloat16": 0}
 
 
 class FlashAttention(torch.autograd.Function):

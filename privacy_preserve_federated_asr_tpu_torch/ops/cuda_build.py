@@ -8,6 +8,9 @@ kernel, header or flag is rebuilt and a stale library is never loaded.
 The build happens at first use, from the repository's sources only; a
 missing ``nvcc`` or a failed build raises (there is no fallback).
 The first load builds every source at once, one ``nvcc`` process each.
+nvcc's report (``-Xptxas -v``: registers, shared memory and spills per
+kernel) is kept beside each library as ``lib<name>-<hash>.log`` and read
+into ``build_logs`` when the library is loaded.
 
 Nothing here runs at import: the CPU tests import every module.
 """
@@ -30,7 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-build_logs: dict[str, str] = {}  # nvcc's output for each library built here
+build_logs: dict[str, str] = {}  # nvcc's output for each library loaded here
 
 
 def nvcc_path() -> str:
@@ -71,6 +74,7 @@ def _build(names) -> None:
             tmp.unlink(missing_ok=True)
             failed.append(f"nvcc exited {proc.returncode} on {name}.cu\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)  # kept beside it for later loaders
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
         build_logs[name] = log
     if failed:
@@ -86,4 +90,7 @@ def load(name: str) -> ctypes.CDLL:
             if missing:
                 _build(missing)
             _libs[name] = ctypes.CDLL(str(library_path(name)))
+            log = library_path(name).with_suffix(".log")
+            if name not in build_logs and log.exists():
+                build_logs[name] = log.read_text()
         return _libs[name]

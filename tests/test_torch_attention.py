@@ -6,6 +6,8 @@ where a card is present. JAX is imported inside the tests that use it, so
 the card-only test also runs where JAX is not installed:
 ``python -m pytest tests/test_torch_attention.py -k cuda``."""
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -109,9 +111,9 @@ def test_all_masked_row_is_finite():
                                rtol=1e-5, atol=1e-6)
 
 
-def _pallas_grads(q, k, v, mask, g, rate, seed, t_pad=128, block=64):
-    """dq, dk, dv of the JAX ``_flash_attention`` (TPU kernels B1/B2 in
-    interpret mode) at T padded to ``t_pad``, cut back to T."""
+def _pallas_fwd_grads(q, k, v, mask, g, rate, seed, t_pad=128, block=64):
+    """The output and (dq, dk, dv) of the JAX ``_flash_attention`` (TPU
+    kernels B1/B2 in interpret mode) at T padded to ``t_pad``, cut back to T."""
     import jax
     import jax.numpy as jnp
     from privacy_preserve_federated_asr_tpu.ops.attention import _flash_attention
@@ -121,9 +123,10 @@ def _pallas_grads(q, k, v, mask, g, rate, seed, t_pad=128, block=64):
     qp, kp, vp, gp = (jnp.asarray(np.pad(x, pad)) for x in (q, k, v, g))
     mp = jnp.asarray(np.pad(mask, ((0, 0), (0, t_pad - t))))
     seed_arr = jnp.full((1, 1), seed, jnp.int32)
-    _, vjp = jax.vjp(lambda a, b, c: _flash_attention(a, b, c, mp, seed_arr, block, rate),
-                     qp, kp, vp)
-    return [np.asarray(x)[:, :t] for x in vjp(gp)]
+    out, vjp = jax.vjp(lambda a, b, c: _flash_attention(a, b, c, mp, seed_arr, block, rate),
+                       qp, kp, vp)
+    return np.asarray(out)[:, :t], [np.asarray(x)[:, :t] for x in vjp(gp)]
+
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.3])
@@ -136,7 +139,7 @@ def test_bwd_ref_matches_pallas_grads(rate):
     g = np.random.default_rng(6).normal(0, 1, q.shape).astype(np.float32)
     g *= mask[:, :, None, None]
     seed = -123456789
-    want = _pallas_grads(q, k, v, mask, g, rate, seed)
+    want = _pallas_fwd_grads(q, k, v, mask, g, rate, seed)[1]
     qt, kt, vt, mt, gt = _torch(q, k, v, mask, g)
     o = port.attention_ref(qt, kt, vt, mt, rate, seed, t_hash=128)
     got = port.attention_bwd_ref(qt, kt, vt, mt, o, gt, rate, seed, t_hash=128)
@@ -166,6 +169,111 @@ def test_autograd_function_matches_bwd_ref(rate):
     port.attention_ref(*auto, mt, rate, 77, 64).backward(gt)
     for leaf, a in zip(leaves, auto):
         np.testing.assert_allclose(leaf.grad.numpy(), a.grad.numpy(), atol=1e-5)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, by bit ops on the int32 view: the rounding of the card's
+    fp32 kernels (``cvt.rna.tf32.f32``)."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_split(a: torch.Tensor, b: torch.Tensor, products: int = 3) -> torch.Tensor:
+    """``a @ b`` as the card's fp32 kernels run it on the tensor cores: each
+    operand split into hi = tf32(x) and lo = tf32(x - hi), the product
+    lo.hi + hi.lo + hi.hi added small terms first (``products=3``), or
+    hi.hi alone (``products=1``, plain TF32). A product of two TF32 values
+    is exact in fp32, so only the sums round."""
+    ah, bh = _tf32(a), _tf32(b)
+    if products == 1:
+        return ah @ bh
+    return (_tf32(a - ah) @ bh + ah @ _tf32(b - bh)) + ah @ bh
+
+
+def _split_attention(q, k, v, mask, keep, inv_keep, g, products=3):
+    """B1 and B2's fp32 function with every product through ``_mm_split``:
+    ``(o, dq, dk, dv)`` of ``[B, T, H, D]`` inputs, ``keep`` the
+    ``[B, H, T, T]`` keep mask (None: no dropout), ``g`` the cotangent. As
+    the kernels: q scaled before the dot, masked keys replaced, the
+    undropped denominator applied after P V, inv_keep once, dS = p (dP -
+    delta) with delta = rowsum(dO o)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qs, kk, vv, gg = (x.permute(0, 2, 1, 3) for x in (q * scale, k, v, g))
+    kt, vt = kk.transpose(-1, -2), vv.transpose(-1, -2)
+    s = _mm_split(qs, kt, products)
+    s = torch.where((mask > 0)[:, None, None, :], s, torch.tensor(port.NEG_INF))
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    l = e.sum(-1, keepdim=True)
+    kept = e if keep is None else torch.where(keep, e, torch.tensor(0.0))
+    o = _mm_split(kept, vv, products) * inv_keep / l
+    p = e / l
+    a = p if keep is None else torch.where(keep, p, torch.tensor(0.0)) * inv_keep
+    dv = _mm_split(a.transpose(-1, -2), gg, products)
+    dp = _mm_split(gg, vt, products)
+    if keep is not None:
+        dp = torch.where(keep, dp, torch.tensor(0.0)) * inv_keep
+    ds = p * (dp - (gg * o).sum(-1, keepdim=True))
+    dq = _mm_split(ds, kk, products) * scale
+    dk = _mm_split(ds.transpose(-1, -2), qs, products)
+    return [x.permute(0, 2, 1, 3) for x in (o, dq, dk, dv)]
+
+
+def _held(got: np.ndarray, ref: np.ndarray) -> float:
+    """chip_smoke.py phase 5's measure of a gradient: max|err| / max|ref|,
+    or, for a gradient that is rounding noise on both sides (max|ref| <
+    1e-3: dq and dk at T=1 without dropout), max|err| on the 1e-4 scale."""
+    err, top = float(np.abs(got - ref).max()), float(np.abs(ref).max())
+    return err / top if top >= 1e-3 else err
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_three_tf32_split_holds_fp32_tolerance(rate):
+    """The card's fp32 kernels run every product as three TF32 products
+    (3xTF32). Emulated here in fp32 with TF32 rounding by bit ops, at the
+    ragged T = 1, 63, 65, 129 (B=2, H=2, D=64; one batch row keyed up to
+    3/4 of T, the other with every key masked), the forward holds
+    chip_smoke.py phase 2's fp32 atol 1e-4 and each gradient its phase 5's
+    max|err|/max|ref| <= 1e-4 against the JAX package's attention (TPU
+    kernels in interpret mode, all four lengths padded to T_pad 256 and
+    stacked along the batch: one JAX call per rate) and against the port's
+    fp32 plain versions (the all-masked row and the whole cotangent too).
+    One TF32 product alone misses the forward's tolerance."""
+    ts, t_pad, h, d, seed = (1, 63, 65, 129), 256, 2, 64, 4321
+    rng = np.random.default_rng(17)
+    q, k, v, g = (rng.normal(0, 1, (2 * len(ts), t_pad, h, d)).astype(np.float32)
+                  for _ in range(4))
+    lengths = np.array([n for t in ts for n in (t - t // 4, 0)])
+    mask = (np.arange(t_pad)[None] < lengths[:, None]).astype(np.int32)
+    g *= mask[:, :, None, None]  # no cotangent on padded query rows, as in training
+    want_o, want = _pallas_fwd_grads(q, k, v, mask, g, rate, seed, t_pad, block=128)
+    inv_keep = 1.0 / (1.0 - rate)
+    keep_all = (port.keep_mask(seed, 2 * len(ts) * h, t_pad, t_pad, t_pad, rate)
+                .view(2 * len(ts), h, t_pad, t_pad) if rate else None)
+    one_product = 0.0  # plain TF32's forward error, which the tolerance must see
+    for i, t in enumerate(ts):
+        rows = slice(2 * i, 2 * i + 2)
+        qt, kt, vt, gt = (torch.from_numpy(x[rows, :t].copy()) for x in (q, k, v, g))
+        mt = torch.from_numpy(mask[rows, :t].copy())
+        keep = None if keep_all is None else keep_all[rows, :, :t, :t]
+        o, *grads = _split_attention(qt, kt, vt, mt, keep, inv_keep, gt)
+        np.testing.assert_allclose(o[0].numpy(), want_o[rows][0, :t], rtol=0, atol=1e-4,
+                                   err_msg=f"T={t} output")
+        o1 = _split_attention(qt, kt, vt, mt, keep, inv_keep, gt, products=1)[0]
+        one_product = max(one_product, float(np.abs(o1[0].numpy() - want_o[rows][0, :t]).max()))
+        for name, a, w in zip(("dq", "dk", "dv"), grads, want):
+            assert _held(a.numpy(), w[rows, :t]) <= 1e-4, (t, name)
+        # the port's plain versions, every row and the whole cotangent; on
+        # its own the slice hashes (b*h) from 0
+        whole = torch.from_numpy(rng.normal(0, 1, qt.shape).astype(np.float32))
+        if rate:
+            keep = port.keep_mask(seed, 2 * h, t, t, t_pad, rate).view(2, h, t, t)
+        o, *grads = _split_attention(qt, kt, vt, mt, keep, inv_keep, whole)
+        ref_o = port.attention_ref(qt, kt, vt, mt, rate, seed, t_pad)
+        np.testing.assert_allclose(o.numpy(), ref_o.numpy(), rtol=0, atol=1e-4)
+        ref = port.attention_bwd_ref(qt, kt, vt, mt, ref_o, whole, rate, seed, t_pad)
+        for name, a, w in zip(("dq", "dk", "dv"), grads, ref):
+            assert _held(a.numpy(), w.numpy()) <= 1e-4, (t, name, "plain")
+    assert one_product > 1e-4, one_product  # one TF32 product would not hold it
 
 
 # bf16: about two bf16 ulps of the output (rtol) over a small floor, as
@@ -200,11 +308,12 @@ def test_cuda_kernel_matches_ref(dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_bwd_kernel_matches_ref(dtype):
     """Kernel B2 against attention_bwd_ref; runs on a card only. fp32 atol
-    1e-4 (sums in another order); bf16 gradients are compared relative to
-    their largest magnitude (2e-2: bf16 operands of the five products).
-    Row 2 has every key masked; the cotangent is once zeroed on the padded
-    query rows (as in training) and once left whole, so the all-masked
-    row's 1/T weights reach the gradients."""
+    1e-4 (3xTF32 products, sums in another order); bf16 gradients are
+    compared relative to their largest magnitude (2e-2: bf16 operands of
+    the five products). Row 2 has every key masked; the cotangent is once
+    zeroed on the padded query rows (as in training) and once left whole,
+    so the all-masked row's 1/T weights reach the gradients. A second call
+    on the same inputs gives bit-equal gradients in either dtype."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: kernel B2 runs only on the card")
     rng = np.random.default_rng(9)
@@ -220,8 +329,11 @@ def test_cuda_bwd_kernel_matches_ref(dtype):
             n0 = port.flash_attention_bwd.launches
             got = port.flash_attention_bwd(q, k, v, mask, o, cot, lse, rate, 5, 256)
             assert port.flash_attention_bwd.launches == n0 + 1
+            again = port.flash_attention_bwd(q, k, v, mask, o, cot, lse, rate, 5, 256)
             want = port.attention_bwd_ref(q, k, v, mask, o, cot, rate, 5, 256)
             torch.cuda.synchronize()
+            for a, a2 in zip(got, again):
+                assert torch.equal(a, a2)
             for a, w in zip(got, want):
                 a, w = a.float(), w.float()
                 if dtype == "float32":
@@ -278,10 +390,10 @@ def _check_both_kernels(dtype, q, k, v, g, mask, rate, t_hash):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("t", [1, 63, 65, 129])
+@pytest.mark.parametrize("t", [1, 63, 65, 128, 129, 192])
 def test_cuda_kernels_ragged_t(t, dtype):
-    """B1 and B2 at lengths that end inside a tile or fill one exactly,
-    dropout 0 and 0.1; runs on a card only."""
+    """B1 and B2 at lengths that end inside a tile or fill the 32-, 64- and
+    128-row tiles exactly, dropout 0 and 0.1; runs on a card only."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: kernels B1 and B2 run only on the card")
     q, k, v, g, mask = _card_inputs(3, t, 2, dtype, t, [t, t // 2 + 1, 0])
