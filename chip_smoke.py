@@ -4,10 +4,13 @@
     python3 chip_smoke.py                  # every phase (the contract's run)
     python3 chip_smoke.py --kernels-only   # phases 1, 2 and 5: build and check
 
-Drives the port's serving path, its stage-0 training path, its federated
-3-stage pipeline, its system-run chain (extract, svm, detail-wer,
-feat-scoring) and the tools around it (the native loaders, transcribe,
-export-hf, sweep; privacy_preserve_federated_asr_tpu_torch) and holds its
+Drives the port's serving path, its stage-0 training path (also with
+grad_accum, remat and prefetch), its federated 3-stage pipeline (also with
+FedProx, FedAdam, top-k, secure and compressed aggregation, a
+semi-supervised N-best phase and round checkpoints with their sidecars), its
+system-run chain (extract, svm, detail-wer, feat-scoring) and the tools
+around it (the native loaders, transcribe, export-hf, sweep;
+privacy_preserve_federated_asr_tpu_torch) and holds its
 hand-written kernels against their plain versions. It imports nothing of JAX or of the
 JAX package. Phases, in order; any failure raises and ends the run with a
 non-zero exit:
@@ -96,10 +99,31 @@ non-zero exit:
 16. ``cli sweep asr -st 0 --grid learning_rate=1e-5,1e-4``, one epoch of the
    corpus per combo: two rows, both combos from bit-equal params, exact B1
    and B2 launch counts;
-17. one JSON line listing each kernel (launches on the main paths, in all
+17. ``cli train -st 0 --grad_accum 2 --remat`` (prefetch 2, the default) at
+   full width in bf16, batch 8: 8 micro-steps = 4 optimizer updates and one
+   evaluation; B1 = 24 x (2 per micro-step: the forward and remat's
+   recompute) + 24 per eval batch, B2 = 24 per micro-step; frozen params
+   bit-unchanged, all finite; micro-step ms and utt/s beside phase 6's, and
+   the peak memory one micro-step adds with and without remat;
+18. grad_accum and remat card against CPU: phase 7's 4-layer fp32 model on
+   cached features, one update from grad_accum 2 x B=2 on the card and on the
+   CPU (phase 7's rule), the same at attention dropout 0 against one update
+   of B=4 on the card, and a remat step against a plain step on the card
+   (bit-equality reported);
+19. ``cli federated -fl_st 0`` at full width from phase 8's final model with
+   ``--fedprox_mu 0.01 --server_optimizer adam --topk_fraction 0.25 -sl 0.5
+   --num_lms 2``, 8 unlabeled WAVs, one round per stage and round
+   checkpoints: exact B1 / B2 launches per stage with the pseudo-label passes
+   (24 x 2 passes x batches) and the N-best (``mt``) steps counted, only the
+   stage's network moved, the ``-server`` and ``-topk`` sidecars written;
+   then stage-2 round 2 resumed from round 1's checkpoint and sidecars equals
+   the run that did not stop, bit for bit;
+20. phase 9's stage-1 round card against CPU once each with ``compress_bits
+   8`` (nearest), ``secagg_clip_norm`` and ``topk_fraction`` (phase 9's rule);
+21. one JSON line listing each kernel (launches on the main paths, in all
    and by dtype: each phase that drives a main path sets the wrappers'
    counts to 0 just before and reads them just after, the fp32 card-vs-CPU
-   phases 4, 7, 9 and 11 included; error against the plain version, times
+   phases 4, 7, 9, 11, 18 and 20 included; error against the plain version, times
    and bound, and under "times" the same numbers at each main-path shape in
    both dtypes), the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
@@ -112,6 +136,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -1775,6 +1800,431 @@ def sweep_asr_phase(root: Path) -> dict:
     return {"b1": b1, "b2": b2, "combo_s": wall / 2}
 
 
+# ---------------------------------------------------------------------------
+# 17. training at full width with grad_accum, remat and prefetch
+# ---------------------------------------------------------------------------
+
+ACCUM_BATCH, ACCUM_K, ACCUM_MICRO = 8, 2, 8
+
+
+def _step_memory(tr, fn_args_list, remat: bool) -> float:
+    """Peak device memory (GiB) one micro-step adds over what is allocated
+    before it, with the encoder's remat switched as asked."""
+    enc = tr.state.model.backbone.encoder
+    was, enc.remat = enc.remat, remat
+    try:
+        fn, args = fn_args_list
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn(tr.state, *args)
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    finally:
+        enc.remat = was
+
+
+def train_accum_remat_full_width(root: Path, phase6: dict) -> dict:
+    """``cli train -st 0 --grad_accum 2 --remat`` (prefetch 2, the
+    default) at full width, bf16, batch 8: 8 micro-steps = 4 optimizer
+    updates, then one evaluation. Exact launches (B1 twice per layer per
+    micro-step: the forward and remat's recompute), frozen params
+    bit-unchanged, all finite; micro-step ms and utt/s beside phase 6's; the
+    peak memory of one micro-step with and without remat at the same
+    batch."""
+    from privacy_preserve_federated_asr_tpu_torch import cli
+    from privacy_preserve_federated_asr_tpu_torch.ops.attention import (
+        flash_attention_bwd, flash_attention_fwd)
+
+    b = ACCUM_BATCH
+    data = root / "accum"
+    _write_corpus(data / "data", b * ACCUM_MICRO // 2, b)
+    args = ["train", "--model_type", "data2vec", "-st", "0", "--compute_dtype", "bfloat16",
+            "--train_batch_size", str(b), "--eval_batch_size", str(b), "--epochs", "2",
+            "--seed", "0", "--grad_accum", str(ACCUM_K), "--remat", "-lr", "1e-5",
+            "--audio_dir", "data/clips", "--train_csv", "data/train.csv",
+            "--test_csv", "data/test.csv", "--spk2label", "data/spk2label.npy",
+            "--dataset_cache", "cache", "-model_out", "out", "--device", "cuda"]
+    reset_counts()
+    tr, out, wall = _run_cli(data, args)
+    b1, b2 = flash_attention_fwd.launches, flash_attention_bwd.launches
+    tally("cli train --grad_accum --remat")
+    micro, n_eval, tx = tr.state.step, len(tr.eval_batcher), tr.state.tx
+    ev = _last_json(out)
+    # a constant lr of 1e-5: every trainable tensor moves in 4 updates (the
+    # default warmup would start them at 0 and 1e-8)
+    assert tr.tcfg.prefetch == 2 and tr.state.model.backbone.encoder.remat
+    assert micro == ACCUM_MICRO, micro
+    assert tx.schedule.last_epoch == ACCUM_MICRO // ACCUM_K and tx.mini_step == 0, (
+        tx.schedule.last_epoch, tx.mini_step)
+    assert b1 == LAYERS * (2 * micro + n_eval) and b2 == LAYERS * micro, (b1, b2, micro)
+    assert all(np.isfinite(v) for v in ev.values()), ev
+    init = cli.load_weights(tr.cfg, None, 0, "cuda")
+    final = tr.state.model.state_dict()
+    for k, v in final.items():
+        assert torch.equal(v, init[k]) == k.startswith(FROZEN_AT_STAGE0), k
+        assert torch.isfinite(v).all(), k
+    log(f"[accum] cli train -st 0 --grad_accum {ACCUM_K} --remat (prefetch 2, data2vec-"
+        f"audio-large DACS bf16, batch {b}): {micro} micro-steps, "
+        f"{tx.schedule.last_epoch} optimizer updates, + evaluate() in {wall:.1f} s; eval "
+        f"{ev}; launches B1 {b1} = {LAYERS} x (2 x {micro} micro-steps: forward and "
+        f"remat's recompute + {n_eval} eval forward), B2 {b2} = {LAYERS} x {micro}; frozen "
+        f"params bit-unchanged, every trainable one moved, all finite  [{card_line()}]")
+
+    times = []
+    batches = (x for epoch in range(5, 9) for x in tr.train_batches(epoch))
+    for _ in range(8):
+        n_real, (fn, fn_args) = next(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(tr.state, *fn_args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_s = float(np.mean(times[2:]))
+    nxt = next(batches)[1]
+    mem = {remat: _step_memory(tr, nxt, remat) for remat in (False, True)}
+    log(f"[accum] micro-step (B={b} x 5 s, T=249, bf16, remat, accumulate / update in turn): "
+        f"{step_s * 1e3:.1f} ms mean over {len(times) - 2} (min {min(times[2:]) * 1e3:.1f}, "
+        f"max {max(times[2:]) * 1e3:.1f}), {b / step_s:.1f} utt/s; phase 6's step (B=16, no "
+        f"remat, no accumulation) {phase6['step_s'] * 1e3:.1f} ms, "
+        f"{BWD_SHAPES[0][0] / phase6['step_s']:.1f} utt/s; peak memory one micro-step adds: "
+        f"{mem[False]:.2f} GiB without remat, {mem[True]:.2f} GiB with  [{card_line()}]")
+    del tr, init, final
+    torch.cuda.empty_cache()
+    return {"b1": b1, "b2": b2, "step_s": step_s, "mem": mem}
+
+
+# ---------------------------------------------------------------------------
+# 18. grad_accum and remat, card against CPU
+# ---------------------------------------------------------------------------
+
+def _close_params(a: dict, c: dict, lr: float) -> tuple[float, float]:
+    """Phase 7's rule: all finite, at most 0.5% of the elements further apart
+    than 1e-2 lr; returns (max |diff|, share beyond)."""
+    worst, off = 0.0, 0
+    for k, v in c.items():
+        assert torch.isfinite(a[k]).all(), k
+        diff = (a[k] - v).abs()
+        worst = max(worst, diff.max().item())
+        off += int((diff > 1e-2 * lr).sum())
+    frac = off / sum(v.numel() for v in c.values())
+    assert frac <= 5e-3, frac
+    return worst, frac
+
+
+def accum_remat_vs_cpu() -> None:
+    """The 4-layer fp32 model of phase 7 on cached frontend features: one
+    update from grad_accum 2 x B=2 on the card equals it on the CPU; at
+    attention dropout 0 it equals one update of B=4 with grad_accum 1; a
+    remat step equals a plain step on the card (bit-equality reported)."""
+    from privacy_preserve_federated_asr_tpu_torch.data.audio import normalize_input_values
+    from privacy_preserve_federated_asr_tpu_torch.data.tokenizer import CTCCharTokenizer
+    from privacy_preserve_federated_asr_tpu_torch.models import (
+        BackboneConfig, DACSConfig, DACSModel, init_dacs_state_dict)
+    from privacy_preserve_federated_asr_tpu_torch.train import (
+        FeatureBatch, create_train_state, frontend_forward_fn, make_feature_train_step,
+        make_optimizer)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lr = 1e-4
+    tok = CTCCharTokenizer()
+
+    def cfg_at(rate):
+        return DACSConfig(backbone=BackboneConfig.data2vec_audio_large().replace(
+            num_hidden_layers=4, hidden_dropout=0.0, activation_dropout=0.0,
+            feat_proj_dropout=0.0, attention_dropout=rate), stage=0)
+
+    cfg = cfg_at(TRAIN_RATE)
+    sd = init_dacs_state_dict(cfg, torch.Generator("cpu").manual_seed(6))
+    x = np.zeros((4, 80000), np.float32)
+    lengths = [80000, 67200, 72000, 80000]
+    for i, n in enumerate(lengths):
+        x[i, :n] = normalize_input_values(_utterance(n / 16000, 60 + i))
+    ids = [tok.encode(s) for s in SENTENCES[:4]]
+    labels = np.full((4, 32), -100, np.int64)
+    for i, s in enumerate(ids):
+        labels[i, : len(s)] = s
+    host = dict(labels=labels, label_lengths=np.array([len(s) for s in ids]),
+                dementia_labels=np.array([1, 0, 1, 0]), sample_mask=np.ones(4, np.float32))
+    with torch.device("meta"):
+        fe = DACSModel(cfg, torch.float32)
+    fe = fe.to_empty(device="cpu")
+    fe.load_state_dict(sd)
+    feats, fl = frontend_forward_fn(fe)(torch.from_numpy(x), torch.from_numpy(
+        np.asarray(lengths, np.int32)))
+
+    def batch(rows, dev):
+        return FeatureBatch(feats[rows].to(dev), fl[rows].to(dev),
+                            **{k: torch.from_numpy(v[rows]).to(dev) for k, v in host.items()})
+
+    def run(dev, c, k, remat=False, parts=((0, 2), (2, 4))):
+        with torch.device("meta"):
+            model = DACSModel(c, torch.float32, remat=remat)
+        model = model.to_empty(device=dev)
+        model.load_state_dict(sd)
+        state = create_train_state(model, make_optimizer(model, 0, learning_rate=lr,
+                                                         grad_accum=k), 3)
+        step = make_feature_train_step(c)
+        metrics = [{n: float(v) for n, v in step(state, batch(slice(*p), dev)).items()}
+                   for p in parts]
+        assert state.tx.schedule.last_epoch == len(parts) // k
+        return metrics, {n: v.cpu() for n, v in model.state_dict().items()}
+
+    reset_counts()  # the CPU runs the plain versions: only the card's launches count
+    m_gpu, p_gpu = run("cuda", cfg, ACCUM_K)
+    m_cpu, p_cpu = run("cpu", cfg, ACCUM_K)
+    for a, c in zip(m_gpu, m_cpu):
+        for n, rtol in (("loss", 1e-4), ("grad_norm", 1e-3)):
+            assert abs(a[n] - c[n]) <= rtol * abs(c[n]), (n, a[n], c[n])
+    worst, frac = _close_params(p_gpu, p_cpu, lr)
+    log(f"[accum-e2e] 4-layer fp32 stage 0, attention dropout {TRAIN_RATE}, grad_accum "
+        f"{ACCUM_K} x B=2 = 1 update at lr {lr}: micro-step (loss, grad norm) card "
+        f"{[(m['loss'], m['grad_norm']) for m in m_gpu]}, CPU "
+        f"{[(m['loss'], m['grad_norm']) for m in m_cpu]} (rtol 1e-4, 1e-3); params max|diff| "
+        f"{worst:.2e}, {frac:.2e} of elements beyond 1e-2 lr (limit 5e-3)")
+    cfg0 = cfg_at(0.0)
+    _, p_acc = run("cuda", cfg0, ACCUM_K)
+    _, p_big = run("cuda", cfg0, 1, parts=((0, 4),))
+    worst, frac = _close_params(p_acc, p_big, lr)
+    log(f"[accum-e2e] on the card, attention dropout 0: grad_accum {ACCUM_K} x B=2 against "
+        f"one update of B=4: params max|diff| {worst:.2e}, {frac:.2e} of elements beyond "
+        f"1e-2 lr (limit 5e-3)")
+    m_plain, p_plain = run("cuda", cfg, 1, parts=((0, 2),))
+    m_remat, p_remat = run("cuda", cfg, 1, remat=True, parts=((0, 2),))
+    tally("grad_accum and remat, card vs CPU")
+    bit = m_plain == m_remat and all(torch.equal(p_remat[k], v) for k, v in p_plain.items())
+    worst, frac = _close_params(p_remat, p_plain, lr)
+    log(f"[accum-e2e] on the card, attention dropout {TRAIN_RATE}: a remat step against a "
+        f"plain step: loss {m_remat[0]['loss']:.6f} / {m_plain[0]['loss']:.6f}, grad norm "
+        f"{m_remat[0]['grad_norm']:.6f} / {m_plain[0]['grad_norm']:.6f}; params "
+        f"{'bit-equal' if bit else 'not bit-equal'} (max|diff| {worst:.2e}, {frac:.2e} beyond "
+        f"1e-2 lr, limit 5e-3)")
+
+
+# ---------------------------------------------------------------------------
+# 19. federated at full width with the engine's options
+# ---------------------------------------------------------------------------
+
+FL_OPTS = ["--fedprox_mu", "0.01", "--server_optimizer", "adam", "--topk_fraction", "0.25",
+           "-sl", "0.5", "--num_lms", "2"]
+FL_UNSUP = 8
+
+
+def _options_engine(eng, params, round_save_dir=None):
+    """A fresh engine with ``eng``'s config, data and tokenizer from
+    ``params``."""
+    from privacy_preserve_federated_asr_tpu_torch.federated import FederatedEngine
+
+    fcfg = dataclasses.replace(eng.fcfg, round_save_dir=round_save_dir, log_file=None)
+    return FederatedEngine(eng.cfg, fcfg, eng.client_examples, eng.public_examples, None,
+                           eng.tokenizer, params, device="cuda",
+                           client_unsup_examples=eng.client_unsup_examples)
+
+
+def federated_options_full_width(root: Path) -> dict:
+    """``cli federated -fl_st 0`` at full width from phase 8's final model
+    with FedProx, FedAdam, top-k, a semi-supervised phase on 8 unlabeled
+    WAVs and 2 N-best heads, one round per stage, round checkpoints on:
+    exact B1 / B2 launches per stage (the pseudo-label passes counted), only
+    the stage's network moved, the -server and -topk sidecars written; then
+    stage-2 round 2 resumed from round 1's checkpoint and sidecars equals
+    the run that did not stop, bit for bit."""
+    from privacy_preserve_federated_asr_tpu_torch.federated.engine import FederatedEngine
+    from privacy_preserve_federated_asr_tpu_torch.models.recipes import (
+        stage_trainable_predicate)
+    from privacy_preserve_federated_asr_tpu_torch.ops.attention import (
+        flash_attention_bwd, flash_attention_fwd)
+    from privacy_preserve_federated_asr_tpu_torch.train.optim import path_of
+
+    from scipy.io import wavfile
+
+    unsup = root / "data/unsup"
+    unsup.mkdir()
+    rows = []
+    for i in range(FL_UNSUP):
+        name = f"S{i // 2:03d}_PAR_u{i}_0_5000.wav"  # phase 8's speakers (spk2label)
+        wavfile.write(root / "data/clips" / name, 16000, (np.clip(
+            _utterance(float(4.0 + 0.1 * i), 3000 + i), -1, 1) * 32767).astype(np.int16))
+        rows.append(f"{name},{SENTENCES[(i + 3) % len(SENTENCES)].lower()}")
+    (root / "data/unsup.csv").write_text("path,sentence\n" + "\n".join(rows) + "\n")
+
+    stages, originals = {}, {}
+
+    def checked(name: str, stage: int):
+        def run(eng):
+            before = {k: v.clone() for k, v in eng.global_params.items()}
+            b1, b2 = flash_attention_fwd.launches, flash_attention_bwd.launches
+            n_rows = len(eng.logger.history)
+            out = originals[name](eng)
+            pred = stage_trainable_predicate(stage)
+            moved = [k for k, v in eng.global_params.items() if not torch.equal(v, before[k])]
+            assert all(pred(path_of(k)) for k in moved), (stage, moved[:5])
+            assert all(torch.isfinite(v).all() for v in eng.global_params.values()), stage
+            stages[stage] = {"b1": flash_attention_fwd.launches - b1,
+                             "b2": flash_attention_bwd.launches - b2,
+                             "rows": eng.logger.history[n_rows:], "moved": moved}
+            return out
+        return run
+
+    for name, stage in (("run_stage1", 0), ("run_stage2", 1), ("run_stage3", 2)):
+        originals[name] = getattr(FederatedEngine, name)
+        setattr(FederatedEngine, name, checked(name, stage))
+    pseudo = {}
+    real_pseudo = FederatedEngine._round_pseudo_labels
+
+    def counted_pseudo(self, cids, stage, rnd):
+        b1 = flash_attention_fwd.launches
+        out = real_pseudo(self, cids, stage, rnd)
+        pseudo[stage] = flash_attention_fwd.launches - b1
+        return out
+
+    FederatedEngine._round_pseudo_labels = counted_pseudo
+    try:
+        reset_counts()
+        eng, out, wall = _run_cli(root, [
+            "federated", *FL_ARGS, *FL_OPTS, "--unsup_train_csv", "data/unsup.csv",
+            "--epochs", "1", "-fl_st", "0", "--round_save_dir", "rounds",
+            "-model_in", "out/fl_final_global/final", "-model_out", "out/opts"])
+        b1, b2 = flash_attention_fwd.launches, flash_attention_bwd.launches
+        tally("cli federated, engine options")
+    finally:
+        FederatedEngine._round_pseudo_labels = real_pseudo
+        for name, fn in originals.items():
+            setattr(FederatedEngine, name, fn)
+    ev = _last_json(out)
+    assert all(np.isfinite(v) for v in ev.values()), ev
+    f = eng.fcfg
+    n_eval = -(-FL_TEST // FL_BATCH)
+    n_unsup = {c: len(v) for c, v in eng.client_unsup_examples.items()}
+    want_pseudo = LAYERS * eng.cfg.num_lms * sum(-(-n // FL_BATCH) for n in n_unsup.values())
+    for stage, s in stages.items():
+        rows = s["rows"]
+        rnd = next(r for r in rows if "phase" in r)
+        mt_steps, sup_steps = (int(x) for x in rnd["phase_steps"].split("+"))
+        m = len(rnd["clients"].split(",")) if isinstance(rnd["clients"], str) else 1
+        assert rnd["phase"] == ("mt+res" if stage == 0 else "mt+res_h"), rnd
+        ws = sum(r["warm_start_steps"] for r in rows if "warm_start_steps" in r)
+        n_evals = sum("eval_loss" in r for r in rows)
+        assert pseudo[stage] == want_pseudo, (stage, pseudo[stage], want_pseudo)
+        if stage == 0:
+            want = (LAYERS * (ws + m * (mt_steps + sup_steps) + n_evals * n_eval) + want_pseudo,
+                    LAYERS * (ws + m * (mt_steps + sup_steps)))
+        else:
+            cache_fwd = sum(r["hidden_cache_forwards"] for r in rows
+                            if "hidden_cache_forwards" in r)
+            want = (LAYERS * (-(-FL_TRAIN // FL_BATCH) + cache_fwd + n_eval + m * mt_steps)
+                    + want_pseudo, 0)
+        assert (s["b1"], s["b2"]) == want, (stage, s["b1"], s["b2"], want, rows)
+        head = {0: "lm_head.weight", 1: "dementia_head.weight", 2: "arbitrator.weight"}
+        assert head[stage] in s["moved"], (stage, len(s["moved"]))
+        log(f"[federated-opts] stage {stage}: B1 {s['b1']} (pseudo-label passes {pseudo[stage]}"
+            f" = {LAYERS} x {eng.cfg.num_lms} passes x batches), B2 {s['b2']} launches (as "
+            f"expected); round {rnd['round_s']:.2f} s ({rnd['phase']}: {rnd['phase_steps']} "
+            f"steps per client, {m} clients); {len(s['moved'])} tensors moved, all of the "
+            f"stage's network, all finite  [{card_line()}]")
+    names = sorted(p.name for p in (root / "rounds").iterdir())
+    assert names == [f"stage{s}-round-1{x}" for s in range(3)
+                     for x in ("", "-server", "-topk")], names
+    log(f"[federated-opts] cli federated {' '.join(FL_OPTS)} --unsup_train_csv ({FL_UNSUP} "
+        f"WAVs) -fl_st 0 --round_save_dir: {wall:.1f} s of host time; round checkpoints "
+        f"{names}; final eval {ev}  [{card_line()}]")
+
+    # resume: stage-2 round 2 from round 1's checkpoint and sidecars against
+    # the run that did not stop, both from the same params
+    params = {k: v.clone() for k, v in eng.global_params.items()}
+    eng._topk_residuals.clear()
+    eng._server_opts.clear()
+    with _cwd(root), contextlib.redirect_stdout(io.StringIO()):
+        first = _options_engine(eng, params, "resume")
+        first.run_rounds(stage=2, num_rounds=1)
+        del first
+        straight = _options_engine(eng, params)
+        want = straight.run_rounds(stage=2, num_rounds=2)
+        want = {k: v.clone() for k, v in want.items()}
+        del straight
+        resumed = _options_engine(eng, params, "resume")
+        got = resumed.run_rounds(stage=2, num_rounds=2)
+        assert [r["fl_round"] for r in resumed.logger.history if "phase" in r] == [2]
+    diff = [k for k, v in want.items() if not torch.equal(got[k], v)]
+    log(f"[federated-opts] stage-2 round 2 resumed from round 1's checkpoint with its "
+        f"-server and -topk sidecars against the run that did not stop: "
+        f"{'bit-equal' if not diff else f'{len(diff)} tensors differ: {diff[:3]}'}")
+    assert not diff, diff
+    del resumed, eng
+    torch.cuda.empty_cache()
+    return {"b1": b1, "b2": b2}
+
+
+# ---------------------------------------------------------------------------
+# 20. compressed, secure and top-k rounds, card against CPU
+# ---------------------------------------------------------------------------
+
+AGG_MODES = (("compress_bits 8, nearest", dict(compress_bits=8,
+                                               compress_stochastic_rounding=False)),
+             ("secagg_clip_norm 1.0", dict(secagg_clip_norm=1.0)),
+             ("topk_fraction 0.25", dict(topk_fraction=0.25)))
+
+
+def federated_aggregators_vs_cpu() -> None:
+    """Phase 9's stage-1 round of the 4-layer fp32 model on the card and on
+    the CPU once per aggregator (compressed with nearest rounding, secure,
+    top-k), held to phase 9's rule: client losses rtol 1e-4, at most 0.5% of
+    the elements further apart than 1e-2 lr, only dementia_head moved."""
+    from privacy_preserve_federated_asr_tpu_torch.data import (
+        AsrExample, CTCCharTokenizer, prepare_examples)
+    from privacy_preserve_federated_asr_tpu_torch.federated import (
+        FederatedConfig, FederatedEngine)
+    from privacy_preserve_federated_asr_tpu_torch.models import (
+        BackboneConfig, DACSConfig, init_dacs_state_dict)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lr = 1e-4
+    cfg = DACSConfig(backbone=BackboneConfig.data2vec_audio_large().replace(
+        num_hidden_layers=4, hidden_dropout=0.0, activation_dropout=0.0,
+        attention_dropout=0.0, feat_proj_dropout=0.0, final_dropout=0.0), stage=1)
+    sd = init_dacs_state_dict(cfg, torch.Generator("cpu").manual_seed(4))
+    tok = CTCCharTokenizer()
+
+    def client(n, base):
+        return prepare_examples([AsrExample(
+            path=f"C{base}_{i}.wav", array=_utterance(1.5 + 0.4 * i, base + i),
+            text=SENTENCES[(base + i) % len(SENTENCES)], dementia_label=(base + i) % 2)
+            for i in range(n)], tok)
+
+    clients = {0: client(3, 40), 1: client(2, 50)}
+    base = FederatedConfig(num_rounds=1, local_ep=1, batch_size=2, eval_batch_size=2,
+                           learning_rate=lr, log_dir=".")
+    out = {}
+    reset_counts()  # the CPU runs the plain versions: only the card's launches count
+    for dev in ("cuda", "cpu"):
+        # one engine per device: its encoder cache serves the three rounds
+        eng = FederatedEngine(cfg, base, clients, [], None, tok, sd, device=dev)
+        for name, mode in AGG_MODES:
+            eng.fcfg = dataclasses.replace(base, **mode)
+            eng.global_params = {k: v.to(eng.device, torch.float32) for k, v in sd.items()}
+            n_rows = len(eng.logger.history)
+            params = eng.run_rounds(stage=1, num_rounds=1)
+            row = [r for r in eng.logger.history[n_rows:] if "local_steps" in r][0]
+            assert row["phase"] == "res_h", row
+            out[dev, name] = (row, {k: v.cpu() for k, v in params.items()})
+        del eng
+    tally("aggregators, card vs CPU")
+    for name, _ in AGG_MODES:
+        (rg, pg), (rc, pc) = out["cuda", name], out["cpu", name]
+        losses = [(rg[f"client{c}_loss"], rc[f"client{c}_loss"]) for c in (0, 1)]
+        for g, c in losses:
+            assert abs(g - c) <= 1e-4 * abs(c), (name, losses)
+        for k, c in pc.items():
+            assert k.startswith("dementia_head.") or torch.equal(pg[k], c), (name, k)
+        assert not torch.equal(pc["dementia_head.weight"], sd["dementia_head.weight"]), name
+        worst, frac = _close_params(pg, pc, lr)
+        log(f"[aggregators-e2e] one stage-1 round, 4-layer fp32, {name}: client losses card / "
+            f"CPU {losses} (rtol 1e-4); params max|diff| {worst:.2e}, {frac:.2e} of elements "
+            f"beyond 1e-2 lr (limit 5e-3); only dementia_head moved")
+
+
 def _shape_times(row: dict, **shape) -> dict:
     return {**shape, **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                             "library_ms")}}
@@ -1812,6 +2262,10 @@ def main(argv=None) -> None:
         export = export_phase(root, transcribe["greedy"])
         sweep_svm_phase(root, chain["svm"])
         sweep = sweep_asr_phase(root)
+        accum = train_accum_remat_full_width(root, training)
+        accum_remat_vs_cpu()
+        fl_opts = federated_options_full_width(root)
+        federated_aggregators_vs_cpu()
     tools_b1 = (sum(transcribe["launches"].values()) + sum(export["launches"].values())
                 + sweep["b1"])
     by_dtype = {name: {dt: sum(c.get(name, {}).get(dt, 0) for c in COUNTS.values())
@@ -1819,10 +2273,12 @@ def main(argv=None) -> None:
     # the tallies hold the counts that each phase asserted, and the card's
     # launches of the fp32 card-vs-CPU phases besides
     e2e = ("serving, card vs CPU", "training step, card vs CPU",
-           "federated round, card vs CPU", "extraction, card vs CPU")
+           "federated round, card vs CPU", "extraction, card vs CPU",
+           "grad_accum and remat, card vs CPU", "aggregators, card vs CPU")
     main_b1 = (serving["launches"] + training["b1"] + federated["b1"]
-               + sum(chain["launches"].values()) + tools_b1)
-    main_b2 = training["b2"] + federated["b2"] + sweep["b2"]
+               + sum(chain["launches"].values()) + tools_b1 + accum["b1"] + fl_opts["b1"])
+    main_b2 = (training["b2"] + federated["b2"] + sweep["b2"] + accum["b2"]
+               + fl_opts["b2"])
     assert sum(sum(c["flash_fwd"].values()) for p, c in COUNTS.items() if p not in e2e) \
         == main_b1, (COUNTS, main_b1)
     assert sum(sum(c["flash_bwd"].values()) for p, c in COUNTS.items() if p not in e2e) \

@@ -50,7 +50,7 @@ commands read those pickles without pandas (``evaluation/extract.py``).
 ``--beam_size > 0`` (CTC prefix beam search on the host, ``ops/beam.py``,
 with a character-bigram LM fitted on ``--lm_train_csv`` for shallow fusion).
 ``sweep text`` and ``--compute_dtype int8`` raise ``NotImplementedError``
-(port slices 11 and 8).
+(port slices 12 and 9).
 """
 
 from __future__ import annotations
@@ -85,6 +85,7 @@ def _dacs_cfg(args):
         stage=args.STAGE,
         gs_tau=args.GS_TAU,
         toggle_ratio=args.TOGGLE_RATIO,
+        num_lms=getattr(args, "num_lms", 1),
         **train,
     )
 
@@ -219,8 +220,6 @@ def cmd_federated(args):
     from .train.checkpoint import save_params
 
     device = resolve_device(args.device)
-    if args.num_lms > 1:
-        raise NotImplementedError("federated options not ported yet: num_lms > 1")
     if args.scan_layers or args.dp > 1 or args.tp > 1:
         print("[federated] note: --scan_layers/--dp/--tp apply to `train` only; FL "
               "parallelism is the engine's (client, data) mesh (FederatedConfig.mesh)")
@@ -245,9 +244,27 @@ def cmd_federated(args):
     cfg = _dacs_cfg(args)
     train_exs, tok = _load_examples(args, args.train_csv)
     test_exs, _ = _load_examples(args, args.test_csv)
-    sd = load_weights(cfg, args.model_in_path, args.seed, device)
+    # the global params are single-head; the N-best heads (num_lms > 1) are
+    # per-client scratch inside a round
+    sd = load_weights(cfg.replace(num_lms=1), args.model_in_path, args.seed, device)
     clients = {cid: filter_by_speakers(train_exs, CLIENT_SPLITS_ADRESS.get(cid, ()))
                for cid in range(args.num_users)}
+    # unlabeled (teacher-transcribed) per-client data for supervised_level
+    # < 1 (reference: ADReSSo, federated_main.py:279-296)
+    unsup_clients = None
+    if args.supervised_level < 1.0:
+        assert args.unsup_train_csv, "--supervised_level < 1 needs --unsup_train_csv"
+        from .data.splits import CLIENT_SPLITS_ADRESSO
+
+        unsup_exs, _ = _load_examples(args, args.unsup_train_csv)
+        unsup_clients = {
+            cid: filter_by_speakers(unsup_exs, CLIENT_SPLITS_ADRESSO.get(cid, ()))
+            for cid in range(args.num_users)}
+        if any(len(v) == 0 for v in unsup_clients.values()):
+            speakers = sorted({e.path.split("_")[0] for e in unsup_exs})
+            unsup_clients = {
+                cid: filter_by_speakers(unsup_exs, speakers[cid::args.num_users])
+                for cid in range(args.num_users)}
     public = filter_by_speakers(train_exs, CLIENT_SPLITS_ADRESS["public"])
     if any(len(v) == 0 for v in clients.values()) or len(public) == 0:
         # the dataset does not use the ADReSS speaker ids: partition the
@@ -258,7 +275,8 @@ def cmd_federated(args):
         clients = {cid: filter_by_speakers(train_exs, speakers[cid::args.num_users])
                    for cid in range(args.num_users)}
         public = train_exs
-    eng = FederatedEngine(cfg, fcfg, clients, public, test_exs, tok, sd, device=device)
+    eng = FederatedEngine(cfg, fcfg, clients, public, test_exs, tok, sd, device=device,
+                          client_unsup_examples=unsup_clients)
     del sd
     out = str(Path(args.model_out_path))
     for fl_stage, run, name in ((1, eng.run_stage1, "FLASR"), (2, eng.run_stage2, "FLAD"),
@@ -411,7 +429,7 @@ def cmd_transcribe(args):
 
     if args.compute_dtype == "int8":
         raise NotImplementedError("transcribe --compute_dtype int8 is not ported yet "
-                                  "(port slice 8: ops/quant.py)")
+                                  "(port slice 9: ops/quant.py)")
     device = resolve_device(args.device)
     src = Path(args.audio)
     paths = sorted(src.glob("**/*.wav")) if src.is_dir() else [src]
@@ -569,8 +587,8 @@ def _add_train(p) -> None:
 
 
 def _add_federated(p) -> None:
-    """The JAX ``cli federated`` flags; those of options not ported yet are
-    accepted and refused by the engine's config (or here: ``--num_lms``)."""
+    """The JAX ``cli federated`` flags; the meshes and ``--fl_zero1`` are
+    accepted and refused by the engine's config until the parallel slice."""
     p.add_argument("--num_lms", type=int, default=1)
     p.add_argument("-fl_st", "--FL_STAGE", type=int, default=0,
                    help="1/2/3, or 0 = full pipeline")
@@ -581,7 +599,8 @@ def _add_federated(p) -> None:
     p.add_argument("--global_ep", type=int, default=30)
     p.add_argument("-sl", "--supervised_level", type=float, default=1.0)
     p.add_argument("--unsup_train_csv", default=None,
-                   help="unlabeled client data for supervised_level < 1 (not ported)")
+                   help="unlabeled (teacher-transcribed) client data for "
+                        "supervised_level < 1 (reference: ADReSSo)")
     p.add_argument("--dp_clip_norm", type=float, default=None,
                    help="DP-FedAvg: clip client update deltas to this L2 norm")
     p.add_argument("--dp_noise_multiplier", type=float, default=0.0,

@@ -28,10 +28,22 @@ after any stage-0 training.
 
 The 3-stage pipeline (reference stage{1,2,3}_training,
 federated_main.py:148-205): each stage = centralized warm-start on the
-public split + FL rounds + graft of the aggregated sub-network. DP-FedAvg
-(``dp_clip_norm``, ``dp_noise_multiplier``) with its RDP accountant is
-ported; the options listed in :func:`_check_ported` are not yet and raise
-``NotImplementedError``.
+public split + FL rounds + graft of the aggregated sub-network. Beside
+FedAvg a round aggregates by DP-FedAvg with its RDP accountant, int8 uplink
+compression, secure aggregation or top-k sparsification with per-client
+error-feedback residuals (``parallel/fed.py``); FedProx adds its proximal
+term to every local objective; a FedOpt server optimizer (FedAvgM or
+FedAdam, one state per stage) turns the round delta into a step. With
+``supervised_level < 1`` an unsupervised phase on ``client_unsup_examples``
+runs before the supervised one: CTC on their own (teacher) transcripts, or
+with ``num_lms > 1`` the N-best multitask update on pseudo labels that the
+round's global model decodes (``federated/multitask.py``). Round r+1 is
+built on the host while round r runs where no phase needs the round's
+global params and every phase is device-resident. Round checkpoints carry
+the server state (``-server``), the top-k residuals (``-topk``) and the
+privacy spend (``-dp.json``) beside the params. The client, data and model
+meshes (``mesh``), ``zero1`` and ``tp`` raise ``NotImplementedError`` until
+the parallel slice.
 """
 
 from __future__ import annotations
@@ -54,20 +66,38 @@ from ..data.tokenizer import CTCCharTokenizer
 from ..models.backbone import feat_extract_output_lengths
 from ..models.config import DACSConfig
 from ..models.recipes import get_recipe
-from ..parallel.fed import FedAvgAccumulator, graft_network, select_network
+from ..parallel.fed import (
+    CompressedDeltaAccumulator,
+    FedAvgAccumulator,
+    SecAggAccumulator,
+    TopKDeltaAccumulator,
+    graft_network,
+    select_network,
+)
 from ..serving.engine import resolve_device
 from ..train.checkpoint import load_params, save_params
 from ..train.logging import JsonlLogger
 from ..train.optim import make_optimizer
+from ..train.prefetch import prefetch_iter
 from ..train.steps import (
     DeviceBatch,
     backbone_forward_fn,
     gather_hidden,
     make_hidden_train_step,
+    make_multitask_train_step,
     make_train_step,
 )
 from ..train.train_state import create_train_state
 from ..train.trainer import _DTYPES, Trainer, TrainerConfig
+from .multitask import (
+    attach_pseudo_labels,
+    copy_first_head_to_lm_head,
+    drop_lm_heads,
+    generate_pseudo_labels,
+    init_lm_heads_from_lm_head,
+    make_pseudo_forward,
+    nbest_stack,
+)
 from .privacy import DpAccountant
 
 # stage -> aggregated sub-network (reference: stage1 aggregates "ASR"
@@ -114,7 +144,7 @@ class FederatedConfig:
     warmup_steps: int = 1000
     weight_decay: float = 0.005
     compute_dtype: str = "float32"
-    remat: bool = False             # not ported (the Trainer refuses it too)
+    remat: bool = False             # recompute each encoder layer in backward
     time_multiple: int = 16000
     label_multiple: int = 32
     max_samples: int | None = None
@@ -122,14 +152,15 @@ class FederatedConfig:
     log_file: str | None = None
     log_dir: str = "./saves/log"
     fedavg_weighted: bool = False   # reference uses an unweighted mean
-    mesh: Any = None                # client/data/model mesh: not ported
-    zero1: bool = False             # not ported
-    tp: bool = False                # not ported
+    mesh: Any = None                # client/data/model mesh: the parallel slice
+    zero1: bool = False             # the parallel slice
+    tp: bool = False                # the parallel slice
     # keep client datasets resident on the device across rounds and send
     # only per-round index batches. None = auto: on under ~6 GB of padded
     # [K, n_max, t_max] audio
     resident_client_data: bool | None = None
-    # 1 = supervised only; < 1 (the pseudo-labeled phase) is not ported
+    # 1 = supervised only; 0.5 = unsupervised (pseudo-labeled) phase then
+    # supervised phase per round; 0 = unsupervised only
     supervised_level: float = 1.0
     # stage-1/2 rounds train the heads on cached encoder outputs (the frozen
     # backbone is deterministic there). False disables; past the budget a
@@ -142,14 +173,22 @@ class FederatedConfig:
     dp_clip_norm: float | None = None
     dp_noise_multiplier: float = 0.0
     dp_delta: float = 1e-5          # delta of the reported (epsilon, delta)
-    # uplink compression, secure aggregation, top-k, FedProx and FedOpt:
-    # not ported
+    # uplink compression: each client's round delta quantized to this many
+    # bits (symmetric abs-max; stochastic rounding from a generator seeded
+    # per round, or nearest). None = off. Exclusive with DP-FedAvg
     compress_bits: int | None = None
     compress_stochastic_rounding: bool = True
+    # secure aggregation: deltas L2-clipped to this norm, quantized to
+    # secagg_bits-bit integers and pairwise-masked. None = off. Unweighted
     secagg_clip_norm: float | None = None
     secagg_bits: int = 20
+    # top-k sparsified FedAvg with per-client error-feedback residuals over
+    # the stage's sub-network, kept per stage. None = off
     topk_fraction: float | None = None
+    # FedProx: (mu/2)||w - w_round_start||^2 on each local objective
     fedprox_mu: float = 0.0
+    # FedOpt: "none" = FedAvg, "momentum" = FedAvgM, "adam" = FedAdam, on
+    # the negated round delta; server_lr None = 1.0 (momentum), 1e-2 (adam)
     server_optimizer: str = "none"
     server_lr: float | None = None
     server_momentum: float = 0.9
@@ -165,6 +204,32 @@ class FederatedConfig:
             raise ValueError(f"server_optimizer must be none|momentum|adam, got "
                              f"{self.server_optimizer!r}")
         _check_ported(self)
+        if self.compress_bits is not None and not 2 <= self.compress_bits <= 8:
+            raise ValueError(f"compress_bits must be in [2, 8], got {self.compress_bits}")
+        if self.compress_bits is not None and self.dp_clip_norm is not None:
+            raise ValueError(
+                "compress_bits and dp_clip_norm are mutually exclusive: "
+                "quantize-before-clip vs clip-before-quantize changes the DP "
+                "guarantee, so the combination must be an explicit choice "
+                "(compose compressed_delta_fedavg/dp_fedavg directly)")
+        modes = {"dp_clip_norm": self.dp_clip_norm, "compress_bits": self.compress_bits,
+                 "secagg_clip_norm": self.secagg_clip_norm,
+                 "topk_fraction": self.topk_fraction}
+        on = [k for k, v in modes.items() if v is not None]
+        if len(on) > 1:
+            raise ValueError(
+                f"aggregation modes are mutually exclusive, got {on}; the "
+                "mask/clip/quantize/sparsify ordering of a composition is a "
+                "privacy-accounting decision: compose the parallel/fed.py "
+                "primitives directly if you need one")
+        if self.secagg_clip_norm is not None:
+            if not 2 <= self.secagg_bits <= 24:
+                raise ValueError(f"secagg_bits must be in [2, 24], got {self.secagg_bits}")
+            if self.fedavg_weighted:
+                raise ValueError("secure aggregation is unweighted (per-client sample "
+                                 "counts are private); disable fedavg_weighted")
+        if self.topk_fraction is not None and not 0.0 < self.topk_fraction <= 1.0:
+            raise ValueError(f"topk_fraction must be in (0, 1], got {self.topk_fraction}")
         if self.dp_noise_multiplier and self.dp_clip_norm is None:
             # noise std is clip * multiplier / K: without a clip norm there
             # is no DP at all
@@ -173,29 +238,78 @@ class FederatedConfig:
 
 
 def _check_ported(f: FederatedConfig) -> None:
-    later = {"mesh": f.mesh is not None, "zero1": f.zero1, "tp": f.tp,
-             "remat": f.remat, "fedprox_mu != 0": f.fedprox_mu != 0.0,
-             "server_optimizer != 'none'": f.server_optimizer != "none",
-             "compress_bits": f.compress_bits is not None,
-             "secagg_clip_norm": f.secagg_clip_norm is not None,
-             "topk_fraction": f.topk_fraction is not None,
-             "supervised_level < 1": f.supervised_level < 1.0}
+    later = {"mesh": f.mesh is not None, "zero1": f.zero1, "tp": f.tp}
     missing = [k for k, on in later.items() if on]
     if missing:
         raise NotImplementedError(
             f"federated options not ported yet: {', '.join(missing)}")
 
 
+class ServerOptimizer:
+    """The FedOpt server optimizer on the stage's sub-network (``keys``): the
+    negated round delta is the pseudo-gradient of optax ``sgd(lr,
+    momentum)`` (FedAvgM) or ``adam(lr)`` (FedAdam), with optax's update
+    rules; every other entry is left as the round left it (its delta is 0:
+    graft keeps it)."""
+
+    B1, B2, EPS = 0.9, 0.999, 1e-8
+
+    def __init__(self, kind: str, lr: float, momentum: float, keys: Sequence[str]):
+        self.kind, self.lr, self.momentum, self.keys = kind, lr, momentum, list(keys)
+        self.count = 0
+        self.slots: dict[str, dict[str, torch.Tensor]] = {}  # trace | mu, nu
+
+    def step(self, old: Mapping[str, torch.Tensor],
+             new: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        out = dict(new)
+        self.count += 1
+        names = ("mu", "nu") if self.kind == "adam" else ("trace",)
+        for k in self.keys:
+            g = -(new[k].float() - old[k].float())
+            slot = self.slots.setdefault(k, {n: torch.zeros_like(g) for n in names})
+            if self.kind == "adam":
+                slot["mu"] = (1 - self.B1) * g + self.B1 * slot["mu"]
+                slot["nu"] = (1 - self.B2) * g.square() + self.B2 * slot["nu"]
+                mu_hat = slot["mu"] / (1 - self.B1 ** self.count)
+                nu_hat = slot["nu"] / (1 - self.B2 ** self.count)
+                update = -self.lr * (mu_hat / (nu_hat.sqrt() + self.EPS))
+            else:
+                if self.momentum:
+                    slot["trace"] = g + self.momentum * slot["trace"]
+                    g = slot["trace"]
+                update = -self.lr * g
+            out[k] = (old[k].float() + update).to(old[k].dtype)
+        return out
+
+    def state_dict(self) -> dict[str, torch.Tensor]:
+        sd = {"count": torch.tensor(float(self.count))}
+        for k, slot in self.slots.items():
+            sd.update({f"{n}.{k}": v for n, v in slot.items()})
+        return sd
+
+    def load_state_dict(self, sd: Mapping[str, torch.Tensor], device) -> None:
+        self.count = int(sd["count"])
+        self.slots = {}
+        for name, v in sd.items():
+            if name != "count":
+                n, k = name.split(".", 1)
+                self.slots.setdefault(k, {})[n] = v.to(device, torch.float32)
+
+
 class FederatedEngine:
     """``params``: the port's DACSModel state dict (models/port.py), held as
-    fp32 on ``device`` in ``global_params``."""
+    fp32 on ``device`` in ``global_params`` (single-head: the N-best heads
+    are per-client scratch inside a round). ``client_unsup_examples``: the
+    per-client unlabeled (teacher-transcribed) data of the unsupervised
+    phase (``supervised_level < 1``)."""
 
     def __init__(self, cfg: DACSConfig, fcfg: FederatedConfig,
                  client_examples: dict[Any, Sequence[AsrExample]],
                  public_examples: Sequence[AsrExample],
                  eval_examples: Sequence[AsrExample] | None,
                  tokenizer: CTCCharTokenizer, params: Mapping[str, torch.Tensor],
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 client_unsup_examples: dict[Any, Sequence[AsrExample]] | None = None):
         if cfg.method != "dacs":
             # the reference's FL pipeline exists for the DACS model only
             raise ValueError(f"the federated engine drives the DACS method only, got "
@@ -204,13 +318,20 @@ class FederatedEngine:
         self.cfg, self.fcfg = cfg, fcfg
         self.client_ids = sorted(client_examples.keys(), key=str)
         self.client_examples = client_examples
+        self.client_unsup_examples = client_unsup_examples or {}
         self.public_examples = public_examples
         self.eval_examples = eval_examples
         self.tokenizer = tokenizer
         self.global_params = {k: v.detach().to(self.device, torch.float32).clone()
                               for k, v in params.items()}
         self.logger = JsonlLogger(fcfg.log_dir, fcfg.log_file)
-        self._model = None  # the one model the clients train in turn
+        self._model = None     # the one model the clients train in turn
+        self._mt_model = None  # with the N-best heads (num_lms > 1)
+        self._pseudo_fwd = make_pseudo_forward(cfg.replace(num_lms=1))
+        # stage -> FedOpt server state; stage -> per-client top-k residuals
+        # {key: [K_total, ...]} over the stage's sub-network
+        self._server_opts: dict[int, ServerOptimizer] = {}
+        self._topk_residuals: dict[int, dict[str, torch.Tensor]] = {}
         self._eval_trainers: dict[int, Trainer] = {}
         self._last_dead_step_frac = 0.0  # padding overhead of the last round
         self._resident_cache: dict = {}  # id(source) -> (data_all, batchers, ids, source)
@@ -223,15 +344,27 @@ class FederatedEngine:
         # composed across stages, checkpointed as a '-dp.json' round sidecar
         self._dp_accountant = DpAccountant(delta=fcfg.dp_delta)
 
+    def _make_model(self, num_lms: int):
+        with torch.device("meta"):
+            model = get_recipe(self.cfg.method).make_model(
+                self.cfg.replace(num_lms=num_lms), _DTYPES[self.fcfg.compute_dtype],
+                torch.float32, self.fcfg.remat)
+        return model.to_empty(device=self.device)
+
     @property
     def model(self):
-        """The engine's model instance (compute dtype, fp32 params)."""
+        """The engine's model instance (single-head, compute dtype, fp32
+        params)."""
         if self._model is None:
-            with torch.device("meta"):
-                model = get_recipe(self.cfg.method).make_model(
-                    self.cfg, _DTYPES[self.fcfg.compute_dtype], torch.float32)
-            self._model = model.to_empty(device=self.device)
+            self._model = self._make_model(1)
         return self._model
+
+    @property
+    def mt_model(self):
+        """The N-best multitask model of the ``mt`` phases."""
+        if self._mt_model is None:
+            self._mt_model = self._make_model(self.cfg.num_lms)
+        return self._mt_model
 
     def _load_global(self):
         self.model.load_state_dict(self.global_params, strict=True)
@@ -241,15 +374,24 @@ class FederatedEngine:
     # data: per-client step streams
     # ------------------------------------------------------------------
 
-    def _client_round_batches(self, cids, round_idx: int, source: dict) -> list:
+    def _client_round_batches(self, cids, round_idx: int, source: dict,
+                              pseudo: dict | None = None) -> list:
         """Staged data of one round: per client a list of DeviceBatches,
         every client padded to the round's largest step count with
-        all-masked batches and every batch to the round's (T, L)."""
+        all-masked batches and every batch to the round's (T, L).
+        ``pseudo`` (cid -> path -> N-best (text, ids, conf)) marks the
+        N-best multitask phase: the examples carry their 1-best labels for
+        the bucketing, and each step is ``(DeviceBatch, labels_stack [N, B,
+        L], lengths [N, B])``."""
         f = self.fcfg
+        n_lms = self.cfg.num_lms
         per_client, t_max, l_max = [], 0, 0
         for cid in cids:
+            examples = source[cid]
+            if pseudo is not None:
+                examples = attach_pseudo_labels(examples, pseudo[cid])
             batcher = LengthBucketBatcher(
-                source[cid], f.batch_size, time_multiple=f.time_multiple,
+                examples, f.batch_size, time_multiple=f.time_multiple,
                 label_multiple=f.label_multiple, seed=f.seed + round_idx,
                 max_samples=f.max_samples, shuffle_window=f.shuffle_window)
             batches = []
@@ -258,6 +400,11 @@ class FederatedEngine:
             per_client.append(batches)
             t_max = max(t_max, max(b.input_values.shape[1] for b in batches))
             l_max = max(l_max, max(b.labels.shape[1] for b in batches))
+            if pseudo is not None:  # N-best sets can be longer than 1-best
+                l_max = max([l_max] + [len(ids) for b in batches for p in b.paths
+                                       for _, ids, _ in pseudo[cid][p][:n_lms]])
+        if pseudo is not None:
+            l_max = _round_up(l_max, f.label_multiple)
         steps = max(len(bs) for bs in per_client)
         self._last_dead_step_frac = 1.0 - sum(map(len, per_client)) / (steps * len(cids))
 
@@ -269,12 +416,19 @@ class FederatedEngine:
             return dataclasses.replace(b, input_values=iv, labels=lab)
 
         out = []
-        for batches in per_client:
+        for cid, batches in zip(cids, per_client):
             dev = [DeviceBatch.from_host(pad_to(b), self.device) for b in batches]
             while len(dev) < steps:  # pad with an all-masked batch
                 dummy = DeviceBatch(*(torch.zeros_like(x) for x in dataclasses.astuple(dev[0])))
                 dummy.labels.fill_(-100)
                 dev.append(dummy)
+            if pseudo is not None:
+                stacks = [tuple(torch.from_numpy(x).to(self.device) for x in nbest_stack(
+                    b.paths, pseudo[cid], n_lms, f.batch_size, l_max)) for b in batches]
+                while len(stacks) < len(dev):
+                    stacks.append((torch.full_like(stacks[0][0], -100),
+                                   torch.zeros_like(stacks[0][1])))
+                dev = [(db, lab, ll) for db, (lab, ll) in zip(dev, stacks)]
             out.append(dev)
         return out
 
@@ -409,11 +563,48 @@ class FederatedEngine:
     # the round
     # ------------------------------------------------------------------
 
+    def _round_pseudo_labels(self, cids, stage: int, rnd: int) -> dict:
+        """Per-client N-best pseudo transcripts from the CURRENT global model
+        (the reference regenerates them at every local update with the
+        round-start weights, gen_Ntranscripts)."""
+        f = self.fcfg
+        model = self._load_global()
+        return {cid: generate_pseudo_labels(
+            self.cfg.replace(stage=stage, num_lms=1), model,
+            self.client_unsup_examples[cid], self.tokenizer, self.cfg.num_lms,
+            batch_size=f.batch_size, time_multiple=f.time_multiple, seed=f.seed + rnd,
+            forward_fn=self._pseudo_fwd) for cid in cids}
+
     def _build_round(self, stage: int, rnd: int, cids) -> tuple:
-        """Host-side data build for one round: (phases, specs, dead_frac),
-        one supervised phase (the unsupervised phase is not ported)."""
-        phase, spec = self._resident_or_staged_phase(stage, self.client_examples, cids, rnd)
-        return (phase,), (spec,), self._last_dead_step_frac
+        """Host-side data build for one round: (phases, specs, dead_frac).
+        With ``supervised_level < 1`` the unsupervised phase comes first:
+        plain CTC on the unlabeled data's own transcripts, or the N-best
+        multitask phase (``mt``) on pseudo labels of the current global
+        model (``num_lms > 1``); then, unless ``supervised_level == 0``,
+        the supervised phase."""
+        sl = self.fcfg.supervised_level
+        phases, specs, dead_fracs = [], [], []
+        if sl < 1.0:
+            if self.cfg.num_lms > 1:
+                pseudo = self._round_pseudo_labels(cids, stage, rnd)
+                data = self._client_round_batches(cids, rnd, self.client_unsup_examples,
+                                                  pseudo)
+                phases.append(data)
+                specs.append(("mt", len(data[0])))
+            else:
+                phase, spec = self._resident_or_staged_phase(
+                    stage, self.client_unsup_examples, cids, rnd)
+                phases.append(phase)
+                specs.append(spec)
+            dead_fracs.append(self._last_dead_step_frac)
+        if sl > 0.0:
+            phase, spec = self._resident_or_staged_phase(stage, self.client_examples, cids,
+                                                         rnd)
+            phases.append(phase)
+            specs.append(spec)
+            dead_fracs.append(self._last_dead_step_frac)
+        # the worst phase's padding overhead
+        return tuple(phases), tuple(specs), max(dead_fracs, default=0.0)
 
     def _resident_or_staged_phase(self, stage: int, source: dict, cids, rnd: int):
         """One supervised phase: cached-encoder (``res_h``) when a hidden
@@ -436,7 +627,7 @@ class FederatedEngine:
     @staticmethod
     def _phase_batches(kind: str, phase, ki: int):
         """The ``ki``-th sampled client's batches of one phase, one per step."""
-        if kind == "sup":
+        if kind in ("sup", "mt"):
             return iter(phase[ki])
         if kind == "res":
             data_all, rows, idx = phase
@@ -451,43 +642,112 @@ class FederatedEngine:
 
     def _local_train(self, stage: int, rnd: int, ki: int, phases, specs) -> torch.Tensor:
         """Client ``ki``'s local training from the global params, in place
-        on the engine's model; returns its losses, one per step."""
+        on the engine's model; returns its losses, one per step. Each phase
+        gets a fresh optimizer; FedProx anchors every phase on the
+        round-start global params. An ``mt`` phase trains the N-best model
+        from the current params with its heads set from lm_head, and hands
+        its first head back as lm_head."""
         f = self.fcfg
-        cfg = self.cfg.replace(stage=stage)
+        cfg = self.cfg.replace(stage=stage, num_lms=1)
         model = self._load_global()
         losses = []
         for p, ((kind, steps), phase) in enumerate(zip(specs, phases)):
-            tx = make_optimizer(model, stage, f.learning_rate, f.weight_decay,
-                                warmup_steps=f.warmup_steps, total_steps=max(steps, 1))
-            state = create_train_state(model, tx, self._client_seed(rnd, ki, p))
+            anchor, train_model = self.global_params, model
+            if kind == "mt":
+                n = self.cfg.num_lms
+                train_model = self.mt_model
+                train_model.load_state_dict(init_lm_heads_from_lm_head(model.state_dict(), n))
+                anchor = init_lm_heads_from_lm_head(self.global_params, n)
+            tx = make_optimizer(train_model, stage, f.learning_rate, f.weight_decay,
+                                warmup_steps=f.warmup_steps, total_steps=max(steps, 1),
+                                fedprox_mu=f.fedprox_mu, prox_ref=anchor)
+            state = create_train_state(train_model, tx, self._client_seed(rnd, ki, p))
+            if kind == "mt":
+                step = make_multitask_train_step(self.cfg.replace(stage=stage))
+                for element in self._phase_batches(kind, phase, ki):
+                    losses.append(step(state, *element)["loss"])
+                model.load_state_dict(drop_lm_heads(copy_first_head_to_lm_head(
+                    train_model.state_dict())))
+                continue
             step = make_hidden_train_step(cfg) if kind == "res_h" else make_train_step(cfg)
             for batch in self._phase_batches(kind, phase, ki):
                 losses.append(step(state, batch)["loss"])
         return torch.stack(losses)
 
     def _run_round(self, stage: int, rnd: int, cids, phases, specs) -> list[float]:
-        """Every sampled client in turn, FedAvg (or DP-FedAvg) of the
-        stage's sub-network, graft into the global params; returns each
-        client's mean step loss."""
+        """Every sampled client in turn, the round's aggregate of the
+        stage's sub-network (FedAvg, DP-FedAvg, compressed, secure or top-k),
+        graft into the global params, then the server optimizer's step;
+        returns each client's mean step loss."""
         f = self.fcfg
         network = STAGE_NETWORK[stage]
-        keys = list(select_network(self.global_params, network))
+        g = self.global_params
+        keys = list(select_network(g, network))
+        m = len(cids)
+        weights = [len(self.client_examples[c]) for c in cids] if f.fedavg_weighted else None
+        round_seed = (f.seed + 7919 * rnd) * 1_000_003
+        pos = None
         if f.dp_clip_norm is not None:
-            gen = torch.Generator(self.device).manual_seed(
-                (f.seed + 7919 * rnd) * 1_000_003 + 0x5A11)
-            acc = FedAvgAccumulator(keys, len(cids), global_params=self.global_params,
-                                    clip_norm=f.dp_clip_norm,
+            gen = torch.Generator(self.device).manual_seed(round_seed + 0x5A11)
+            acc = FedAvgAccumulator(keys, m, global_params=g, clip_norm=f.dp_clip_norm,
                                     noise_multiplier=f.dp_noise_multiplier, generator=gen)
+        elif f.compress_bits is not None:
+            gen = (torch.Generator(self.device).manual_seed(round_seed + 0xC0)
+                   if f.compress_stochastic_rounding else None)
+            acc = CompressedDeltaAccumulator(keys, m, g, f.compress_bits, gen, weights)
+        elif f.secagg_clip_norm is not None:
+            acc = SecAggAccumulator(keys, m, g, f.secagg_clip_norm, round_seed + 0x5EC,
+                                    f.secagg_bits)
+        elif f.topk_fraction is not None:
+            # residuals are per client ID; the round sees the sampled
+            # clients' rows in sample order, scattered back afterwards
+            res_all = self._topk_residuals_for(stage)
+            pos = [self.client_ids.index(c) for c in cids]
+            acc = TopKDeltaAccumulator(keys, m, g, f.topk_fraction,
+                                       [{k: res_all[k][i] for k in keys} for i in pos],
+                                       weights)
         else:
-            weights = ([len(self.client_examples[c]) for c in cids]
-                       if f.fedavg_weighted else None)
-            acc = FedAvgAccumulator(keys, len(cids), weights)
+            acc = FedAvgAccumulator(keys, m, weights)
         losses = []
-        for ki in range(len(cids)):
+        for ki in range(m):
             losses.append(self._local_train(stage, rnd, ki, phases, specs).mean())
             acc.add(self.model.state_dict())
-        self.global_params = graft_network(self.global_params, acc.result(), network)
+        new_global = graft_network(g, acc.result(), network)
+        if pos is not None:
+            for i, res in zip(pos, acc.residuals):
+                for k, r in res.items():
+                    res_all[k][i] = r
+        server = self._server_opt(stage)
+        if server is not None:
+            new_global = server.step(g, new_global)
+        self.global_params = new_global
         return [float(x) for x in losses]
+
+    def _server_opt(self, stage: int) -> ServerOptimizer | None:
+        """The stage's FedOpt server optimizer, made at its first round
+        (each stage aggregates another sub-network: no momentum crosses
+        stages); None for FedAvg."""
+        f = self.fcfg
+        if f.server_optimizer == "none":
+            return None
+        if stage not in self._server_opts:
+            lr = f.server_lr if f.server_lr is not None else (
+                1.0 if f.server_optimizer == "momentum" else 1e-2)
+            self._server_opts[stage] = ServerOptimizer(
+                f.server_optimizer, lr, f.server_momentum,
+                list(select_network(self.global_params, STAGE_NETWORK[stage])))
+        return self._server_opts[stage]
+
+    def _topk_residuals_for(self, stage: int) -> dict[str, torch.Tensor]:
+        """The stage's error-feedback residuals ``{key: [K_total, ...]}``
+        over its sub-network, zeros at first (one fp32 copy of the
+        sub-network per client: the algorithm's memory cost)."""
+        if stage not in self._topk_residuals:
+            k_total = len(self.client_ids)
+            self._topk_residuals[stage] = {
+                k: torch.zeros((k_total, *v.shape), dtype=torch.float32, device=self.device)
+                for k, v in select_network(self.global_params, STAGE_NETWORK[stage]).items()}
+        return self._topk_residuals[stage]
 
     # ------------------------------------------------------------------
     # round checkpoints
@@ -510,12 +770,19 @@ class FederatedEngine:
             return
         p = save_params(Path(f.round_save_dir) / f"stage{stage}-round-{rnd}",
                         self.global_params, {"stage": stage, "round": rnd})
+        if stage in self._server_opts:
+            save_params(p.with_name(p.name + "-server"),
+                        self._server_opts[stage].state_dict())
+        if stage in self._topk_residuals:
+            save_params(p.with_name(p.name + "-topk"), self._topk_residuals[stage])
         if self._dp_active():
             p.with_name(p.name + "-dp.json").write_text(
                 json.dumps(self._dp_accountant.state_dict()))
         ckpts = self._round_ckpts(stage)
         for _, old in ckpts[: max(0, len(ckpts) - f.round_save_limit)]:
             shutil.rmtree(old)
+            for suffix in ("-server", "-topk"):
+                shutil.rmtree(old.with_name(old.name + suffix), ignore_errors=True)
             old.with_name(old.name + "-dp.json").unlink(missing_ok=True)
 
     def _maybe_resume_rounds(self, stage: int) -> int:
@@ -530,6 +797,28 @@ class FederatedEngine:
         rnd, p = ckpts[-1]
         self.global_params = {k: v.to(self.device, torch.float32)
                               for k, v in load_params(p).items()}
+        server = self._server_opt(stage)
+        if server is not None:
+            srv = p.with_name(p.name + "-server")
+            if srv.exists():
+                server.load_state_dict(load_params(srv), self.device)
+            else:
+                # resuming without the momentum makes the continued run
+                # differ from the straight-through one
+                print(f"[engine] round checkpoint {p.name} has no '-server' sibling; "
+                      f"{f.server_optimizer} server state restarts from zero (resume is "
+                      "inexact)")
+                self.logger.log({"fl_resume_server_state_missing": 1.0, "stage": stage})
+        if f.topk_fraction is not None:
+            tk = p.with_name(p.name + "-topk")
+            if tk.exists():
+                self._topk_residuals[stage] = {k: v.to(self.device, torch.float32)
+                                               for k, v in load_params(tk).items()}
+            else:
+                # zeros would silently drop every untransmitted coordinate
+                print(f"[engine] round checkpoint {p.name} has no '-topk' sibling; top-k "
+                      "error-feedback residuals restart from zero (resume is inexact)")
+                self.logger.log({"fl_resume_topk_residuals_missing": 1.0, "stage": stage})
         if self._dp_active():
             dp = p.with_name(p.name + "-dp.json")
             if dp.exists():
@@ -563,7 +852,11 @@ class FederatedEngine:
         """FedAvg rounds (reference FL_training_rounds,
         federated_main.py:69-145). The client plan comes from
         ``np.random.default_rng(seed)`` once per call, so a resumed run
-        sees the same plan."""
+        sees the same plan. Round r+1 is built on the host (``prefetch_iter``,
+        depth 1) while round r runs, where no phase needs the current
+        global params (``num_lms == 1``) and every phase's data is
+        device-resident (staged rounds would keep several rounds of client
+        audio live)."""
         f = self.fcfg
         if f.dp_clip_norm is not None and f.fedavg_weighted:
             raise ValueError("DP-FedAvg is unweighted (uniform-contribution "
@@ -574,22 +867,32 @@ class FederatedEngine:
         m = max(int(f.frac * k_total), 1)
         plan = [(rnd, [self.client_ids[i] for i in rng.choice(k_total, size=m, replace=False)])
                 for rnd in range(num_rounds)]
+        sl = f.supervised_level
+        sources = (([self.client_unsup_examples] if sl < 1.0 and self.cfg.num_lms == 1
+                    else []) + ([self.client_examples] if sl > 0.0 else []))
         # stages 1/2: the frozen deterministic encoder's output of every
         # utterance is computed once; the rounds train heads on it
-        if stage in (1, 2) and self._resident_enabled(self.client_examples):
-            self._hidden_cache_for(stage, self.client_examples)
+        if stage in (1, 2):
+            for src in sources:
+                if self._resident_enabled(src):
+                    self._hidden_cache_for(stage, src)
         start_round = self._maybe_resume_rounds(stage)
         if start_round >= num_rounds:
             return self.global_params
-        for rnd, cids in plan[start_round:]:
-            t0 = time.perf_counter()
-            phases, specs, dead_frac = self._build_round(stage, rnd, cids)
+        t0 = time.perf_counter()
+        built = ((rnd, cids, self._build_round(stage, rnd, cids))
+                 for rnd, cids in plan[start_round:])
+        if self.cfg.num_lms == 1 and all(map(self._resident_enabled, sources)):
+            built = prefetch_iter(built, depth=1)
+        for rnd, cids, (phases, specs, dead_frac) in built:
             losses = self._run_round(stage, rnd, cids, phases, specs)
             row = {"fl_round": rnd + 1, "stage": stage,
                    "clients": ",".join(str(c) for c in cids),
                    "dead_step_frac": round(dead_frac, 4),
                    **{f"client{c}_loss": loss for c, loss in zip(cids, losses)},
-                   "local_steps": m * sum(s for _, s in specs), "phase": specs[0][0],
+                   "local_steps": m * sum(s for _, s in specs),
+                   "phase": "+".join(kind for kind, _ in specs),
+                   "phase_steps": "+".join(str(s) for _, s in specs),
                    "round_s": time.perf_counter() - t0}
             if self._dp_active():
                 self._dp_accountant.step(m / k_total, f.dp_noise_multiplier)
@@ -601,6 +904,7 @@ class FederatedEngine:
                 ev.update({"fl_round": rnd + 1, "stage": stage})
                 self.logger.log(ev)
             self._maybe_save_round(stage, rnd + 1)
+            t0 = time.perf_counter()
         if stage == 0:  # the rounds trained the backbone: hidden caches stale
             self._invalidate_hidden_caches()
         return self.global_params
@@ -620,7 +924,8 @@ class FederatedEngine:
         f = self.fcfg
         t0 = time.perf_counter()
         tr = Trainer(
-            self.cfg.replace(stage=stage), self.global_params, self.public_examples,
+            self.cfg.replace(stage=stage, num_lms=1), self.global_params,
+            self.public_examples,
             self.eval_examples, self.tokenizer,
             TrainerConfig(
                 num_epochs=f.global_ep if num_epochs is None else num_epochs,
@@ -649,7 +954,7 @@ class FederatedEngine:
         tr = self._eval_trainers.get(stage)
         if tr is None:
             f = self.fcfg
-            tr = Trainer(self.cfg.replace(stage=stage), self.global_params, [],
+            tr = Trainer(self.cfg.replace(stage=stage, num_lms=1), self.global_params, [],
                          self.eval_examples, self.tokenizer,
                          TrainerConfig(batch_size=f.eval_batch_size,
                                        eval_batch_size=f.eval_batch_size,

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import dropout_seed, hash_stride, multihead_attention
 from .config import BackboneConfig
@@ -269,6 +270,9 @@ class Encoder(nn.Module):
         self.dropout = nn.Dropout(cfg.hidden_dropout)
         self.layers = nn.ModuleList(EncoderLayer(cfg, dtype, param_dtype)
                                     for _ in range(cfg.num_hidden_layers))
+        # remat (the JAX ``nn.remat(EncoderLayer)``): each layer's
+        # activations are recomputed in the backward pass
+        self.remat = False
 
     def forward(self, x: torch.Tensor, frame_mask: torch.Tensor | None = None,
                 seed_generator: torch.Generator | None = None) -> torch.Tensor:
@@ -280,7 +284,15 @@ class Encoder(nn.Module):
         x = self.dropout(x)
         draw = self.training and self.cfg.attention_dropout > 0.0
         for layer in self.layers:
-            x = layer(x, frame_mask, dropout_seed(seed_generator) if draw else 0)
+            # the seed is drawn outside the checkpoint, so the recompute's
+            # attention kernel sees it again; preserve_rng_state replays the
+            # other dropout masks
+            seed = dropout_seed(seed_generator) if draw else 0
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(layer, x, frame_mask, seed, use_reentrant=False,
+                               preserve_rng_state=True)
+            else:
+                x = layer(x, frame_mask, seed)
         if self.cfg.do_stable_layer_norm:
             x = _layer_norm(self.layer_norm, x, self.dtype)
         return x

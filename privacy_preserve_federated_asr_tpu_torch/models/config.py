@@ -16,9 +16,8 @@ read, with the same names, defaults and presets, so a configuration (or a
 golden fixture's metadata) means the same model in both packages. The JAX
 fields left out belong to paths the port does not run (``attention_impl``
 and ``dense_impl``: the port always takes its kernel on the card and fp
-matmuls; ``layerdrop``, unused under jit in JAX too; SEW-D; the N-best lm
-heads ``num_lms``; the FSM thresholds); each later slice adds the fields it
-runs.
+matmuls; ``layerdrop``, unused under jit in JAX too; SEW-D; the FSM
+thresholds); each later slice adds the fields it runs.
 """
 
 from __future__ import annotations
@@ -151,6 +150,7 @@ class DACSConfig:
     # False reproduces the reference quirk: AD logits mean-pooled over *all*
     # timesteps, padding included (batch size 1 there)
     pool_valid_frames_only: bool = True
+    num_lms: int = 1             # >1 adds the N-best multitask lm heads
 
     @property
     def hidden_size(self) -> int:
@@ -160,10 +160,10 @@ class DACSConfig:
         """(cfg, torch dtype) for an inference surface's ``compute_dtype``
         choice: "float32" / "bfloat16" pick the matmul dtype. "int8" (the
         JAX package's dynamic-W8A8 Dense matmuls) waits for port slice
-        8."""
+        9."""
         if compute_dtype == "int8":
             raise NotImplementedError(
-                "compute_dtype='int8' is not ported yet (port slice 8: ops/quant.py)")
+                "compute_dtype='int8' is not ported yet (port slice 9: ops/quant.py)")
         dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
         if compute_dtype not in dtypes:
             raise ValueError(f"unknown compute_dtype {compute_dtype!r}")

@@ -11,6 +11,11 @@ Mask machinery (reference forward federated/src/models.py:421-446):
 The Gumbel noise is injected (``gumbel_noise``, as the JAX model takes it)
 or drawn from an explicit ``torch.Generator``: lm noise first, then AD.
 
+Multitask N-best heads (``num_lms > 1``, ``lm_heads.{i}``) reproduce the
+semi-supervised FL model (reference:
+federated/src/Data2VecAudioForCTCMultitask_model.py:270-275); their streams
+are ``extra_logits``.
+
 Training modes follow the recipe's ``backbone_trains(stage)``: the JAX
 model's ``deterministic`` / ``backbone_deterministic`` flags become
 ``model.train()`` with ``model.backbone.eval()`` for a frozen, deterministic
@@ -34,7 +39,7 @@ from .factory import make_backbone
 @dataclass
 class DACSOutputs:
     """Everything serving, training and evaluation need from one forward
-    (the JAX ``DACSOutputs`` without the N-best ``extra_logits``). A forward
+    (the JAX ``DACSOutputs``). A forward
     with ``need_masks=False`` leaves the mask fields and the masked streams
     None: the stage-0/1 losses read only the unmasked streams, and eager
     PyTorch cannot drop dead branches as XLA does."""
@@ -52,27 +57,35 @@ class DACSOutputs:
     ad_score: torch.Tensor | None        # [B, T, D, 2]
     frame_mask: torch.Tensor             # [B, T] int32 valid-frame indicator
     frame_lengths: torch.Tensor          # [B]
+    # N-best lm_heads streams when num_lms > 1: a tuple of
+    # (head(h), head(lm_masked), head(ad_masked)) triples
+    extra_logits: tuple = ()
 
 
 class DACSModel(nn.Module):
     """``dtype`` is the compute dtype; ``param_dtype`` (default: ``dtype``)
     the storage dtype of the matmul and conv weights (fp32 when training in
-    bf16, as flax keeps fp32 params)."""
+    bf16, as flax keeps fp32 params); ``remat`` recomputes each encoder
+    layer in the backward pass (``torch.utils.checkpoint``)."""
 
     def __init__(self, cfg: DACSConfig, dtype: torch.dtype = torch.float32,
-                 param_dtype: torch.dtype | None = None):
+                 param_dtype: torch.dtype | None = None, remat: bool = False):
         super().__init__()
         param_dtype = dtype if param_dtype is None else param_dtype
         self.cfg, self.dtype = cfg, dtype
         d = cfg.hidden_size
         kw = dict(dtype=dtype, param_dtype=param_dtype)
         self.backbone = make_backbone(cfg.backbone, dtype, param_dtype)
+        self.backbone.encoder.remat = remat
         self.dropout = nn.Dropout(cfg.backbone.final_dropout)
         self.arbitrator = Linear(d, 4 * d, **kw)
         self.lm_head = Linear(d, cfg.backbone.vocab_size, **kw)
         self.dementia_head = Linear(d, cfg.num_ad_classes, **kw)
         # AM-softmax projection ("criterion_similar.fc" in the reference)
         self.similar_fc = Linear(d, cfg.num_ad_classes, bias=False, **kw)
+        if cfg.num_lms > 1:
+            self.lm_heads = nn.ModuleList(Linear(d, cfg.backbone.vocab_size, **kw)
+                                          for _ in range(cfg.num_lms))
 
     def forward(self, input_values: torch.Tensor,
                 input_lengths: torch.Tensor | None = None,
@@ -135,7 +148,9 @@ class DACSModel(nn.Module):
                 logits_r=None, dementia_logits_unmask=self.dementia_head(h),
                 dementia_logits_lm=None, dementia_logits_ad=None, lm_mask=None,
                 ad_mask=None, lm_score=None, ad_score=None, frame_mask=frame_mask,
-                frame_lengths=frame_lengths)
+                frame_lengths=frame_lengths,
+                extra_logits=tuple((head(h), None, None)
+                                   for head in getattr(self, "lm_heads", ())))
         all_score = self.arbitrator(h).float()  # [B, T, 4D]
         lm_score = torch.stack((all_score[..., :d], all_score[..., d:2 * d]), dim=-1)
         ad_score = torch.stack((all_score[..., 2 * d:3 * d], all_score[..., 3 * d:]), dim=-1)
@@ -159,6 +174,10 @@ class DACSModel(nn.Module):
         ad_mask = ad_mask.to(self.dtype)
         lm_masked = lm_mask * h
         ad_masked = ad_mask * h
+        extra = ()
+        if c.num_lms > 1:
+            extra = tuple((head(h), head(lm_masked), head(ad_masked))
+                          for head in self.lm_heads)
         return DACSOutputs(
             hidden_states=h,
             logits_unmask=self.lm_head(h),
@@ -173,6 +192,7 @@ class DACSModel(nn.Module):
             ad_score=ad_score,
             frame_mask=frame_mask,
             frame_lengths=frame_lengths,
+            extra_logits=extra,
         )
 
 

@@ -8,6 +8,8 @@ The port's modules keep HF attribute names, so:
   * flax Dense ``kernel`` -> ``weight = kernel.T``,
   * flax Conv ``kernel [k, in/g, out]`` -> ``weight = transpose(2, 1, 0)``,
   * flax LayerNorm/GroupNorm ``scale`` -> ``weight``,
+  * a JAX ``scan_layers`` tree's stacked ``encoder/layers_scan/layer``
+    (leading ``[L, ...]`` axis) <-> ``layers.{i}``,
   * an HF state dict maps by stripping the encoder prefix, with the
     weight-normed positional conv (wav2vec2/hubert ``single``) merged into a
     plain weight: weight norm is a reparametrisation, not a function.
@@ -62,15 +64,64 @@ def _flatten(tree: Mapping, prefix: tuple[str, ...] = ()):
             yield prefix + (k,), v
 
 
+def _unstack_scan_layers(tree: Mapping[str, Any]) -> Mapping[str, Any]:
+    """A JAX ``scan_layers`` tree (``encoder/layers_scan/layer`` leaves with
+    a leading ``[L, ...]`` axis) in the per-layer ``layers_{i}`` layout; any
+    other tree as it is (the JAX ``models/port.py::unstack_scan_layers``)."""
+    if "layers_scan" in tree.get("encoder", {}):
+        enc = dict(tree["encoder"])
+        stacked = dict(_flatten(enc.pop("layers_scan")["layer"]))
+        n = len(next(iter(stacked.values())))
+        for i in range(n):
+            layer: dict = {}
+            for path, v in stacked.items():
+                node = layer
+                for k in path[:-1]:
+                    node = node.setdefault(k, {})
+                node[path[-1]] = np.asarray(v)[i]
+            enc[f"layers_{i}"] = layer
+        return {**tree, "encoder": enc}
+    return {k: _unstack_scan_layers(v) if isinstance(v, Mapping) else v
+            for k, v in tree.items()}
+
+
+def stack_scan_layers(tree: Mapping[str, Any]) -> dict:
+    """The inverse of the unstacking above: every ``encoder`` holding
+    ``layers_{i}`` gets them stacked as ``layers_scan/layer`` with a leading
+    ``[L, ...]`` axis (``np.stack``), the JAX ``scan_layers`` layout."""
+    out = {}
+    for k, v in tree.items():
+        if not isinstance(v, Mapping):
+            out[k] = v
+        elif k == "encoder" and "layers_0" in v:
+            enc = dict(v)
+            n = sum(1 for name in enc if re.fullmatch(r"layers_\d+", name))
+            layers = [dict(_flatten(enc.pop(f"layers_{i}"))) for i in range(n)]
+            stacked: dict = {}
+            for path in layers[0]:
+                node = stacked
+                for p in path[:-1]:
+                    node = node.setdefault(p, {})
+                node[path[-1]] = np.stack([np.asarray(lay[path]) for lay in layers])
+            enc["layers_scan"] = {"layer": stacked}
+            out[k] = enc
+        else:
+            out[k] = stack_scan_layers(v)
+    return out
+
+
 def state_dict_from_flax(params: Mapping[str, Any],
                          cfg: BackboneConfig | DACSConfig) -> dict[str, torch.Tensor]:
     """Flax params (nested dict of arrays) -> the port's state dict.
-    ``layers_{i}`` / ``conv_layers_{i}`` become ``layers.{i}`` /
-    ``conv_layers.{i}``; SpecAugment's ``masked_spec_embed`` (present when
+    ``layers_{i}`` / ``conv_layers_{i}`` / ``lm_heads_{i}`` become
+    ``layers.{i}`` / ``conv_layers.{i}`` / ``lm_heads.{i}``, and a
+    ``scan_layers`` tree's stacked ``layers_scan/layer`` is read as its
+    ``L`` layers; SpecAugment's ``masked_spec_embed`` (present when
     ``mask_time_prob > 0``) keeps its name."""
     sd = {}
-    for path, value in _flatten(params):
-        mods = [re.sub(r"^(conv_layers|layers)_(\d+)$", r"\1.\2", p) for p in path[:-1]]
+    for path, value in _flatten(_unstack_scan_layers(params)):
+        mods = [re.sub(r"^(conv_layers|layers|lm_heads)_(\d+)$", r"\1.\2", p)
+                for p in path[:-1]]
         leaf = path[-1]
         w = np.asarray(value, dtype=np.float32)
         if leaf == "kernel":
@@ -87,11 +138,12 @@ def state_dict_from_flax(params: Mapping[str, Any],
     return sd
 
 
-def flax_from_state_dict(sd: Mapping[str, torch.Tensor]) -> dict:
+def flax_from_state_dict(sd: Mapping[str, torch.Tensor], scan_layers: bool = False) -> dict:
     """The port's state dict -> a flax params tree of numpy arrays (the
     inverse of :func:`state_dict_from_flax`): 2-D weights become Dense
     ``kernel`` (transposed), 3-D conv weights ``kernel [k, in/g, out]``, 1-D
-    ``weight`` (LayerNorm / GroupNorm) ``scale``."""
+    ``weight`` (LayerNorm / GroupNorm) ``scale``. ``scan_layers`` writes the
+    encoder layers in the JAX ``scan_layers`` layout (stacked)."""
     tree: dict = {}
     for key, value in sd.items():
         *mods, leaf = key.split(".")
@@ -113,7 +165,7 @@ def flax_from_state_dict(sd: Mapping[str, torch.Tensor]) -> dict:
         for m in names:
             node = node.setdefault(m, {})
         node[leaf] = np.ascontiguousarray(w)
-    return tree
+    return stack_scan_layers(tree) if scan_layers else tree
 
 
 # ---------------------------------------------------------------------------
@@ -165,6 +217,11 @@ def state_dict_from_hf(sd: Mapping[str, Any],
         for leaf in ("weight", "bias"):
             if f"{src}.{leaf}" in sd:
                 out[f"{dst}.{leaf}"] = _tensor(sd[f"{src}.{leaf}"])
+    # the multitask N-best heads (reference
+    # Data2VecAudioForCTCMultitask_model.py:270-275) keep their names
+    for k, v in sd.items():
+        if re.fullmatch(r"lm_heads\.\d+\.(weight|bias)", k):
+            out[k] = _tensor(v)
     return out
 
 

@@ -34,7 +34,7 @@ class Recipe:
 
     name: str
     stages: tuple[int, ...]
-    make_model: Callable[..., Any]           # (cfg, dtype, param_dtype)
+    make_model: Callable[..., Any]           # (cfg, dtype, param_dtype, remat)
     loss: Callable[..., tuple[torch.Tensor, dict]]
     trainable: Callable[[int], Callable[[tuple[str, ...]], bool]]
     backbone_trains: Callable[[int], bool]
@@ -61,7 +61,7 @@ def stage_trainable_predicate(stage: int) -> Callable[[tuple[str, ...]], bool]:
             return stage == 0 and path[1] != "feature_extractor"
         head = path[0]
         if stage == 0:
-            return head == "lm_head"
+            return head in ("lm_head", "lm_heads")
         if stage == 1:
             return head == "dementia_head"
         if stage == 2:
@@ -98,8 +98,8 @@ def _toggle_more_eval_streams(out, cfg):
 
 
 def _make_dacs(cfg: DACSConfig, dtype: torch.dtype = torch.float32,
-               param_dtype: torch.dtype | None = None) -> DACSModel:
-    return DACSModel(cfg, dtype, param_dtype)
+               param_dtype: torch.dtype | None = None, remat: bool = False) -> DACSModel:
+    return DACSModel(cfg, dtype, param_dtype, remat)
 
 
 def _grl_trainable(stage: int):

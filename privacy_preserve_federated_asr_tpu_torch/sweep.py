@@ -132,7 +132,7 @@ def sweep_text(grid, train_rows, test_rows, results_csv=None, seed=0):
     """Text-branch sweep (the JAX package's ``sweep_text``): needs
     ``text/classifier.py`` and ``text/experiments.py``."""
     raise NotImplementedError("sweep text needs the text branch (text/), which is "
-                              "not ported yet (port slice 11)")
+                              "not ported yet (port slice 12)")
 
 
 def sweep_asr(

@@ -236,6 +236,35 @@ def make_hidden_train_step(cfg: DACSConfig, aux_metrics: bool = False,
     return train_step
 
 
+def make_multitask_train_step(cfg: DACSConfig, aux_metrics: bool = False
+                              ) -> Callable[[DACSTrainState, DeviceBatch, torch.Tensor,
+                                             torch.Tensor], dict]:
+    """Train step of the N-best multitask model (``cfg.num_lms > 1``): head i
+    trains on pseudo-transcript set i, the CTC losses averaged over the
+    heads (``federated/multitask.py::multitask_loss``; reference
+    Data2VecAudioForCTCMultitask, ASRLocalUpdate_Multitask.py). Takes the
+    batch with ``labels_stack [N, B, L]`` and ``label_lengths_stack
+    [N, B]``; the freezing is the DACS recipe's (lm_heads train at stage 0).
+    ``aux_metrics`` as in :func:`make_train_step`."""
+    from ..federated.multitask import multitask_loss
+
+    recipe = get_recipe(cfg.method)
+    need_masks = aux_metrics or recipe.uses_masks(cfg.stage)
+
+    def train_step(state: DACSTrainState, batch: DeviceBatch,
+                   labels_stack: torch.Tensor, label_lengths_stack: torch.Tensor) -> dict:
+        model = state.model
+        set_train_modes(model, recipe, cfg.stage)
+        out = model(batch.input_values, batch.input_lengths, generator=state.gumbel,
+                    seed_generator=state.seeds, need_masks=need_masks)
+        loss, metrics = multitask_loss(out, labels_stack, label_lengths_stack,
+                                       batch.dementia_labels, cfg, model.similar_fc.weight,
+                                       batch.sample_mask, aux_metrics)
+        return _apply_update(state, loss, metrics)
+
+    return train_step
+
+
 def _eval_from_outputs(out, model, batch, cfg: DACSConfig, recipe: Recipe | None = None):
     recipe = recipe or get_recipe(cfg.method)
     loss, _ = recipe.loss(out, batch.labels, batch.label_lengths, batch.dementia_labels,

@@ -19,15 +19,22 @@ Either falls back to the full forward from waveforms past
 ``cache_budget_bytes``. Logging, evaluation, checkpoints and the final
 export follow the JAX cadences.
 
-Options the port does not run yet raise ``NotImplementedError``: data,
-tensor, pipeline and sequence parallelism (``dp``, ``tp``, ``pp``, ``sp``),
-``zero1``, ``scan_layers``, ``remat``, ``grad_accum > 1`` and prefetch
-threads (``prefetch > 0``).
+``grad_accum = k`` sums k micro-gradients per optimizer update (optax
+``MultiSteps``; the schedule counts updates, ``state.step`` micro-steps, and
+checkpoints carry the partial sum); ``remat`` recomputes each encoder layer
+in the backward pass; ``prefetch`` device batches are staged ahead by a
+thread (``train/prefetch.py``); ``scan_layers`` is accepted and changes
+nothing here: in JAX it changes the compile and the parameter layout, not
+the math, and the weight bridge reads and writes that layout
+(``models/port.py``). Data, tensor, pipeline and sequence parallelism
+(``dp``, ``tp``, ``pp``, ``sp``) and ``zero1`` raise ``NotImplementedError``
+until the parallel slice.
 """
 
 from __future__ import annotations
 
 import time
+import warnings
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Mapping, Sequence
@@ -46,6 +53,7 @@ from .checkpoint import STATE_FILE, CheckpointManager, load_state_dict
 from .logging import JsonlLogger, StepTimer, record_result
 from .metrics import wer
 from .optim import make_optimizer
+from .prefetch import prefetch_device_batches
 from .steps import (
     DeviceBatch,
     HiddenBatch,
@@ -92,7 +100,7 @@ class TrainerConfig:
     label_multiple: int = 32
     max_samples: int | None = None           # drop utterances longer than this
     shuffle_window: int | None = None        # per-epoch membership reshuffle
-    prefetch: int = 0                        # prefetch threads: not ported
+    prefetch: int = 2                        # device batches staged ahead (0 = off)
     # stages 1/2: train the heads on the cached encoder output.
     # None = auto (on where the recipe freezes the backbone)
     cache_encoder: bool | None = None
@@ -108,8 +116,7 @@ class TrainerConfig:
 
 def _check_ported(t: TrainerConfig) -> None:
     later = {"dp": t.dp != 1, "tp": t.tp != 1, "pp": t.pp != 1, "sp": t.sp != 1,
-             "zero1": t.zero1, "scan_layers": t.scan_layers, "remat": t.remat,
-             "grad_accum > 1": t.grad_accum > 1, "prefetch > 0": t.prefetch > 0}
+             "zero1": t.zero1}
     missing = [k for k, on in later.items() if on]
     if missing:
         raise NotImplementedError(f"Trainer options not ported yet: {', '.join(missing)}")
@@ -135,7 +142,8 @@ class Trainer:
         self.cfg, self.tcfg, self.tokenizer = cfg, tcfg, tokenizer
         self.recipe = get_recipe(cfg.method)
         with torch.device("meta"):
-            model = self.recipe.make_model(cfg, _DTYPES[tcfg.compute_dtype], torch.float32)
+            model = self.recipe.make_model(cfg, _DTYPES[tcfg.compute_dtype], torch.float32,
+                                           tcfg.remat)
         model = model.to_empty(device=self.device)
         model.load_state_dict(state_dict, strict=True)
         self.logger = JsonlLogger(tcfg.log_dir, tcfg.log_file)
@@ -150,10 +158,26 @@ class Trainer:
                                 time_multiple=tcfg.time_multiple,
                                 label_multiple=tcfg.label_multiple, seed=tcfg.seed)
             if eval_examples else None)
-        total_steps = max(len(self.train_batcher) * tcfg.num_epochs, 1)
+        # the lr schedule counts OPTIMIZER updates: with grad_accum > 1 the
+        # update runs once per k micro-batches
+        total_steps = max(len(self.train_batcher) * tcfg.num_epochs // tcfg.grad_accum, 1)
         tx = make_optimizer(model, cfg.stage, tcfg.learning_rate, tcfg.weight_decay,
                             tcfg.max_grad_norm, tcfg.warmup_steps, total_steps,
-                            trainable_pred=self.recipe.trainable(cfg.stage))
+                            trainable_pred=self.recipe.trainable(cfg.stage),
+                            grad_accum=tcfg.grad_accum)
+        if tcfg.grad_accum > 1:
+            # micro-gradients are SUMMED: the CTC objective is a sum over
+            # rows, so k micro-batches of B rows equal one batch of k x B.
+            # state.step counts micro-steps: logging, eval and save cadences
+            # fire per micro-batch, and a checkpoint may land mid-accumulation
+            micro_total = len(self.train_batcher) * tcfg.num_epochs
+            if micro_total % tcfg.grad_accum != 0:
+                warnings.warn(
+                    f"train length ({micro_total} micro-steps) is not a "
+                    f"multiple of grad_accum={tcfg.grad_accum}: the final "
+                    f"{micro_total % tcfg.grad_accum} accumulated "
+                    "micro-gradients never fire an optimizer update and are "
+                    "dropped at the end of train()", stacklevel=2)
         self.state = create_train_state(model, tx, tcfg.seed)
         if tcfg.resume_from:
             self._resume(tcfg.resume_from)
@@ -286,8 +310,8 @@ class Trainer:
 
     def _resume(self, where: str) -> None:
         """Resume the full train state (params, AdamW moments and schedule,
-        step, random streams) from a port checkpoint, or the params alone
-        from a final export."""
+        the partial gradient sum under ``grad_accum``, step, random streams)
+        from a port checkpoint, or the params alone from a final export."""
         if where == "auto":
             assert self.ckpt is not None, "resume_from='auto' needs save_dir"
             step = self.ckpt.latest_step()
@@ -322,8 +346,8 @@ class Trainer:
             batches, step = self._hidden_eval, self._hidden_eval_step
         else:
             if self._eval_cache is None:  # the eval set and its batching are static
-                self._eval_cache = [(b, DeviceBatch.from_host(b, self.device))
-                                    for b in self.eval_batcher.epoch(epoch_seed=0)]
+                self._eval_cache = list(prefetch_device_batches(
+                    self.eval_batcher.epoch(epoch_seed=0), self.tcfg.prefetch, self.device))
             batches, step = self._eval_cache, self._eval_step
         refs, hyps, losses = [], [], []
         ad_correct = ad_total = 0
@@ -373,9 +397,9 @@ class Trainer:
                         (*self._features, torch.from_numpy(idx).to(self.device),
                          int(t_b)))
                 return
-        for b in self.train_batcher.epoch(epoch_seed=t.seed + epoch):
-            yield int(b.sample_mask.sum()), (
-                self._train_step, (DeviceBatch.from_host(b, self.device),))
+        for b, db in prefetch_device_batches(
+                self.train_batcher.epoch(epoch_seed=t.seed + epoch), t.prefetch, self.device):
+            yield int(b.sample_mask.sum()), (self._train_step, (db,))
 
     def train(self):
         t = self.tcfg

@@ -53,9 +53,10 @@ def test_stage2_outputs_match_jax(toggle_ratio):
                     gumbel_noise=tuple(torch.from_numpy(n) for n in noise))
 
     fields = [f.name for f in dataclasses.fields(out)]
-    assert len(fields) == 13
+    assert len(fields) == 14 and fields[-1] == "extra_logits"
+    assert out.extra_logits == () and ref.extra_logits == ()  # num_lms 1
     valid = np.asarray(ref.frame_mask).astype(bool)
-    for name in fields:
+    for name in fields[:-1]:
         got, want = getattr(out, name).numpy(), np.asarray(getattr(ref, name))
         assert got.shape == want.shape, name
         if name in EXACT:
