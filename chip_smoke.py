@@ -4,8 +4,9 @@
     python3 chip_smoke.py                  # every phase (the contract's run)
     python3 chip_smoke.py --kernels-only   # phases 1, 2 and 5: build and check
 
-Drives the port's serving path, its stage-0 training path (also with
-grad_accum, remat and prefetch), its federated 3-stage pipeline (also with
+Drives the port's serving path (also streaming through the hub and
+standalone sessions, int16 transport and int8 W8A8 compute), its stage-0
+training path (also with grad_accum, remat and prefetch, and int8), its federated 3-stage pipeline (also with
 FedProx, FedAdam, top-k, secure and compressed aggregation, a
 semi-supervised N-best phase and round checkpoints with their sidecars), its
 system-run chain (extract, svm, detail-wer, feat-scoring) and the tools
@@ -120,13 +121,42 @@ non-zero exit:
    the run that did not stop, bit for bit;
 20. phase 9's stage-1 round card against CPU once each with ``compress_bits
    8`` (nearest), ``secagg_clip_norm`` and ``topk_fraction`` (phase 9's rule);
-21. one JSON line listing each kernel (launches on the main paths, in all
+21. int8 (W8A8) at full width: ``torch._int_mm`` at the projection shapes in
+   both layouts of its second operand (checked, timed beside bf16), ``cli
+   extract -st 2 --compute_dtype int8`` of phase 8's final model against
+   phase 10's bf16 rows (hidden-state cosine > 0.99 per row, the JAX rule;
+   AD votes reported), ``cli transcribe --compute_dtype int8`` beside phase
+   13's transcripts, the engine's batch forward at 8 x 5 s and 8 x 30 s in
+   int8 beside bf16 (24 B1 per forward), then ``cli train -st 0 --int8`` at
+   B=16 for 3 steps: 24 B1 and 24 B2 per step, frozen params bit-unchanged,
+   all finite, step ms beside phase 6's;
+22. int8 card against CPU: one W8A8 product and its int8 grad-input
+   bit-equal; phase 4's 4-layer fp32 model with ``dense_impl="int8"``,
+   teacher-forced: every W8A8 Linear of the card on the CPU model's input
+   to it bit-equal to the CPU's output, every attention core (B1) on the
+   CPU's q, k, v within 1e-4; end to end the AD vote equal and the output
+   distances reported; one ``int8_train`` step by phase 7's rule
+   widened to that noise (loss rtol 2e-3, grad norm 5e-3, 0.5% of the
+   params beyond 0.5 lr);
+23. streaming at full width behind ``cli serve`` (phase 8's final model,
+   stage 2, bf16): 10 streams of 10 s paced at real time in 0.5 s binary
+   chunks, 8 in the hub and 2 standalone (one is ``cli stream-client``):
+   per-feed latency p50 and max, hub passes per hop, bytes uploaded per hub
+   pass and per standalone pass, 24 B1 per pass, the standalone streams equal a replay; then ``cli
+   serve --no_hub``; then ``transport="int16"`` batches against float32
+   (at fp32: votes equal, transcripts within 0.5% edit distance; at bf16
+   both forwards timed);
+24. streaming exactness on the card (the 4-layer model, stage 1, fp32):
+   ``finish()`` equals ``infer_batch`` when nothing finalizes early (greedy
+   and beam + bigram LM), resident equals legacy on every pass, hub members
+   equal standalone sessions; then ``cli stream-report`` prints its rows;
+25. one JSON line listing each kernel (launches on the main paths, in all
    and by dtype: each phase that drives a main path sets the wrappers'
    counts to 0 just before and reads them just after, the fp32 card-vs-CPU
-   phases 4, 7, 9, 11, 18 and 20 included; error against the plain version, times
-   and bound, and under "times" the same numbers at each main-path shape in
-   both dtypes), the card's name and power limit, and last
-   ``{"ok": true, "device": {...}}``.
+   and exactness phases 4, 7, 9, 11, 18, 20, 22 and 24 included; error
+   against the plain version, times and bound, and under "times" the same
+   numbers at each main-path shape in both dtypes), the card's name and
+   power limit, and last ``{"ok": true, "device": {...}}``.
 
 ``--kernels-only`` runs phases 1, 2 and 5 and prints neither of the last
 two lines.
@@ -913,7 +943,11 @@ def train_full_width() -> dict:
 # 7. one training step, card against CPU
 # ---------------------------------------------------------------------------
 
-def train_step_vs_cpu() -> None:
+def train_step_vs_cpu(dense_impl: str = "fp", rtols: tuple = (1e-4, 1e-3),
+                      apart: float = 1e-2) -> None:
+    """Phase 7 (and, with ``dense_impl="int8_train"``, phase 22's step):
+    loss and grad norm held to ``rtols``, at most 0.5% of the param elements
+    further apart than ``apart`` x lr."""
     from privacy_preserve_federated_asr_tpu_torch.data.audio import normalize_input_values
     from privacy_preserve_federated_asr_tpu_torch.data.tokenizer import CTCCharTokenizer
     from privacy_preserve_federated_asr_tpu_torch.models import (
@@ -927,7 +961,8 @@ def train_step_vs_cpu() -> None:
     lr, n_steps = 1e-4, 2
     cfg = DACSConfig(backbone=BackboneConfig.data2vec_audio_large().replace(
         num_hidden_layers=4, hidden_dropout=0.0, activation_dropout=0.0,
-        feat_proj_dropout=0.0, attention_dropout=TRAIN_RATE), stage=0)
+        feat_proj_dropout=0.0, attention_dropout=TRAIN_RATE, dense_impl=dense_impl), stage=0)
+    tag = "train-e2e" if dense_impl == "fp" else f"train-e2e {dense_impl}"
     sd = init_dacs_state_dict(cfg, torch.Generator("cpu").manual_seed(2))
     x = np.zeros((2, 80000), np.float32)
     x[0] = normalize_input_values(_utterance(5.0, 11))
@@ -970,8 +1005,9 @@ def train_step_vs_cpu() -> None:
     m_gpu, p_gpu = run("cuda", feats["cpu"], fl["cpu"])
     m_cpu, p_cpu = run("cpu", feats["cpu"], fl["cpu"])
     m_own, _ = run("cuda", feats["cuda"], fl["cuda"])
-    tally("training step, card vs CPU")
-    log(f"[train-e2e] frontend card vs CPU max|err|/max|ref| {fe_err:.2e}; per step "
+    tally("training step, card vs CPU" if dense_impl == "fp"
+          else f"{dense_impl} training step, card vs CPU")
+    log(f"[{tag}] frontend card vs CPU max|err|/max|ref| {fe_err:.2e}; per step "
         f"(loss, grad norm) card {[(m['loss'], m['grad_norm']) for m in m_gpu]}, CPU "
         f"{[(m['loss'], m['grad_norm']) for m in m_cpu]}, card on its own frontend "
         f"{[(m['loss'], m['grad_norm']) for m in m_own]}")
@@ -979,7 +1015,7 @@ def train_step_vs_cpu() -> None:
     # near-uniform random model moves by ~1e-4 with the exp/log of another
     # library (tests/test_torch_losses.py::test_ctc_long_sequence_matches_jax)
     for a, c in zip(m_gpu, m_cpu):
-        for k, rtol in (("loss", 1e-4), ("grad_norm", 1e-3)):
+        for k, rtol in zip(("loss", "grad_norm"), rtols):
             assert abs(a[k] - c[k]) <= rtol * abs(c[k]), (k, a[k], c[k])
     # Adam divides by |g|, so an element whose gradient is at rounding level
     # moves by up to lr on either device: no bound on the largest difference
@@ -991,14 +1027,14 @@ def train_step_vs_cpu() -> None:
         assert torch.isfinite(p_gpu[k]).all(), k
         diff = (p_gpu[k] - c).abs()
         worst = max(worst, diff.max().item())
-        off += int((diff > 1e-2 * lr).sum())
+        off += int((diff > apart * lr).sum())
     frac = off / sum(v.numel() for v in p_cpu.values())
-    assert frac <= 5e-3, frac
-    log(f"[train-e2e] 4-layer fp32 stage 0, attention dropout {TRAIN_RATE}, {n_steps} "
+    log(f"[{tag}] 4-layer fp32 stage 0, attention dropout {TRAIN_RATE}, {n_steps} "
         f"AdamW steps at lr {lr}: card vs CPU loss {m_gpu[-1]['loss']:.4f} / "
         f"{m_cpu[-1]['loss']:.4f}, grad norm {m_gpu[-1]['grad_norm']:.4f} / "
-        f"{m_cpu[-1]['grad_norm']:.4f} (rtol 1e-4, 1e-3); params max|diff| {worst:.2e}, "
-        f"{frac:.2e} of elements beyond 1e-2 lr (limit 5e-3)")
+        f"{m_cpu[-1]['grad_norm']:.4f} (rtol {rtols[0]:g}, {rtols[1]:g}); params max|diff| "
+        f"{worst:.2e}, {frac:.2e} of elements beyond {apart:g} lr (limit 5e-3)")
+    assert frac <= 5e-3, frac
 
 
 # ---------------------------------------------------------------------------
@@ -2225,6 +2261,667 @@ def federated_aggregators_vs_cpu() -> None:
             f"beyond 1e-2 lr (limit 5e-3); only dementia_head moved")
 
 
+# ---------------------------------------------------------------------------
+# 21. int8 (W8A8) at full width: extract, transcribe, the batch forward and
+#     cli train --int8
+# ---------------------------------------------------------------------------
+
+INT8_STEPS = 3
+INT_MM_SHAPES = ((B * 1499, 1024, 4096), (B * 1499, 4096, 1024), (B * 249, 1024, 1024))
+
+
+def int_mm_layouts() -> dict:
+    """``torch._int_mm`` at the full-width projection shapes [M, K] x [K, N]
+    with the second operand column-major (the forward's transposed weight
+    is so) and row-major: the first 64 rows held equal to an exact int32
+    product on the CPU, each layout timed beside the bf16 product of the
+    same shape (CUDA events). A layout cuBLAS refuses is reported."""
+    g = torch.Generator("cuda").manual_seed(9)
+    out = {}
+    for m, k, n in INT_MM_SHAPES:
+        a = torch.randint(-127, 128, (m, k), generator=g, device="cuda").to(torch.int8)
+        w = torch.randint(-127, 128, (n, k), generator=g, device="cuda").to(torch.int8)
+        want = a[:64].cpu().int() @ w.cpu().int().t()
+        row = {}
+        for layout, b in (("col", w.t()), ("row", w.t().contiguous())):
+            try:
+                got = torch._int_mm(a, b)
+                assert torch.equal(got[:64].cpu(), want), layout
+                row[layout] = cuda_ms(lambda: torch._int_mm(a, b), 20)
+            except RuntimeError as e:
+                row[layout] = f"refused: {str(e).splitlines()[0][:80]}"
+        ab, wb = a.to(torch.bfloat16), w.to(torch.bfloat16)
+        row["bf16"] = cuda_ms(lambda: ab @ wb.t(), 20)
+        out[(m, k, n)] = row
+        log(f"[int8] _int_mm [{m}, {k}] x [{k}, {n}]: column-major B {row['col']} ms, "
+            f"row-major B {row['row']} ms; bf16 product {row['bf16']:.4f} ms  [{card_line()}]")
+    return out
+
+
+def int8_forward_times() -> dict:
+    """The engine's batch forward (``infer_batch``, host clock, 3 runs after
+    one) of data2vec-audio-large DACS stage 2 at 8 x 5 s and 8 x 30 s,
+    ``compute_dtype="int8"`` beside bf16 on the same seeded weights; 24 B1
+    launches per int8 forward; one int8 forward of each bucket under
+    torch.profiler."""
+    from privacy_preserve_federated_asr_tpu_torch.models import (
+        BackboneConfig, DACSConfig, init_dacs_state_dict)
+    from privacy_preserve_federated_asr_tpu_torch.ops.attention import flash_attention_fwd
+    from privacy_preserve_federated_asr_tpu_torch.serving import InferenceEngine, ServingConfig
+
+    cfg = DACSConfig(backbone=BackboneConfig.data2vec_audio_large(), stage=2)
+    sd = init_dacs_state_dict(cfg, torch.Generator("cuda").manual_seed(0))
+    engines = {dt: InferenceEngine(cfg, sd, scfg=ServingConfig(batch_size=B, compute_dtype=dt))
+               for dt in ("bfloat16", "int8")}
+    del sd
+    times, b1 = {}, 0
+    for secs in (5, 30):
+        batch = [_utterance(secs, 200 + i) for i in range(B)]
+        for eng in engines.values():
+            eng.infer_batch(batch)
+        runs = {dt: [] for dt in engines}
+        for dt in ("bfloat16", "int8", "int8", "bfloat16", "bfloat16", "int8"):
+            reset_counts()
+            t0 = time.perf_counter()
+            engines[dt].infer_batch(batch)
+            runs[dt].append(time.perf_counter() - t0)
+            if dt == "int8":
+                assert flash_attention_fwd.launches == LAYERS, flash_attention_fwd.launches
+                b1 += flash_attention_fwd.launches
+                tally("int8 serving")
+        times[secs] = {dt: float(np.mean(v)) * 1e3 for dt, v in runs.items()}
+        prof = profile_forward(engines["int8"], batch)
+        busy = ("not measured" if prof is None else
+                f"device busy {prof['device_ms']:.2f} of {prof['wall_ms']:.2f} ms wall (idle "
+                f"{1 - prof['device_ms'] / prof['wall_ms']:.1%}), B1 "
+                f"{prof['b1_ms'] / prof['device_ms']:.1%} of device time")
+        log(f"[int8] infer_batch of {B} x {secs} s: int8 {times[secs]['int8']:.1f} ms, bf16 "
+            f"{times[secs]['bfloat16']:.1f} ms (mean of 3 each, interleaved); one int8 forward "
+            f"under torch.profiler: {busy}; {LAYERS} B1 launches per int8 forward  "
+            f"[{card_line()}]")
+    del engines
+    torch.cuda.empty_cache()
+    return {"times": times, "b1": b1}
+
+
+def int8_full_width(root: Path, phase6: dict, greedy: list) -> dict:
+    """``cli extract -st 2 --compute_dtype int8`` of phase 8's final model
+    against phase 10's bf16 rows (the JAX rule: hidden-state cosine > 0.99
+    per row; AD votes reported), ``cli transcribe --compute_dtype int8``
+    beside phase 13's bf16 transcripts, the batch forward times and ``cli
+    train -st 0 --int8`` at B=16 for a few steps: 24 B1 and 24 B2 per step,
+    frozen params bit-unchanged, all finite, step ms beside phase 6's."""
+    from privacy_preserve_federated_asr_tpu_torch import cli
+    from privacy_preserve_federated_asr_tpu_torch.evaluation import read_records
+    from privacy_preserve_federated_asr_tpu_torch.ops.attention import (
+        flash_attention_bwd, flash_attention_fwd)
+
+    layouts = int_mm_layouts()  # ops/quant.py passes the column-major one
+    assert all(isinstance(row["col"], float) for row in layouts.values()), layouts
+    n_batches = -(-FL_TEST // FL_BATCH) + -(-FL_TRAIN // FL_BATCH)
+    reset_counts()
+    _, _, wall = _run_cli(root, [*EXTRACT_ARGS, "--compute_dtype", "int8",
+                                 "--csv_out_dir", "res_int8"])
+    ext_b1 = flash_attention_fwd.launches
+    tally("cli extract int8")
+    assert ext_b1 == LAYERS * n_batches, (ext_b1, n_batches)
+    rows8 = {r["path"]: r for name in ("extract.pkl", "extract_train.pkl")
+             for r in read_records(str(root / "res_int8" / name))}
+    rows16 = [r for name in ("extract.pkl", "extract_train.pkl")
+              for r in read_records(str(root / "res_bfloat16" / name))]
+    cos, votes = [], 0
+    for r in rows16:
+        a, b = (x["hidden_states"].astype(np.float64).ravel() for x in (rows8[r["path"]], r))
+        assert np.isfinite(a).all(), r["path"]
+        cos.append(float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b))))
+        votes += rows8[r["path"]]["pred_AD"] == r["pred_AD"]
+    assert min(cos) > 0.99, min(cos)
+    log(f"[int8] cli extract -st 2 --compute_dtype int8 (phase 8's final model, batch "
+        f"{FL_BATCH}): {len(rows16)} rows in {wall:.2f} s of host time, B1 {ext_b1} = "
+        f"{LAYERS} x {n_batches} batches; hidden states against the bf16 rows: cosine min "
+        f"{min(cos):.5f}, mean {np.mean(cos):.5f} (rule > 0.99); pred_AD equal on {votes} of "
+        f"{len(rows16)}  [{card_line()}]")
+
+    rows, twall, tr_b1 = _transcribe(root, FINAL, "-st", "2", "--compute_dtype", "int8",
+                                     phase="cli transcribe int8")
+    assert tr_b1 == LAYERS * -(-FL_TEST // FL_BATCH), tr_b1
+    assert [r["path"] for r in rows] == [r["path"] for r in greedy]
+    same = sum(a["transcript"] == b["transcript"] for a, b in zip(rows, greedy))
+    same_ad = sum(a["ad_pred"] == b["ad_pred"] for a, b in zip(rows, greedy))
+    log(f"[int8] cli transcribe -st 2 --compute_dtype int8: {len(rows)} WAVs in {twall:.2f} s "
+        f"of host time, B1 {tr_b1}; against the bf16 transcripts: {same} of {len(rows)} "
+        f"equal, AD votes equal on {same_ad}")
+
+    fwd = int8_forward_times()
+
+    b = BWD_SHAPES[0][0]
+    data = root / "int8"
+    _write_corpus(data / "data", b * INT8_STEPS, b)
+    args = ["train", "--model_type", "data2vec", "-st", "0", "--int8",
+            "--compute_dtype", "bfloat16", "--train_batch_size", str(b),
+            "--eval_batch_size", str(b), "--epochs", "1", "--seed", "0", "-lr", "1e-5",
+            "--audio_dir", "data/clips", "--train_csv", "data/train.csv",
+            "--test_csv", "data/test.csv", "--spk2label", "data/spk2label.npy",
+            "--dataset_cache", "cache", "-model_out", "out", "--device", "cuda"]
+    reset_counts()
+    tr, out, twall = _run_cli(data, args)
+    b1, b2 = flash_attention_fwd.launches, flash_attention_bwd.launches
+    tally("cli train --int8")
+    steps, n_eval = tr.state.step, len(tr.eval_batcher)
+    ev = _last_json(out)
+    assert tr.cfg.backbone.dense_impl == "int8_train" and steps == INT8_STEPS, steps
+    assert b1 == LAYERS * (steps + n_eval) and b2 == LAYERS * steps, (b1, b2, steps, n_eval)
+    assert all(np.isfinite(v) for v in ev.values()), ev
+    init = cli.load_weights(tr.cfg, None, 0, "cuda")
+    final = tr.state.model.state_dict()
+    for k, v in final.items():
+        assert torch.equal(v, init[k]) == k.startswith(FROZEN_AT_STAGE0), k
+        assert torch.isfinite(v).all(), k
+    times, batches = [], (x for epoch in range(1, 4) for x in tr.train_batches(epoch))
+    for _ in range(6):
+        n_real, (fn, fn_args) = next(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = fn(tr.state, *fn_args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        assert np.isfinite(float(m["loss"])), m
+    step_s = float(np.mean(times[2:]))
+    log(f"[int8] cli train -st 0 --int8 (W8A8 + SwitchBack gradients, bf16, batch {b}): "
+        f"{steps} steps + evaluate() in {twall:.1f} s; eval {ev}; launches B1 {b1} = {LAYERS} "
+        f"x ({steps} + {n_eval} eval), B2 {b2} = {LAYERS} x {steps}; frozen params "
+        f"bit-unchanged, every trainable one moved, all finite; step {step_s * 1e3:.1f} ms "
+        f"mean over {len(times) - 2} (min {min(times[2:]) * 1e3:.1f}), {b / step_s:.1f} utt/s; "
+        f"phase 6's bf16 step {phase6['step_s'] * 1e3:.1f} ms  [{card_line()}]")
+    del tr, init, final
+    torch.cuda.empty_cache()
+    return {"b1": ext_b1 + tr_b1 + fwd["b1"] + b1, "b2": b2, "forward_ms": fwd["times"],
+            "step_s": step_s, "layouts": layouts}
+
+
+# ---------------------------------------------------------------------------
+# 22. int8 card against CPU
+# ---------------------------------------------------------------------------
+
+# the int8_train step: loss and grad norm rtol, and "apart" in units of lr
+INT8_TRAIN_RTOLS, INT8_TRAIN_APART = (2e-3, 5e-3), 0.5
+
+
+def _capture_int8_layers(model) -> tuple[dict, dict, list]:
+    """Forward hooks on ``model``: every W8A8 ``Linear``'s (input, output)
+    by module name, and every ``Attention``'s key mask; returns (linears,
+    masks, handles)."""
+    from privacy_preserve_federated_asr_tpu_torch.models.backbone import Attention, Linear
+
+    linears, masks, handles = {}, {}, []
+    for name, m in model.named_modules():
+        if isinstance(m, Linear) and m.dense_impl == "int8":
+            handles.append(m.register_forward_hook(
+                lambda mod, args, y, n=name: linears.__setitem__(n, (args[0], y))))
+        elif isinstance(m, Attention):
+            handles.append(m.register_forward_pre_hook(
+                lambda mod, args, n=name: masks.__setitem__(n, args[1])))
+    return linears, masks, handles
+
+
+def int8_vs_cpu() -> None:
+    """One W8A8 product on the same operands, card against CPU: the
+    forward and the int8 grad-input bit-equal (the codes, the int32 sums
+    and the fp32 rescale are exact), the grad-weight (fp32 in another
+    order) within 1e-5 of its largest value. Then phase 4's 4-layer fp32
+    model with ``dense_impl="int8"``, teacher-forced: each W8A8 ``Linear``
+    of the card's model (the feature projection, q/k/v/out and the FFN of
+    every layer) on the input that the CPU's model gave the same module,
+    bit-equal to the CPU's output; each layer's attention core (kernel B1)
+    on the CPU's q, k, v within phase 1's fp32 tolerance of the CPU's
+    context. End to end the two models are compared only by AD vote (equal)
+    and reported: a quantized network amplifies a rounding-level difference
+    (an activation on a rounding edge moves its row by one quantum, which
+    flips further codes downstream) to the order of the quantization noise,
+    so no limit on the output distance separates a sound card model from
+    one wrong by that much; the distance of the CPU's int8 output from its
+    fp32 output is printed beside it. Then one ``int8_train`` step: loss and
+    grad norm within ``INT8_TRAIN_RTOLS``, at most 0.5% of the param
+    elements further apart than ``INT8_TRAIN_APART`` lr (a flipped gradient
+    sign moves an element up to 2 lr per Adam step)."""
+    from privacy_preserve_federated_asr_tpu_torch.data.audio import normalize_input_values
+    from privacy_preserve_federated_asr_tpu_torch.data.tokenizer import CTCCharTokenizer
+    from privacy_preserve_federated_asr_tpu_torch.models import (
+        BackboneConfig, DACSConfig, DACSModel, feat_extract_output_lengths, get_recipe,
+        init_dacs_state_dict)
+    from privacy_preserve_federated_asr_tpu_torch.ops import quant
+    from privacy_preserve_federated_asr_tpu_torch.ops.attention import (
+        hash_stride, multihead_attention)
+    from privacy_preserve_federated_asr_tpu_torch.ops.decode import ad_vote, greedy_ids
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator("cpu").manual_seed(4)
+    xs = torch.randn((3, 499, 1024), generator=g)
+    w = torch.randn((4096, 1024), generator=g) * 0.03
+    got = {}
+    for dev in ("cuda", "cpu"):
+        a = xs.to(dev).requires_grad_()
+        wd = w.to(dev).requires_grad_()
+        quant.int8_train_linear(a, wd).square().sum().backward()
+        got[dev] = [t.detach().cpu() for t in (quant.int8_linear(a.detach(), wd.detach()),
+                                                a.grad, wd.grad)]
+    (y_g, dx_g, dw_g), (y_c, dx_c, dw_c) = got["cuda"], got["cpu"]
+    dw_err = ((dw_g - dw_c).abs().max() / dw_c.abs().max()).item()
+    assert torch.equal(y_g, y_c) and torch.equal(dx_g, dx_c) and dw_err <= 1e-5, dw_err
+    log(f"[int8-e2e] one W8A8 product [1497, 1024] x [1024, 4096], card vs CPU: forward and "
+        f"int8 grad-input bit-equal, grad-weight max|err|/max|ref| {dw_err:.2e}")
+
+    base = BackboneConfig.data2vec_audio_large().replace(num_hidden_layers=4)
+    cfg = DACSConfig(backbone=base.replace(dense_impl="int8"), stage=2)
+    sd = init_dacs_state_dict(cfg, torch.Generator("cpu").manual_seed(1))
+    x = normalize_input_values(_utterance(5.0, 7))[None]
+    lengths = np.array([x.shape[1]], np.int32)
+    t = feat_extract_output_lengths(cfg.backbone, x.shape[1])
+    rng = np.random.default_rng(3)
+    noise = [rng.gumbel(size=(1, t, cfg.hidden_size, 2)).astype(np.float32) for _ in range(2)]
+    tok = CTCCharTokenizer()
+    outs, models = {}, {}
+    reset_counts()  # the CPU runs the plain version: only the card's launches count
+    for name, dev, c in (("cuda", "cuda", cfg), ("cpu", "cpu", cfg),
+                         ("cpu fp", "cpu", cfg.replace(backbone=base))):
+        with torch.device("meta"):
+            model = DACSModel(c, torch.float32)
+        model = model.to_empty(device=dev)
+        model.load_state_dict(sd, strict=True)
+        models[name] = model.eval()
+        handles = []
+        if name == "cpu":
+            linears, masks, handles = _capture_int8_layers(model)
+        with torch.inference_mode():
+            out = model(torch.from_numpy(x).to(dev), torch.from_numpy(lengths).to(dev),
+                        gumbel_noise=tuple(torch.from_numpy(n).to(dev) for n in noise))
+            logits, dlog = get_recipe(c.method).eval_streams(out, c)  # what serving reads
+            ids = greedy_ids(logits, out.frame_mask)[0].cpu()
+            outs[name] = {**{k: getattr(out, k).float().cpu() for k in (
+                "hidden_states", "logits_unmask")}, "ids": ids,
+                "vote": int(ad_vote(dlog, out.frame_mask)[0]), "text": tok.decode(ids.numpy())}
+        for hd in handles:
+            hd.remove()
+    # teacher-forced: the card's modules on the CPU model's own inputs
+    card = dict(models["cuda"].named_modules())
+    bb = cfg.backbone
+    assert len(linears) == 1 + 6 * bb.num_hidden_layers and len(masks) == bb.num_hidden_layers
+    attn_err = 0.0
+    with torch.inference_mode():
+        for n, (xin, y) in linears.items():
+            yc = card[n](xin.cuda()).cpu()
+            assert torch.equal(yc, y), (n, (yc - y).abs().max().item())
+        for n, mask in masks.items():
+            q, k, v = (linears[f"{n}.{p}_proj"][1] for p in "qkv")
+            b_, t_, _ = q.shape
+            heads = [z.cuda().view(b_, t_, bb.num_attention_heads, bb.head_dim)
+                     for z in (q, k, v)]
+            ctx = multihead_attention(*heads, None if mask is None else mask.cuda(), 0.0, 0,
+                                      hash_stride(t_))
+            err = (ctx.reshape(b_, t_, -1).cpu() - linears[f"{n}.out_proj"][0]).abs().max()
+            attn_err = max(attn_err, err.item())
+    assert attn_err <= TOL[torch.float32]["atol"], attn_err
+    tally("int8, card vs CPU")
+    gc, cc, fc = outs["cuda"], outs["cpu"], outs["cpu fp"]
+    report = []
+    for k in ("hidden_states", "logits_unmask"):
+        assert gc[k].shape == cc[k].shape and bool(torch.isfinite(gc[k]).all()), k
+        err = ((gc[k] - cc[k]).norm() / cc[k].norm()).item()
+        q = ((cc[k] - fc[k]).norm() / fc[k].norm()).item()
+        report.append(f"{k} {err:.2e} (CPU int8 against CPU fp32 {q:.2e})")
+    same = (gc["ids"] == cc["ids"]).float().mean().item()
+    assert gc["vote"] == cc["vote"], (gc["vote"], cc["vote"])
+    log(f"[int8-e2e] 4-layer fp32 stage 2, dense_impl int8, 5 s, teacher-forced on the CPU "
+        f"model's inputs: all {len(linears)} W8A8 Linears of the card bit-equal to the CPU's, "
+        f"the {len(masks)} attention cores (B1) max|err| {attn_err:.2e} (limit "
+        f"{TOL[torch.float32]['atol']:g}); end to end (reported, no limit): relative distance "
+        f"{'; '.join(report)}; greedy ids equal on {same:.1%} of {t} frames; AD vote equal; "
+        f"transcripts {'equal' if gc['text'] == cc['text'] else 'differ'}, edit distance "
+        f"{_edit_distance(gc['text'], cc['text'])} of {len(cc['text'])} characters")
+    del models
+    train_step_vs_cpu(dense_impl="int8_train", rtols=INT8_TRAIN_RTOLS, apart=INT8_TRAIN_APART)
+
+
+def _edit_distance(a: str, b: str) -> int:
+    prev = list(range(len(b) + 1))
+    for i, ca in enumerate(a, 1):
+        cur = [i]
+        for j, cb in enumerate(b, 1):
+            cur.append(min(prev[j] + 1, cur[-1] + 1, prev[j - 1] + (ca != cb)))
+        prev = cur
+    return prev[-1]
+
+
+# ---------------------------------------------------------------------------
+# 23. streaming at full width behind the HTTP server
+# ---------------------------------------------------------------------------
+
+STREAMS, HUB_ROWS, STREAM_S, CHUNK_S = 10, B, 10.0, 0.5
+
+
+def _post_json(url: str) -> dict:
+    req = urllib.request.Request(url, data=b"{}", headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return json.load(r)
+
+
+def _feed_stream(url: str, sid: str, audio: np.ndarray, lat: list) -> dict:
+    """Feed ``audio`` to stream ``sid`` in CHUNK_S binary chunks paced at
+    real time; each feed's latency into ``lat``; returns the finish reply."""
+    n = int(CHUNK_S * 16000)
+    t_next = time.perf_counter()
+    for i in range(0, len(audio), n):
+        _, dt = _post(f"{url}/stream/{sid}", audio[i : i + n], "f32")
+        lat.append(dt)
+        t_next += CHUNK_S
+        time.sleep(max(t_next - time.perf_counter(), 0.0))
+    return _post_json(f"{url}/stream/{sid}/finish")
+
+
+@contextlib.contextmanager
+def _cli_server(root: Path, *extra: str):
+    """``cli serve`` of phase 8's final model at stage 2 (bf16) in a
+    thread, warmed (the batch forward and the resident streaming forwards
+    of every bucket); yields (url, the server, the engine)."""
+    import socket
+
+    from privacy_preserve_federated_asr_tpu_torch import cli
+    from privacy_preserve_federated_asr_tpu_torch.serving import server
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    made, make = [], server.make_server
+    server.make_server = lambda engine, *a, **kw: made.append((make(engine, *a, **kw),
+                                                               engine)) or made[-1][0]
+    th = threading.Thread(target=lambda: cli.main(
+        ["serve", *MODEL_ARGS, "-st", "2", "-model_in", str(root / FINAL),
+         "--port", str(port), *extra]), daemon=True)
+    t0 = time.perf_counter()
+    th.start()
+    try:
+        deadline = time.time() + 600
+        while not made and th.is_alive() and time.time() < deadline:
+            time.sleep(0.1)
+        assert made, "cli serve did not start"
+        log(f"[stream] cli serve {' '.join(extra)}: loaded and warmed in "
+            f"{time.perf_counter() - t0:.1f} s")
+        yield f"http://127.0.0.1:{port}", made[0][0], made[0][1]
+    finally:
+        server.make_server = make
+        if made:
+            made[0][0].shutdown()
+        th.join(timeout=60)
+    assert not th.is_alive(), "cli serve did not stop"
+
+
+def _replay(engine, audio: np.ndarray) -> object:
+    """A standalone session of ``engine`` fed ``audio`` in CHUNK_S chunks."""
+    from privacy_preserve_federated_asr_tpu_torch.serving import StreamingSession
+
+    s = StreamingSession(engine)
+    n = int(CHUNK_S * 16000)
+    for i in range(0, len(audio), n):
+        s.feed(audio[i : i + n])
+    return s.finish()
+
+
+def streaming_full_width(root: Path) -> dict:
+    """``cli serve`` (stage 2, bf16): 8 streams of 10 s through the hub and
+    2 that fall back to standalone sessions (one of them ``cli
+    stream-client``), paced at real time in 0.5 s binary chunks; per-feed
+    latency, hub passes per hop, bytes uploaded per hub pass and per
+    standalone pass, 24 B1 per pass;
+    the standalone streams equal a replay. Then a ``--no_hub`` server, then
+    ``transport="int16"`` batches against float32."""
+    from scipy.io import wavfile
+
+    from privacy_preserve_federated_asr_tpu_torch import cli
+    from privacy_preserve_federated_asr_tpu_torch.data.audio import load_audio
+    from privacy_preserve_federated_asr_tpu_torch.models import feat_extract_output_lengths
+    from privacy_preserve_federated_asr_tpu_torch.ops.attention import flash_attention_fwd
+
+    audios = [_utterance(STREAM_S, 4000 + i) for i in range(STREAMS)]
+    wav = root / "stream.wav"
+    wavfile.write(wav, 16000, (np.clip(audios[-1], -1, 1) * 32767).astype(np.int16))
+    hops = int(STREAM_S / CHUNK_S)
+    out, b1 = {}, 0
+    with _cli_server(root) as (url, srv, engine):
+        frames = feat_extract_output_lengths(engine.cfg.backbone, len(audios[0]))
+        sids = [_post_json(f"{url}/stream/start")["session"] for _ in range(STREAMS - 1)]
+        hub = srv.stream_hub
+        assert hub.active_sessions() == HUB_ROWS and len(srv.stream_sessions) == STREAMS - 1
+        lat = [[] for _ in sids]
+        reset_counts()
+        f0, h0, p0 = engine.forwards, engine.h2d_bytes, hub.passes
+        client_out = io.StringIO()
+        with contextlib.redirect_stdout(client_out), ThreadPoolExecutor(STREAMS) as pool:
+            futs = [pool.submit(_feed_stream, url, sid, audios[k], lat[k])
+                    for k, sid in enumerate(sids)]
+            port = url.rsplit(":", 1)[1]
+            client = pool.submit(cli.main, ["stream-client", "--port", port, "--audio",
+                                            str(wav), "--chunk_seconds", str(CHUNK_S)])
+            finals = [f.result() for f in futs] + [client.result()]
+        launches, forwards = flash_attention_fwd.launches, engine.forwards - f0
+        passes, up = hub.passes - p0, engine.h2d_bytes - h0
+        tally("streaming, cli serve")
+        b1 += launches
+        assert launches == LAYERS * forwards, (launches, forwards)
+        assert len(client_out.getvalue().strip().splitlines()) == hops + 1
+        for r in finals:
+            assert r["is_final"] and r["total_frames"] == r["final_frames"] == frames, r
+        # the standalone streams replayed alone on the idle server's engine:
+        # the same chunks make the same passes and uploads, which splits the
+        # bytes uploaded between the hub's passes and the standalone ones
+        s0, sf0 = engine.h2d_bytes, engine.forwards
+        solo = [_replay(engine, audios[HUB_ROWS]),
+                _replay(engine, load_audio(str(wav), normalize=False))]
+        solo_up, solo_fwd = engine.h2d_bytes - s0, engine.forwards - sf0
+        for r, want in zip(finals[HUB_ROWS:], solo):
+            assert r["transcript"] == want.transcript and r["ad_pred"] == want.ad_pred, r
+        hub_lat = sorted(x for k in range(HUB_ROWS) for x in lat[k])
+        solo_lat = sorted(lat[HUB_ROWS])
+        standalone = forwards - passes
+        assert solo_fwd == standalone, (solo_fwd, standalone)
+        out["hub"] = {"p50": hub_lat[len(hub_lat) // 2], "max": hub_lat[-1],
+                      "passes_per_hop": (passes - HUB_ROWS) / hops, "passes": passes,
+                      "standalone_passes": standalone,
+                      "bytes_per_pass": (up - solo_up) / passes,
+                      "solo_bytes_per_pass": solo_up / solo_fwd,
+                      "solo_p50": solo_lat[len(solo_lat) // 2], "solo_max": solo_lat[-1]}
+        h = out["hub"]
+        log(f"[stream] {STREAMS} streams of {STREAM_S:.0f} s in {CHUNK_S} s binary chunks at "
+            f"real time ({HUB_ROWS} in the hub, 2 standalone, one of them cli stream-client): "
+            f"hub feeds p50 {h['p50'] * 1e3:.1f} ms, max {h['max'] * 1e3:.1f} ms; standalone "
+            f"feeds p50 {h['solo_p50'] * 1e3:.1f} ms, max {h['solo_max'] * 1e3:.1f} ms; hub "
+            f"passes {passes} ({h['passes_per_hop']:.2f} per hop over {hops} hops, + "
+            f"{HUB_ROWS} finishes), standalone passes {standalone}; uploaded "
+            f"{h['bytes_per_pass'] / 1e3:.1f} kB per hub pass, "
+            f"{h['solo_bytes_per_pass'] / 1e3:.1f} kB per standalone pass; B1 {launches} = {LAYERS} x {forwards} passes; finals "
+            f"complete ({frames} frames), the standalone streams equal a replay  "
+            f"[{card_line()}]")
+
+    with _cli_server(root, "--no_hub") as (url, srv, engine):
+        assert srv.stream_hub is None
+        n = 4
+        sids = [_post_json(f"{url}/stream/start")["session"] for _ in range(n)]
+        lat = [[] for _ in sids]
+        reset_counts()
+        f0, h0 = engine.forwards, engine.h2d_bytes
+        with ThreadPoolExecutor(n) as pool:
+            finals = list(pool.map(lambda k: _feed_stream(url, sids[k], audios[k], lat[k]),
+                                   range(n)))
+        launches, forwards = flash_attention_fwd.launches, engine.forwards - f0
+        tally("streaming, cli serve --no_hub")
+        b1 += launches
+        assert launches == LAYERS * forwards and forwards == n * (hops + 1), (launches, forwards)
+        for r in finals:
+            assert r["is_final"] and r["total_frames"] == frames, r
+        allat = sorted(x for v in lat for x in v)
+        out["no_hub"] = {"p50": allat[len(allat) // 2], "max": allat[-1],
+                         "bytes_per_pass": (engine.h2d_bytes - h0) / forwards}
+        log(f"[stream] cli serve --no_hub, {n} streams of {STREAM_S:.0f} s at real time: feeds "
+            f"p50 {out['no_hub']['p50'] * 1e3:.1f} ms, max {out['no_hub']['max'] * 1e3:.1f} ms; "
+            f"{forwards} standalone passes (one per feed and finish), "
+            f"{out['no_hub']['bytes_per_pass'] / 1e3:.1f} kB uploaded per pass; B1 {launches}  "
+            f"[{card_line()}]")
+    out["int16"], n16 = int16_transport()
+    return {"b1": b1 + n16, **out}
+
+
+INT16_CER = 0.005  # of a transcript's characters, int16 against float32 at fp32
+
+
+def int16_transport() -> tuple[dict, int]:
+    """``transport="int16"`` against float32, engines on the same seeded
+    data2vec-audio-large DACS stage-2 weights, full batches of 8 x 5 s and 8
+    x 30 s. At fp32 compute, where the int16 rounding of the input (~3e-5 of
+    its peak) is the only difference: AD votes equal, AD probabilities
+    within 1e-3, transcripts within an edit distance of ``INT16_CER`` of
+    their length (random weights leave near-tied frames that the rounding
+    flips). At bf16, the serving dtype: both engines warmed on the two
+    buckets (``warmup_buckets``), then both forwards timed (host clock, 3
+    runs each, interleaved) and the bytes each uploads."""
+    from privacy_preserve_federated_asr_tpu_torch.models import (
+        BackboneConfig, DACSConfig, init_dacs_state_dict)
+    from privacy_preserve_federated_asr_tpu_torch.ops.attention import flash_attention_fwd
+    from privacy_preserve_federated_asr_tpu_torch.serving import InferenceEngine, ServingConfig
+
+    cfg = DACSConfig(backbone=BackboneConfig.data2vec_audio_large(), stage=2)
+    sd = init_dacs_state_dict(cfg, torch.Generator("cuda").manual_seed(0))
+    engines = {(tr, dt): InferenceEngine(cfg, sd, scfg=ServingConfig(
+        batch_size=B, transport=tr, compute_dtype=dt, warmup_buckets=(5 * 16000, 30 * 16000)))
+        for tr in ("float32", "int16") for dt in ("float32", "bfloat16")}
+    del sd
+    for tr in ("float32", "int16"):  # the timed engines: their buckets warm
+        assert engines[tr, "bfloat16"].warmup() == 2
+    out, b1 = {}, 0
+    for secs in (5, 30):
+        batch = [_utterance(secs, 500 + i) for i in range(B)]
+        reset_counts()
+        got = {tr: engines[tr, "float32"].infer_batch(batch) for tr in ("float32", "int16")}
+        assert flash_attention_fwd.launches == 2 * LAYERS
+        b1 += flash_attention_fwd.launches
+        tally("int16 transport")
+        edits = []
+        for a, c in zip(got["int16"], got["float32"]):
+            assert (a.ad_pred, a.frames) == (c.ad_pred, c.frames)
+            assert abs(a.ad_prob - c.ad_prob) <= 1e-3, (a.ad_prob, c.ad_prob)
+            edits.append(_edit_distance(a.transcript, c.transcript))
+            assert edits[-1] <= INT16_CER * len(c.transcript), (edits[-1], len(c.transcript))
+        runs, up = {tr: [] for tr in ("float32", "int16")}, {}
+        for tr in ("float32", "int16", "int16", "float32", "float32", "int16"):
+            eng = engines[tr, "bfloat16"]
+            reset_counts()
+            h0 = eng.h2d_bytes
+            t0 = time.perf_counter()
+            eng.infer_batch(batch)
+            runs[tr].append(time.perf_counter() - t0)
+            up[tr] = eng.h2d_bytes - h0
+            assert flash_attention_fwd.launches == LAYERS
+            b1 += LAYERS
+            tally("int16 transport")
+        out[secs] = {tr: float(np.mean(v)) * 1e3 for tr, v in runs.items()}
+        log(f"[int16] {B} x {secs} s at fp32: AD votes equal, transcripts equal on "
+            f"{edits.count(0)} of {B} (edit distances {edits}, limit {INT16_CER:.1%} of "
+            f"~{len(got['float32'][0].transcript)} characters); infer_batch at bf16: int16 "
+            f"{out[secs]['int16']:.1f} ms ({up['int16'] / 1e6:.2f} MB uploaded), float32 "
+            f"{out[secs]['float32']:.1f} ms ({up['float32'] / 1e6:.2f} MB)  [{card_line()}]")
+    del engines
+    torch.cuda.empty_cache()
+    return out, b1
+
+
+# ---------------------------------------------------------------------------
+# 24. streaming exactness on the card (stage 1, fp32)
+# ---------------------------------------------------------------------------
+
+def streaming_exact(root: Path) -> None:
+    """The 4-layer fp32 model at stage 1 (no Gumbel noise): with right
+    context >= the utterance, ``finish()`` equals ``infer_batch``; resident
+    equals legacy on every pass; hub members equal standalone sessions;
+    beam + bigram LM streaming equals the batch beam; then ``cli
+    stream-report`` of phase 8's final model prints its rows."""
+    from privacy_preserve_federated_asr_tpu_torch import cli
+    from privacy_preserve_federated_asr_tpu_torch.data.tokenizer import CTCCharTokenizer
+    from privacy_preserve_federated_asr_tpu_torch.models import (
+        BackboneConfig, DACSConfig, init_dacs_state_dict)
+    from privacy_preserve_federated_asr_tpu_torch.ops.beam import CharBigramLM
+    from privacy_preserve_federated_asr_tpu_torch.serving import (
+        InferenceEngine, ServingConfig, StreamingConfig, StreamingHub, StreamingSession)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = DACSConfig(backbone=BackboneConfig.data2vec_audio_large().replace(
+        num_hidden_layers=4), stage=1)
+    sd = init_dacs_state_dict(cfg, torch.Generator("cuda").manual_seed(5))
+    tok = CTCCharTokenizer()
+    lm = CharBigramLM(cfg.backbone.vocab_size).fit([tok.encode(s) for s in SENTENCES])
+    scfg = dict(batch_size=4, max_seconds=10.0, compute_dtype="float32")
+    eng = InferenceEngine(cfg, sd, tok, ServingConfig(**scfg))
+    beng = InferenceEngine(cfg, sd, tok, ServingConfig(**scfg, beam_size=8), lm_fn=lm)
+    audio = _utterance(4.0, 21)
+    sec = 16000
+    reset_counts()
+
+    def feed(s, a):
+        return [s.feed(a[i : i + sec]) for i in range(0, len(a), sec)]
+
+    wide = StreamingConfig(right_context_seconds=10.0, min_hop_seconds=0.0)
+    for e in (eng, beng):
+        s = StreamingSession(e, wide)
+        assert all(r.final_frames == 0 for r in feed(s, audio))
+        got, want = s.finish(), e.infer_batch([audio])[0]
+        assert (got.transcript, got.ad_pred, got.total_frames) == (
+            want.transcript, want.ad_pred, want.frames), (got, want)
+        assert abs(got.ad_prob - want.ad_prob) < 1e-5
+    narrow = dict(right_context_seconds=0.4, min_hop_seconds=0.0)
+    res = StreamingSession(eng, StreamingConfig(**narrow))
+    leg = StreamingSession(eng, StreamingConfig(**narrow, resident=False))
+    for i in range(0, len(audio), sec):
+        a, b = res.feed(audio[i : i + sec]), leg.feed(audio[i : i + sec])
+        assert (res._final_ids, res._tail_ids) == (leg._final_ids, leg._tail_ids), i
+        assert (a.transcript, a.final_frames) == (b.transcript, b.final_frames), i
+    assert res.finish().transcript == leg.finish().transcript
+    # members of one length, so that every hub pass and every standalone
+    # pass runs in the same time bucket (across buckets the last frames
+    # differ by design: the stacked positional convs see zeroed padding only
+    # at their first layer)
+    hub = StreamingHub(eng, StreamingConfig(**narrow))
+    others = [_utterance(4.0, 30 + k) for k in range(3)]
+    members = [hub.open() for _ in others]
+    solos = [StreamingSession(eng, StreamingConfig(**narrow)) for _ in others]
+    for i in range(0, 4 * sec, sec):
+        for m, s, a in zip(members, solos, others):
+            x, y = m.feed(a[i : i + sec]), s.feed(a[i : i + sec])
+            assert (x.transcript, x.final_frames) == (y.transcript, y.final_frames)
+    for m, s in zip(members, solos):
+        x, y = m.finish(), s.finish()
+        assert (x.transcript, x.ad_pred, x.total_frames) == (y.transcript, y.ad_pred,
+                                                             y.total_frames)
+    tally("streaming exactness")
+    log(f"[stream-e2e] 4-layer fp32 stage 1 on the card: finish() with right context >= "
+        f"the utterance equals infer_batch (greedy and beam 8 + bigram LM); resident equals "
+        f"legacy on every pass; {len(members)} hub members equal standalone sessions "
+        f"({hub.passes} hub passes)")
+    del eng, beng
+    reset_counts()
+    rows, text, wall = _run_cli(root, [
+        "stream-report", "--model_type", "data2vec", "-st", "1", "-model_in", FINAL,
+        "--compute_dtype", "float32", "--eval_batch_size", "1", "--audio_dir", "data/clips",
+        "--test_csv", "data/test.csv", "--spk2label", "data/spk2label.npy",
+        "--dataset_cache", "cache", "--max_utts", "2", "--right_context_grid", "0.25", "1.0",
+        "10", "--hop_seconds", "0.5", "--device", "cuda"])
+    tally("cli stream-report")
+    printed = [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+    assert printed == rows and [r["right_context_seconds"] for r in rows] == [0.25, 1.0, 10.0]
+    assert rows[-1]["finalized_frames"] == 0 and rows[0]["finalized_frames"] > 0, rows
+    log(f"[stream-e2e] cli stream-report -st 1 (phase 8's final model, fp32, 2 test WAVs): "
+        f"{wall:.1f} s; rows {rows}")
+    torch.cuda.empty_cache()
+
+
 def _shape_times(row: dict, **shape) -> dict:
     return {**shape, **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                             "library_ms")}}
@@ -2266,6 +2963,10 @@ def main(argv=None) -> None:
         accum_remat_vs_cpu()
         fl_opts = federated_options_full_width(root)
         federated_aggregators_vs_cpu()
+        int8 = int8_full_width(root, training, transcribe["greedy"])
+        int8_vs_cpu()
+        streaming = streaming_full_width(root)
+        streaming_exact(root)
     tools_b1 = (sum(transcribe["launches"].values()) + sum(export["launches"].values())
                 + sweep["b1"])
     by_dtype = {name: {dt: sum(c.get(name, {}).get(dt, 0) for c in COUNTS.values())
@@ -2274,11 +2975,14 @@ def main(argv=None) -> None:
     # launches of the fp32 card-vs-CPU phases besides
     e2e = ("serving, card vs CPU", "training step, card vs CPU",
            "federated round, card vs CPU", "extraction, card vs CPU",
-           "grad_accum and remat, card vs CPU", "aggregators, card vs CPU")
+           "grad_accum and remat, card vs CPU", "aggregators, card vs CPU",
+           "int8, card vs CPU", "int8_train training step, card vs CPU",
+           "streaming exactness", "cli stream-report")
     main_b1 = (serving["launches"] + training["b1"] + federated["b1"]
-               + sum(chain["launches"].values()) + tools_b1 + accum["b1"] + fl_opts["b1"])
+               + sum(chain["launches"].values()) + tools_b1 + accum["b1"] + fl_opts["b1"]
+               + int8["b1"] + streaming["b1"])
     main_b2 = (training["b2"] + federated["b2"] + sweep["b2"] + accum["b2"]
-               + fl_opts["b2"])
+               + fl_opts["b2"] + int8["b2"])
     assert sum(sum(c["flash_fwd"].values()) for p, c in COUNTS.items() if p not in e2e) \
         == main_b1, (COUNTS, main_b1)
     assert sum(sum(c["flash_bwd"].values()) for p, c in COUNTS.items() if p not in e2e) \

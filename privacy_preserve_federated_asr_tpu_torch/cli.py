@@ -11,7 +11,13 @@ package's subcommands of those names, same flag names).
         --global_ep 30 --audio_dir ... --train_csv ... --test_csv ... \
         --spk2label ... -model_out ./saves/model
     python -m privacy_preserve_federated_asr_tpu_torch.cli serve \
-        --model_type data2vec --STAGE 2 --port 8008 [--model_in ckpt.bin]
+        --model_type data2vec --STAGE 2 --port 8008 [--model_in ckpt.bin] \
+        [--compute_dtype int8] [--transport int16] [--no_hub]
+    python -m privacy_preserve_federated_asr_tpu_torch.cli stream-client \
+        --port 8008 --audio clip.wav --chunk_seconds 0.5
+    python -m privacy_preserve_federated_asr_tpu_torch.cli stream-report \
+        --model_type data2vec -st 2 -model_in ... --audio_dir ... --test_csv ... \
+        --right_context_grid 0.25 0.5 1.0
     python -m privacy_preserve_federated_asr_tpu_torch.cli extract \
         --model_type data2vec -st 2 -model_in ./saves/model_final_global/final \
         --audio_dir ... --train_csv ... --test_csv ... --spk2label ... \
@@ -49,8 +55,14 @@ commands read those pickles without pandas (``evaluation/extract.py``).
 ``serve``, ``extract`` and ``transcribe`` decode greedily unless
 ``--beam_size > 0`` (CTC prefix beam search on the host, ``ops/beam.py``,
 with a character-bigram LM fitted on ``--lm_train_csv`` for shallow fusion).
-``sweep text`` and ``--compute_dtype int8`` raise ``NotImplementedError``
-(port slices 12 and 9).
+``--compute_dtype int8`` (``serve``, ``extract``, ``transcribe``,
+``stream-report``) runs bf16 with W8A8 Dense matmuls and ``--int8``
+(``train``, ``federated``) trains with them (``ops/quant.py``). ``serve``
+also answers the streaming routes ``/stream/*`` (``--no_hub``: standalone
+sessions only; ``--transport int16``: int16 uploads); ``stream-client``
+streams a WAV to it and ``stream-report`` measures the finalization flip
+rate per right context. ``sweep text`` raises ``NotImplementedError`` (port
+slice 12).
 """
 
 from __future__ import annotations
@@ -76,11 +88,14 @@ BACKBONES = {
 def _dacs_cfg(args):
     from .models import BackboneConfig, DACSConfig
 
+    backbone = getattr(BackboneConfig, BACKBONES[args.model_type])()
+    if getattr(args, "int8", False):
+        backbone = backbone.replace(dense_impl="int8_train")
     train = dict(lambda_grl=args.LAMBDA, ad_loss=args.AD_loss,
                  w_loss=tuple(args.W_LOSS) if args.W_LOSS else (0.1, 0.9),
                  grl_reverse=args.GRL) if args.cmd in ("train", "federated", "sweep") else {}
     return DACSConfig(
-        backbone=getattr(BackboneConfig, BACKBONES[args.model_type])(),
+        backbone=backbone,
         method=args.method,
         stage=args.STAGE,
         gs_tau=args.GS_TAU,
@@ -134,7 +149,7 @@ def _fit_shallow_fusion_lm(args, tok, cfg):
     """Char-bigram LM for beam-search shallow fusion, fitted on the
     transcripts CSV — shared by extract, serve and transcribe. None when
     beam decoding or the LM CSV is not requested."""
-    if not (args.beam_size > 0 and args.lm_train_csv):
+    if not (getattr(args, "beam_size", 0) > 0 and args.lm_train_csv):
         return None
     import csv
 
@@ -159,8 +174,10 @@ def _engine(args, device):
                       max_seconds=args.max_seconds,
                       batch_window_ms=getattr(args, "batch_window_ms", 10.0),
                       compute_dtype=args.compute_dtype,
-                      beam_size=args.beam_size, lm_alpha=args.lm_alpha,
-                      lm_beta=args.lm_beta),
+                      beam_size=getattr(args, "beam_size", 0),
+                      lm_alpha=getattr(args, "lm_alpha", 0.3),
+                      lm_beta=getattr(args, "lm_beta", 0.0),
+                      transport=getattr(args, "transport", "float32")),
         lm_fn=_fit_shallow_fusion_lm(args, tok, cfg), device=device)
 
 
@@ -170,7 +187,69 @@ def cmd_serve(args):
 
     engine = _engine(args, resolve_device(args.device))
     serve_forever(engine, host=args.host, port=args.port,
-                  warmup=not args.no_warmup)
+                  warmup=not args.no_warmup, use_hub=not args.no_hub)
+
+
+def cmd_stream_client(args):
+    """Streaming client of ``serve``: chunk a WAV (or synthetic noise) and
+    feed it to ``/stream/*`` as binary float32 PCM (``--json_transport``:
+    JSON float lists), printing each partial and the final result as JSON
+    lines; returns the final result."""
+    import urllib.request
+
+    import numpy as np
+
+    from .data.audio import load_audio
+
+    if args.audio:
+        wave = load_audio(args.audio, target_sr=16000, normalize=False).astype(np.float32)
+    else:  # synthetic smoke input
+        wave = np.random.default_rng(args.seed).normal(
+            0, 0.3, size=int(args.synthetic_seconds * 16000)).astype(np.float32)
+    chunk = max(int(args.chunk_seconds * 16000), 1)
+    base = f"http://{args.host}:{args.port}"
+
+    def post(path, body=b"{}", binary=False):
+        req = urllib.request.Request(
+            base + path, data=body, method="POST",
+            headers={"Content-Type": "application/octet-stream" if binary
+                     else "application/json"})
+        with urllib.request.urlopen(req, timeout=args.timeout) as r:
+            return json.loads(r.read())
+
+    sid = post("/stream/start")["session"]
+    for i in range(0, len(wave), chunk):
+        piece = wave[i : i + chunk]
+        if args.json_transport:
+            body, binary = json.dumps({"audio": piece.tolist()}).encode(), False
+        else:
+            body, binary = piece.astype("<f4").tobytes(), True
+        r = post(f"/stream/{sid}", body, binary=binary)
+        print(json.dumps({"partial": r["transcript"], "final_frames": r["final_frames"],
+                          "total_frames": r["total_frames"]}), flush=True)
+    final = post(f"/stream/{sid}/finish")
+    print(json.dumps(final), flush=True)
+    return final
+
+
+def cmd_stream_report(args):
+    """Streaming finalization stability on the test CSV's audio, so the
+    deployment can choose ``right_context_seconds`` from data: one JSON row
+    per right context (the flip rate of early-finalized frames against the
+    full-context decode); returns the rows."""
+    from .serving import measure_finalization_flips
+    from .serving.engine import resolve_device
+
+    device = resolve_device(args.device)
+    exs, _ = _load_examples(args, args.test_csv)
+    if args.max_utts:
+        exs = exs[: args.max_utts]
+    rows = measure_finalization_flips(
+        _engine(args, device), [e.array for e in exs],
+        right_context_grid=tuple(args.right_context_grid), hop_seconds=args.hop_seconds)
+    for r in rows:
+        print(json.dumps(r))
+    return rows
 
 
 def _load_examples(args, csv_path):
@@ -427,9 +506,6 @@ def cmd_transcribe(args):
     from .data.audio import load_audio
     from .serving.engine import resolve_device
 
-    if args.compute_dtype == "int8":
-        raise NotImplementedError("transcribe --compute_dtype int8 is not ported yet "
-                                  "(port slice 9: ops/quant.py)")
     device = resolve_device(args.device)
     src = Path(args.audio)
     paths = sorted(src.glob("**/*.wav")) if src.is_dir() else [src]
@@ -559,7 +635,13 @@ def _add_train(p) -> None:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--compute_dtype", default="bfloat16",
                    choices=["float32", "bfloat16", "int8"],
-                   help="int8 (the JAX package's W8A8 matmuls) is not ported yet")
+                   help="int8 (dynamic-W8A8 quantized matmuls, ops/quant.py) applies "
+                        "to the inference surfaces only (extract/serve/transcribe); "
+                        "training is fp32/bf16")
+    p.add_argument("--int8", action="store_true",
+                   help="int8-quantized training matmuls (dense_impl='int8_train': "
+                        "W8A8 forward + SwitchBack gradients), a semantics change "
+                        "against the reference")
     p.add_argument("--remat", action="store_true")
     p.add_argument("--scan_layers", action="store_true")
     p.add_argument("--dp", type=int, default=1)
@@ -652,7 +734,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--compute_dtype", default="bfloat16",
                    choices=["float32", "bfloat16", "int8"],
-                   help="int8 (the JAX package's W8A8 matmuls) is not ported yet")
+                   help="int8: bf16 with dynamic-W8A8 Dense matmuls (ops/quant.py)")
     p.add_argument("--device", default="cuda",
                    help="torch device; cpu only when asked for explicitly")
     p.add_argument("--host", default="127.0.0.1")
@@ -662,7 +744,42 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no_warmup", action="store_true",
                    help="skip running one batch per time bucket at startup")
     _add_beam(p)
+    p.add_argument("--transport", default="float32", choices=["float32", "int16"],
+                   help="host->device waveform encoding; int16 halves the upload "
+                        "bytes (dequantization and normalization on the card)")
+    p.add_argument("--no_hub", action="store_true",
+                   help="standalone streaming sessions instead of the shared "
+                        "StreamingHub (one batched pass per hop for every stream)")
     p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("stream-client",
+                       help="stream a WAV to a running `serve` over the binary PCM "
+                            "transport, printing partials")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8008)
+    p.add_argument("--audio", default=None,
+                   help="WAV path (any rate; resampled to 16 kHz); omitted = "
+                        "synthetic noise smoke input")
+    p.add_argument("--chunk_seconds", type=float, default=0.5)
+    p.add_argument("--synthetic_seconds", type=float, default=3.0)
+    p.add_argument("--json_transport", action="store_true",
+                   help="send JSON float lists instead of binary PCM (debugging)")
+    p.add_argument("--timeout", type=float, default=120.0)
+    p.add_argument("--seed", type=int, default=0)
+    p.set_defaults(fn=cmd_stream_client)
+
+    p = sub.add_parser("stream-report",
+                       help="streaming finalization flip rate per right-context "
+                            "setting on the test CSV's audio "
+                            "(serving/streaming.py measure_finalization_flips)")
+    _add_train(p)
+    p.add_argument("--max_seconds", type=float, default=30.0)
+    p.add_argument("--max_utts", type=int, default=0,
+                   help="cap the measured utterances (0 = all)")
+    p.add_argument("--hop_seconds", type=float, default=0.5)
+    p.add_argument("--right_context_grid", type=float, nargs="+",
+                   default=[0.25, 0.5, 1.0, 2.0, 4.0])
+    p.set_defaults(fn=cmd_stream_report)
 
     p = sub.add_parser("extract", help="dump embeddings/masks/transcripts")
     _add_train(p)

@@ -130,13 +130,13 @@ def extract_embeddings(
     """Rows of every example, in the batcher's order (epoch seed 0).
 
     ``state_dict`` holds the port's DACSModel weights. ``compute_dtype``
-    "float32" (the reference's extraction precision, the default) or
-    "bfloat16" (the serving precision; rows are fp32 either way).
+    "float32" (the reference's extraction precision, the default),
+    "bfloat16" (the serving precision) or "int8" (bf16 with W8A8 Dense
+    matmuls, ops/quant.py); rows are fp32 in every case.
     ``beam_size > 0`` decodes ``pred_str`` with CTC prefix beam search on the
     host over the forward's fp32 log-posteriors (ops/beam.py; optional
     shallow LM fusion ``lm_fn``) instead of the reference's greedy argmax.
-    ``mesh`` data parallelism and ``compute_dtype="int8"`` are not ported yet
-    and raise. Runs on ``device`` (``cuda`` unless the caller asks for the
+    ``mesh`` data parallelism is not ported yet and raises. Runs on ``device`` (``cuda`` unless the caller asks for the
     CPU)."""
     if mesh is not None:
         raise NotImplementedError("data-parallel extraction (mesh) is not ported yet")

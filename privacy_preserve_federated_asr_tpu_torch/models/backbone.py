@@ -28,6 +28,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import dropout_seed, hash_stride, multihead_attention
+from ..ops.quant import int8_linear, int8_train_linear
 from .config import BackboneConfig
 
 ACT2FN = {
@@ -49,6 +50,9 @@ def feat_extract_output_lengths(cfg: BackboneConfig, input_lengths):
     return lengths
 
 
+_DENSE = {"fp": None, "int8": int8_linear, "int8_train": int8_train_linear}
+
+
 def _layer_norm(ln: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """LayerNorm in fp32 (fp32 params), result cast to ``dtype``."""
     return ln(x.float()).to(dtype)
@@ -56,17 +60,25 @@ def _layer_norm(ln: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Ten
 
 class Linear(nn.Linear):
     """flax ``Dense``: params stored in ``param_dtype``, inputs and params
-    cast to ``dtype`` at use."""
+    cast to ``dtype`` at use. ``dense_impl`` "int8" / "int8_train" runs the
+    matmul as W8A8 (ops/quant.py) and adds the bias after it, in ``dtype``,
+    as flax does; the default "fp" is one ``F.linear``."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True, *,
-                 dtype: torch.dtype, param_dtype: torch.dtype):
+                 dtype: torch.dtype, param_dtype: torch.dtype, dense_impl: str = "fp"):
         super().__init__(in_features, out_features, bias=bias, dtype=param_dtype)
-        self.compute_dtype = dtype
+        if dense_impl not in _DENSE:
+            raise ValueError(f"unknown dense_impl {dense_impl!r}")
+        self.compute_dtype, self.dense_impl = dtype, dense_impl
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        matmul = _DENSE[self.dense_impl]
+        if matmul is None:
+            return F.linear(x.to(dt), self.weight.to(dt), bias)
+        y = matmul(x.to(dt), self.weight.to(dt))
+        return y if bias is None else y + bias
 
 
 class Conv1d(nn.Conv1d):
@@ -135,7 +147,7 @@ class FeatureProjection(nn.Module):
         self.dtype = dtype
         self.layer_norm = nn.LayerNorm(cfg.conv_dim[-1], eps=cfg.layer_norm_eps)
         self.projection = Linear(cfg.conv_dim[-1], cfg.hidden_size, dtype=dtype,
-                                 param_dtype=param_dtype)
+                                 param_dtype=param_dtype, dense_impl=cfg.dense_impl)
         self.dropout = nn.Dropout(cfg.feat_proj_dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -203,7 +215,7 @@ class Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         d = cfg.hidden_size
-        kw = dict(dtype=dtype, param_dtype=param_dtype)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, dense_impl=cfg.dense_impl)
         self.q_proj = Linear(d, d, **kw)
         self.k_proj = Linear(d, d, **kw)
         self.v_proj = Linear(d, d, **kw)
@@ -225,7 +237,7 @@ class FeedForward(nn.Module):
     def __init__(self, cfg: BackboneConfig, dtype: torch.dtype, param_dtype: torch.dtype):
         super().__init__()
         self.act = ACT2FN[cfg.hidden_act]
-        kw = dict(dtype=dtype, param_dtype=param_dtype)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, dense_impl=cfg.dense_impl)
         self.intermediate_dense = Linear(cfg.hidden_size, cfg.intermediate_size, **kw)
         self.output_dense = Linear(cfg.intermediate_size, cfg.hidden_size, **kw)
         self.activation_dropout = nn.Dropout(cfg.activation_dropout)

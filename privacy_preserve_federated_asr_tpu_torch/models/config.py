@@ -13,11 +13,13 @@ unispeech-sat SSL encoder family; the structural switches are:
 
 The fields are the subset of the JAX package's that serving and training
 read, with the same names, defaults and presets, so a configuration (or a
-golden fixture's metadata) means the same model in both packages. The JAX
-fields left out belong to paths the port does not run (``attention_impl``
-and ``dense_impl``: the port always takes its kernel on the card and fp
-matmuls; ``layerdrop``, unused under jit in JAX too; SEW-D; the FSM
-thresholds); each later slice adds the fields it runs.
+golden fixture's metadata) means the same model in both packages.
+``dense_impl`` picks the backbone's Dense matmuls: ``"fp"``, the inference
+W8A8 ``"int8"`` or the trainable ``"int8_train"`` (ops/quant.py). The JAX
+fields left out belong to paths the port does not run (``attention_impl``:
+the port always takes its kernel on the card; ``layerdrop``, unused under
+jit in JAX too; SEW-D; the FSM thresholds); each later slice adds the
+fields it runs.
 """
 
 from __future__ import annotations
@@ -53,6 +55,10 @@ class BackboneConfig:
     num_conv_pos_embedding_groups: int = 16
 
     do_stable_layer_norm: bool = False
+
+    # Dense matmuls of the projections and FFNs: "fp" | "int8" (dynamic
+    # W8A8, inference) | "int8_train" (W8A8 with SwitchBack gradients)
+    dense_impl: str = "fp"
 
     # SpecAugment (the reference trains with mask_time_prob=0)
     mask_time_prob: float = 0.0
@@ -158,12 +164,12 @@ class DACSConfig:
 
     def resolve_compute(self, compute_dtype: str) -> tuple["DACSConfig", torch.dtype]:
         """(cfg, torch dtype) for an inference surface's ``compute_dtype``
-        choice: "float32" / "bfloat16" pick the matmul dtype. "int8" (the
-        JAX package's dynamic-W8A8 Dense matmuls) waits for port slice
-        9."""
+        choice: "float32" / "bfloat16" pick the matmul dtype; "int8" is
+        bf16 compute with dynamic-W8A8 Dense matmuls (ops/quant.py,
+        inference only)."""
         if compute_dtype == "int8":
-            raise NotImplementedError(
-                "compute_dtype='int8' is not ported yet (port slice 9: ops/quant.py)")
+            return (self.replace(backbone=self.backbone.replace(dense_impl="int8")),
+                    torch.bfloat16)
         dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
         if compute_dtype not in dtypes:
             raise ValueError(f"unknown compute_dtype {compute_dtype!r}")

@@ -9,10 +9,22 @@
     little-endian float32 by default; ``X-Audio-Format: s16`` for PCM16
     (scaled by 1/32768) and ``X-Sample-Rate`` for non-16k input
   -> ``{"transcript", "ad_pred", "ad_prob", "frames", "samples"}``
+* streaming (serving/streaming.py block-streaming sessions):
+  - ``POST /stream/start`` -> ``{"session": id}``
+  - ``POST /stream/<id>`` with an audio chunk (the formats of /asr)
+    -> ``{"transcript", "final_transcript", "ad_prob", "ad_pred",
+    "final_frames", "total_frames", "is_final"}``
+  - ``POST /stream/<id>/finish`` -> the final result; the session is deleted
 
 Requests ride the engine's micro-batching dispatcher, so concurrent clients
-share device batches. The ``/stream/*`` endpoints of the JAX server answer
-404 until the streaming slice.
+share device batches. Streaming sessions join a shared
+:class:`StreamingHub` while it has rows (up to ``engine.scfg.batch_size``
+streams advance from one batched pass per hop) and fall back to standalone
+:class:`StreamingSession` s beyond that. The session table holds at most
+64 sessions; one idle for ``session_idle_ttl_s`` is reaped (closed) when a
+new one starts, unless a request of it is in flight. Locks: the table lock
+is always taken before the hub lock; hub members share the hub lock, a
+standalone session has its own.
 """
 
 from __future__ import annotations
@@ -20,11 +32,17 @@ from __future__ import annotations
 import io
 import json
 import threading
+import time
+import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
 from .engine import InferenceEngine
+from .streaming import StreamingConfig, StreamingHub, StreamingSession
+
+_MAX_SESSIONS = 64
+_SESSION_IDLE_TTL_S = 600.0
 
 
 def _resample_to_16k(data: np.ndarray, sr: int) -> np.ndarray:
@@ -53,11 +71,48 @@ def _decode_wav(body: bytes) -> np.ndarray:
     return _resample_to_16k(data, sr)
 
 
-def make_server(engine: InferenceEngine, host: str = "127.0.0.1",
-                port: int = 8008) -> ThreadingHTTPServer:
-    """Build (but do not start) the HTTP server bound to ``host:port``."""
+class _SessionEntry:
+    """A streaming session, the lock its requests serialize on, and its
+    idle clock (the reaper's)."""
+
+    def __init__(self, sess: StreamingSession, lock: threading.Lock | None = None):
+        self.sess = sess
+        # hub members share the hub's lock (a hub step advances every
+        # member); a standalone session has its own
+        self.lock = lock if lock is not None else threading.Lock()
+        self.touch()
+
+    def touch(self) -> None:
+        self.last_used = time.monotonic()
+
+
+def make_server(engine: InferenceEngine, host: str = "127.0.0.1", port: int = 8008,
+                stream_cfg: StreamingConfig | None = None,
+                session_idle_ttl_s: float = _SESSION_IDLE_TTL_S,
+                use_hub: bool = True) -> ThreadingHTTPServer:
+    """Build (but do not start) the HTTP server bound to ``host:port``.
+    ``use_hub=False`` gives every stream a standalone session. The server's
+    ``stream_sessions`` is its session table (id -> entry with ``sess``,
+    ``lock`` and ``last_used``), ``stream_hub`` its hub."""
     counter = {"requests": 0}
-    lock = threading.Lock()
+    lock = threading.Lock()  # the request counter and the session table
+    sessions: dict[str, _SessionEntry] = {}
+    scfg = stream_cfg if stream_cfg is not None else StreamingConfig()
+    hub = StreamingHub(engine, scfg) if (use_hub and scfg.resident) else None
+    hub_lock = threading.Lock()
+
+    def reap_idle_locked() -> None:
+        cutoff = time.monotonic() - session_idle_ttl_s
+        for sid in [s for s, e in sessions.items() if e.last_used < cutoff]:
+            e = sessions[sid]
+            # a held lock = a feed or finish in flight: never reap it
+            if not e.lock.acquire(blocking=False):
+                continue
+            try:
+                del sessions[sid]
+                e.sess.close()  # hub members free (and zero) their row
+            finally:
+                e.lock.release()
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, fmt, *args):  # quiet by default
@@ -78,8 +133,7 @@ def make_server(engine: InferenceEngine, host: str = "127.0.0.1",
                 self._reply(404, {"error": "not found"})
 
         def _read_audio(self) -> np.ndarray:
-            length = int(self.headers.get("Content-Length", 0))
-            body = self.rfile.read(length)
+            body = self._body
             ctype = (self.headers.get("Content-Type") or "").lower()
             # an explicit octet-stream declaration wins over content
             # sniffing: raw PCM can legitimately start with b"RIFF"
@@ -103,8 +157,64 @@ def make_server(engine: InferenceEngine, host: str = "127.0.0.1",
                 np.asarray(obj["audio"], np.float32),
                 int(obj.get("sample_rate", 16000)))
 
+        def _do_stream(self) -> None:
+            parts = self.path.strip("/").split("/")  # stream[/<id>[/finish]]
+            if parts == ["stream", "start"]:
+                with lock:
+                    reap_idle_locked()
+                    if len(sessions) >= _MAX_SESSIONS:
+                        self._reply(429, {"error": "too many sessions"})
+                        return
+                    sid = uuid.uuid4().hex[:16]
+                    sess = None
+                    if hub is not None:
+                        with hub_lock:  # lock order: table, then hub
+                            try:
+                                sess = hub.open()
+                            except RuntimeError:  # hub full: standalone
+                                sess = None
+                    sessions[sid] = (_SessionEntry(sess, lock=hub_lock) if sess is not None
+                                     else _SessionEntry(StreamingSession(engine, scfg)))
+                self._reply(200, {"session": sid})
+                return
+            with lock:
+                entry = sessions.get(parts[1]) if len(parts) >= 2 else None
+                if entry is not None:
+                    # restart the idle clock under the table lock, so no
+                    # reap can drop the session before its lock is taken
+                    entry.touch()
+            if entry is None:
+                self._reply(404, {"error": "unknown session"})
+                return
+            if len(parts) == 3 and parts[2] == "finish":
+                with entry.lock:
+                    r = entry.sess.finish()
+                with lock:
+                    sessions.pop(parts[1], None)
+            else:
+                audio = self._read_audio()
+                if audio.size == 0:
+                    self._reply(400, {"error": "empty audio"})
+                    return
+                with entry.lock:
+                    r = entry.sess.feed(audio)
+                    entry.touch()
+            self._reply(200, {
+                "transcript": r.transcript, "final_transcript": r.final_transcript,
+                "ad_prob": r.ad_prob, "ad_pred": r.ad_pred,
+                "final_frames": r.final_frames, "total_frames": r.total_frames,
+                "is_final": r.is_final,
+            })
+
         def do_POST(self):
+            # read every body, also where the route ignores it: a socket
+            # closed with unread bytes is reset, and the client can lose
+            # the reply
+            self._body = self.rfile.read(int(self.headers.get("Content-Length", 0)))
             try:
+                if self.path.startswith("/stream"):
+                    self._do_stream()
+                    return
                 if self.path != "/asr":
                     self._reply(404, {"error": "not found"})
                     return
@@ -123,17 +233,30 @@ def make_server(engine: InferenceEngine, host: str = "127.0.0.1",
             except Exception as e:
                 self._reply(400, {"error": f"{type(e).__name__}: {e}"})
 
-    return ThreadingHTTPServer((host, port), Handler)
+    srv = ThreadingHTTPServer((host, port), Handler)
+    srv.stream_sessions = sessions  # the session table, for inspection
+    srv.stream_hub = hub            # the shared hub (None without one)
+    return srv
 
 
 def serve_forever(engine: InferenceEngine, host: str = "127.0.0.1",
-                  port: int = 8008, warmup: bool = True) -> None:
-    """Start the dispatcher, optionally warm every bucket, serve."""
+                  port: int = 8008, warmup: bool = True,
+                  stream_cfg: StreamingConfig | None = None,
+                  use_hub: bool = True) -> None:
+    """Start the dispatcher, optionally warm every bucket (the batch
+    forward, and the resident streaming forwards, batched too with the
+    hub), serve. ``use_hub=False`` gives every stream a standalone resident
+    session."""
     engine.start()
     if warmup:
-        print(f"[serve] warmed {engine.warmup()} bucket shapes")
-    srv = make_server(engine, host, port)
-    print(f"[serve] listening on http://{host}:{port} (POST /asr, GET /healthz)")
+        n = engine.warmup()
+        scfg = stream_cfg if stream_cfg is not None else StreamingConfig()
+        if scfg.resident:
+            n += engine.warmup_streaming(hub=use_hub)
+        print(f"[serve] warmed {n} bucket forwards")
+    srv = make_server(engine, host, port, stream_cfg=stream_cfg, use_hub=use_hub)
+    print(f"[serve] listening on http://{host}:{port} (POST /asr, POST /stream/*, "
+          f"GET /healthz)")
     try:
         srv.serve_forever()
     finally:

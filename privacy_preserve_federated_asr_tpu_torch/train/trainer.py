@@ -26,7 +26,9 @@ in the backward pass; ``prefetch`` device batches are staged ahead by a
 thread (``train/prefetch.py``); ``scan_layers`` is accepted and changes
 nothing here: in JAX it changes the compile and the parameter layout, not
 the math, and the weight bridge reads and writes that layout
-(``models/port.py``). Data, tensor, pipeline and sequence parallelism
+(``models/port.py``). ``cfg.backbone.dense_impl="int8_train"`` (``cli train
+--int8``) trains with W8A8 matmuls and SwitchBack gradients
+(``ops/quant.py``); the inference-only ``"int8"`` is refused. Data, tensor, pipeline and sequence parallelism
 (``dp``, ``tp``, ``pp``, ``sp``) and ``zero1`` raise ``NotImplementedError``
 until the parallel slice.
 """
@@ -135,9 +137,15 @@ class Trainer:
                  device: str | torch.device = "cuda"):
         _check_ported(tcfg)
         validate_stage(cfg)
-        if tcfg.compute_dtype not in _DTYPES:
-            raise ValueError(f"compute_dtype={tcfg.compute_dtype!r}: training "
-                             "takes 'float32' or 'bfloat16'")
+        if cfg.backbone.dense_impl not in ("fp", "int8_train") \
+                or tcfg.compute_dtype not in _DTYPES:
+            # the inference-only "int8" impl has no gradient rule; training
+            # quantization goes through "int8_train" (SwitchBack gradients,
+            # ops/quant.py)
+            raise ValueError(
+                f"dense_impl={cfg.backbone.dense_impl!r} / compute_dtype="
+                f"{tcfg.compute_dtype!r}: training requires dense_impl "
+                "'fp' or 'int8_train' with compute_dtype 'float32'/'bfloat16'")
         self.device = resolve_device(device)
         self.cfg, self.tcfg, self.tokenizer = cfg, tcfg, tokenizer
         self.recipe = get_recipe(cfg.method)

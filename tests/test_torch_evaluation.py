@@ -475,12 +475,11 @@ TINY_CPU = ["--model_type", "tiny", "--device", "cpu"]
 
 
 @pytest.mark.parametrize("call", [
-    dict(mesh=object()), dict(compute_dtype="int8"), dict(mode="text"),
+    dict(mesh=object()), dict(method="single_toggle"), dict(mode="text"),
     ["extract", "--dp", "2", *TINY_CPU],
     ["svm", "--text_train_pkl", "t.pkl", "--train_pkl", "a.pkl", "--test_pkl", "b.pkl",
      "--device", "cpu"],
-    ["transcribe", "--compute_dtype", "int8", "--audio", "a.wav", *TINY_CPU],
-    ["serve", "--compute_dtype", "int8", "--no_warmup", *TINY_CPU],
+    dict(method="fsm"), dict(model_type="sew-d"),
     ["sweep", "text", "--train_pkl", "a.pkl", "--test_pkl", "b.pkl", "--preset", "bert"]])
 def test_options_not_ported_raise(call):
     cfg = DACSConfig(backbone=BackboneConfig.tiny_for_tests(), stage=2)
@@ -489,5 +488,10 @@ def test_options_not_ported_raise(call):
             cli.main(call)
         elif "mode" in call:
             ev.predict_ad_svm([], [], {}, device="cpu", **call)
+        elif "method" in call:
+            ev.extract_embeddings(cfg.replace(**call), {}, [], TOK, device="cpu")
+        elif "model_type" in call:
+            ev.extract_embeddings(cfg.replace(backbone=cfg.backbone.replace(**call)), {}, [],
+                                  TOK, device="cpu")
         else:
             ev.extract_embeddings(cfg, {}, [], TOK, device="cpu", **call)

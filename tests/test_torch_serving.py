@@ -150,7 +150,10 @@ def test_http_server_roundtrip(params):
         assert out["transcript"] == want.transcript
         assert out["samples"] == 4800
 
-        for path, code in (("/stream/start", 404), ("/nope", 404)):
+        req = urllib.request.Request(f"{url}/stream/start", data=b"{}")
+        with urllib.request.urlopen(req, timeout=30) as r:
+            assert json.load(r)["session"]
+        for path, code in (("/stream/unknown", 404), ("/nope", 404)):
             req = urllib.request.Request(f"{url}{path}", data=b"{}")
             with pytest.raises(urllib.error.HTTPError) as ei:
                 urllib.request.urlopen(req, timeout=30)
