@@ -10,8 +10,9 @@ training path (also with grad_accum, remat and prefetch, and int8), its federate
 FedProx, FedAdam, top-k, secure and compressed aggregation, a
 semi-supervised N-best phase and round checkpoints with their sidecars), its
 system-run chain (extract, svm, detail-wer, feat-scoring) and the tools
-around it (the native loaders, transcribe, export-hf, sweep;
-privacy_preserve_federated_asr_tpu_torch) and holds its
+around it (the native loaders, transcribe, export-hf, sweep, teacher), the
+method variants (single-toggle, FSM) and the SEW-D backbone
+(privacy_preserve_federated_asr_tpu_torch) and holds its
 hand-written kernels against their plain versions. It imports nothing of JAX or of the
 JAX package. Phases, in order; any failure raises and ends the run with a
 non-zero exit:
@@ -150,10 +151,40 @@ non-zero exit:
    ``finish()`` equals ``infer_batch`` when nothing finalizes early (greedy
    and beam + bigram LM), resident equals legacy on every pass, hub members
    equal standalone sessions; then ``cli stream-report`` prints its rows;
-25. one JSON line listing each kernel (launches on the main paths, in all
+25. the method variants at full width (data2vec-audio-large, bf16, B=16 x
+   4-5 s, 3 steps each, lr 1e-4) through ``cli.main``: ``train --method
+   single_toggle -st 1`` from phase 14's ForCTC export of phase 8's final
+   model (the DACS D->4D arbitrator skipped with its warning), ``-st 2``
+   from its final, ``train --method fsm -st 1`` from the export: 24 B1 per
+   step and per eval batch, 24 B2 per FSM step and none for single-toggle,
+   everything outside the recipe's trainable set bit-unchanged; step ms,
+   one step's idle share (torch.profiler) and peak memory; ``extract`` of
+   both in bf16 with each method's mask columns; one /asr request through
+   ``cli serve --method fsm -st 2``;
+26. the variants card against CPU (4 layers, fp32): forward outputs
+   (single-toggle with injected Gumbel noise: masks equal except at Gumbel
+   margins below 1e-4; FSM masks equal except where the score is within
+   1e-4 of the threshold, those elements counted), one train step each by
+   phase 7's rule, FSM's machines' gradient exactly zero on the card;
+27. SEW-D at full width (sew_d_mid: 12 layers, D=768, 13-conv GroupNorm
+   frontend, squeeze 2, 256 buckets; bf16): ``train --model_type sewd -st
+   0`` (no frontend cache), ``-st 1`` (the encoder cache), ``serve -st 2``
+   answering 8 concurrent 5 s and 8 concurrent 30 s requests, the batch
+   forward at 8 x 5 s and 8 x 30 s timed with its peak memory, ``extract``
+   in fp32 and bf16 (cosine > 0.99); 0 B1 and 0 B2 launches on every SEW-D
+   path;
+28. SEW-D card against CPU: the HF golden (tests/fixtures/golden_sewd.npz)
+   through the bridge on the card against HF's output (rtol 2e-3, atol
+   3e-4), the 4-layer fp32 model's forward (1e-3) and one stage-0 step by
+   phase 7's rule;
+29. ``cli teacher --method grl -st 0`` of phase 8's final model on the 8 test
+   WAVs: its transcripts equal ``cli transcribe``'s greedy at fp32, and its
+   CSV feeds one ``cli federated -fl_st 1 -sl 0.5 --unsup_train_csv`` round
+   of the model cut to 4 layers, with exact B1 / B2 launches;
+30. one JSON line listing each kernel (launches on the main paths, in all
    and by dtype: each phase that drives a main path sets the wrappers'
    counts to 0 just before and reads them just after, the fp32 card-vs-CPU
-   and exactness phases 4, 7, 9, 11, 18, 20, 22 and 24 included; error
+   and exactness phases 4, 7, 9, 11, 18, 20, 22, 24, 26 and 28 included; error
    against the plain version, times and bound, and under "times" the same
    numbers at each main-path shape in both dtypes), the card's name and
    power limit, and last ``{"ok": true, "device": {...}}``.
@@ -2620,9 +2651,10 @@ def _feed_stream(url: str, sid: str, audio: np.ndarray, lat: list) -> dict:
 
 
 @contextlib.contextmanager
-def _cli_server(root: Path, *extra: str):
-    """``cli serve`` of phase 8's final model at stage 2 (bf16) in a
-    thread, warmed (the batch forward and the resident streaming forwards
+def _cli_server(root: Path, *extra: str, model: list[str] | None = None):
+    """``cli serve`` of phase 8's final model at stage 2 (bf16), or of the
+    ``model`` flags given, in a thread, warmed unless ``extra`` says
+    ``--no_warmup`` (the batch forward and the resident streaming forwards
     of every bucket); yields (url, the server, the engine)."""
     import socket
 
@@ -2635,9 +2667,9 @@ def _cli_server(root: Path, *extra: str):
     made, make = [], server.make_server
     server.make_server = lambda engine, *a, **kw: made.append((make(engine, *a, **kw),
                                                                engine)) or made[-1][0]
+    model = model or [*MODEL_ARGS, "-st", "2", "-model_in", str(root / FINAL)]
     th = threading.Thread(target=lambda: cli.main(
-        ["serve", *MODEL_ARGS, "-st", "2", "-model_in", str(root / FINAL),
-         "--port", str(port), *extra]), daemon=True)
+        ["serve", *model, "--port", str(port), *extra]), daemon=True)
     t0 = time.perf_counter()
     th.start()
     try:
@@ -2645,8 +2677,9 @@ def _cli_server(root: Path, *extra: str):
         while not made and th.is_alive() and time.time() < deadline:
             time.sleep(0.1)
         assert made, "cli serve did not start"
-        log(f"[stream] cli serve {' '.join(extra)}: loaded and warmed in "
-            f"{time.perf_counter() - t0:.1f} s")
+        flags = [a for a, prev in zip(model + list(extra), [""] + model + list(extra))
+                 if prev != "-model_in"]
+        log(f"[serve] cli serve {' '.join(flags)}: loaded in {time.perf_counter() - t0:.1f} s")
         yield f"http://127.0.0.1:{port}", made[0][0], made[0][1]
     finally:
         server.make_server = make
@@ -2922,6 +2955,584 @@ def streaming_exact(root: Path) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# 25. the method variants at full width: single-toggle and FSM
+# ---------------------------------------------------------------------------
+
+VAR_TRAIN, VAR_TEST, VAR_BATCH, VAR_STEPS, VAR_LR = 48, 8, 16, 3, "1e-4"
+VAR_ARGS = ["--compute_dtype", "bfloat16", "--train_batch_size", str(VAR_BATCH),
+            "--eval_batch_size", str(VAR_BATCH), "--epochs", "1", "--seed", "0",
+            "-lr", VAR_LR, "--audio_dir", "data/clips", "--train_csv", "data/train.csv",
+            "--test_csv", "data/test.csv", "--spk2label", "data/spk2label.npy",
+            "--dataset_cache", "cache", "--device", "cuda"]
+
+
+def _train_checked(data: Path, args: list[str], tag: str, b1_per_forward: int,
+                   b2_per_step: int) -> dict:
+    """``cli train`` in ``data`` with the counts reset before and read after:
+    ``VAR_STEPS`` steps, ``b1_per_forward`` B1 per step and per eval batch,
+    ``b2_per_step`` B2 per step; every parameter outside the recipe's trainable set
+    bit-unchanged from the CLI's own init, all finite. Returns the Trainer,
+    its stdout, the launches, the moved tensors and step ms / idle share."""
+    from privacy_preserve_federated_asr_tpu_torch import cli
+    from privacy_preserve_federated_asr_tpu_torch.ops.attention import (
+        flash_attention_bwd, flash_attention_fwd)
+    from privacy_preserve_federated_asr_tpu_torch.train.optim import path_of
+
+    reset_counts()
+    tr, out, wall = _run_cli(data, ["train", *args, *VAR_ARGS])
+    b1, b2 = flash_attention_fwd.launches, flash_attention_bwd.launches
+    tally(tag)
+    steps, n_eval = tr.state.step, len(tr.eval_batcher)
+    ev = _last_json(out)
+    assert steps == VAR_STEPS and all(np.isfinite(v) for v in ev.values()), (steps, ev)
+    want = (b1_per_forward * (steps + n_eval), b2_per_step * steps)
+    assert (b1, b2) == want, (tag, b1, b2, want)
+    model_in = args[args.index("-model_in") + 1] if "-model_in" in args else None
+    with _cwd(data), contextlib.redirect_stdout(io.StringIO()):
+        init = cli.load_weights(tr.cfg, model_in, 0, "cuda")
+    pred, moved = tr.recipe.trainable(tr.cfg.stage), []
+    for k, v in tr.state.model.state_dict().items():
+        assert torch.isfinite(v).all(), (tag, k)
+        if not torch.equal(v, init[k].to(v.device)):  # a file's tensors load on the CPU
+            assert pred(path_of(k)), f"{tag}: frozen {k} changed"
+            moved.append(k)
+    times, batches = [], (x for e in range(1, 4) for x in tr.train_batches(e))
+    for _ in range(5):
+        _, (fn, fn_args) = next(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = fn(tr.state, *fn_args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        assert np.isfinite(float(m["loss"])), m
+    _, (fn, fn_args) = next(batches)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    prof = profile_step(fn, (tr.state, *fn_args))
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    idle = ("not measured" if prof is None else
+            f"device busy {prof['device_ms']:.1f} of {prof['wall_ms']:.1f} ms wall (idle "
+            f"{1 - prof['device_ms'] / prof['wall_ms']:.1%}), B1 {prof['b1_ms']:.1f} ms, "
+            f"B2 {prof['b2_ms']:.1f} ms")
+    step_s = float(np.mean(times[2:]))
+    log(f"[{tag}] {steps} steps + evaluate() in {wall:.1f} s; eval {ev}; B1 {b1}, B2 {b2} "
+        f"(as expected); {len(moved)} tensors moved, every other bit-unchanged, all finite; "
+        f"step {step_s * 1e3:.1f} ms mean over {len(times) - 2} (B={VAR_BATCH} x 5 s bucket, "
+        f"min {min(times[2:]) * 1e3:.1f}); one step under torch.profiler: {idle}; the step "
+        f"adds {peak:.2f} GiB at its peak  [{card_line()}]")
+    return {"tr": tr, "out": out, "b1": b1, "b2": b2, "moved": moved, "step_s": step_s,
+            "idle": None if prof is None else 1 - prof["device_ms"] / prof["wall_ms"],
+            "peak_gib": peak}
+
+
+def variants_full_width(root: Path) -> dict:
+    """data2vec-audio-large (24 layers, bf16) under the variants, through
+    ``cli.main``: single-toggle stage 1 from phase 14's ForCTC export of
+    phase 8's final model (the DACS D->4D arbitrator skipped loudly, the
+    rest grafted) and stage 2 from its final; FSM stage 1 from the same
+    export (the encoder trains: 24 B2 per step); ``cli extract`` of both in
+    bf16 with each method's mask columns; one /asr request through ``cli
+    serve --method fsm -st 2``."""
+    from privacy_preserve_federated_asr_tpu_torch.evaluation import read_records
+    from privacy_preserve_federated_asr_tpu_torch.ops.attention import flash_attention_fwd
+
+    data = root / "variants"
+    _write_corpus(data / "data", VAR_TRAIN, VAR_TEST)
+    export = str(root / "export/pytorch_model.bin")
+    model = ["--model_type", "data2vec"]
+    st1 = _train_checked(data, [*model, "--method", "single_toggle", "-st", "1",
+                                "-model_in", export, "-model_out", "st1"],
+                         "cli train single_toggle -st 1", LAYERS, 0)
+    assert "WARNING: checkpoint head 'arbitrator'" in st1["out"], st1["out"][:2000]
+    assert {k.split(".")[0] for k in st1["moved"]} == {"dementia_head"}, st1["moved"]
+    st2 = _train_checked(data, [*model, "--method", "single_toggle", "-st", "2",
+                                "-model_in", "st1/final", "-model_out", "st2"],
+                         "cli train single_toggle -st 2", LAYERS, 0)
+    assert {k.split(".")[0] for k in st2["moved"]} == {"arbitrator"}, st2["moved"]
+    fsm = _train_checked(data, [*model, "--method", "fsm", "-st", "1", "-model_in", export,
+                                "-model_out", "fsm"], "cli train fsm -st 1", LAYERS, LAYERS)
+    moved = {k.split(".")[0] for k in fsm["moved"]}
+    assert {"backbone", "lm_fsm", "dementia_fsm", "similar_fc"} <= moved, moved
+    assert not any(k.startswith("backbone.feature_extractor.") for k in fsm["moved"])
+    log("[variants] single-toggle: the export's D->4D arbitrator skipped with its warning, "
+        "stage 1 moved dementia_head alone and stage 2 the arbitrator alone (the backbone "
+        "frozen: 0 B2); FSM stage 1 moved the encoder (not its conv frontend), the machines "
+        "(by the weight decay: their gradient is 0) and similar_fc")
+
+    n_batches = -(-VAR_TEST // VAR_BATCH) + -(-VAR_TRAIN // VAR_BATCH)
+    ext_b1 = 0
+    for method, stage, final, cols in (("fsm", "1", "fsm/final", {"lm_mask", "dementia_mask"}),
+                                       ("single_toggle", "2", "st2/final", {"lm_mask"})):
+        reset_counts()
+        _, _, wall = _run_cli(data, [
+            "extract", *model, "--method", method, "-st", stage, "-model_in", final,
+            "--compute_dtype", "bfloat16", "--eval_batch_size", str(VAR_BATCH),
+            "--audio_dir", "data/clips", "--train_csv", "data/train.csv", "--test_csv",
+            "data/test.csv", "--spk2label", "data/spk2label.npy", "--dataset_cache", "cache",
+            "--csv_out_dir", f"res_{method}", "--device", "cuda"])
+        assert flash_attention_fwd.launches == LAYERS * n_batches, flash_attention_fwd.launches
+        ext_b1 += flash_attention_fwd.launches
+        tally(f"cli extract {method}")
+        rows = read_records(str(data / f"res_{method}/extract.pkl"))
+        train = read_records(str(data / f"res_{method}/extract_train.pkl"))
+        assert (len(rows), len(train)) == (VAR_TEST, VAR_TRAIN)
+        for r in rows + train:
+            assert set(r) == ROW_COLUMNS - {"lm_mask", "dementia_mask"} | cols, set(r)
+            for c in cols:
+                assert set(np.unique(r[c])) <= {0.0, 1.0} and r[c].shape == r[
+                    "hidden_states"].shape, (method, c)
+            assert np.isfinite(r["hidden_states"]).all()
+        on = {c: float(np.mean([r[c].mean() for r in rows])) for c in cols}
+        log(f"[variants] cli extract --method {method} -st {stage} (bf16, batch {VAR_BATCH}): "
+            f"{len(rows)} + {len(train)} rows in {wall:.1f} s, columns {sorted(cols)} beside "
+            f"the unmasked ones, mask on-rates {on}; B1 {LAYERS} x {n_batches} batches")
+
+    audio = _utterance(4.5, 900)
+    reset_counts()
+    with _cli_server(data, "--no_warmup", model=[
+            *model, "--method", "fsm", "-st", "2", "-model_in", str(data / "fsm/final"),
+            "--eval_batch_size", str(FL_BATCH), "--device", "cuda"]) as (url, _, engine):
+        got, secs = _post(f"{url}/asr", audio, "f32")
+        assert flash_attention_fwd.launches == LAYERS, flash_attention_fwd.launches
+        tally("cli serve fsm")
+        want = engine.infer_batch([audio])[0]
+    assert (got["transcript"], got["ad_pred"]) == (want.transcript, want.ad_pred), got
+    log(f"[variants] cli serve --method fsm -st 2: one /asr request of 4.5 s answered in "
+        f"{secs * 1e3:.0f} ms ({LAYERS} B1 launches), equal to infer_batch of it")
+    out = {"b1": st1["b1"] + st2["b1"] + fsm["b1"] + ext_b1 + LAYERS,
+           "b2": st1["b2"] + st2["b2"] + fsm["b2"],
+           "step_ms": {k: v["step_s"] * 1e3 for k, v in (("single_toggle -st 1", st1),
+                                                         ("single_toggle -st 2", st2),
+                                                         ("fsm -st 1", fsm))},
+           "idle": {k: v["idle"] for k, v in (("single_toggle -st 2", st2), ("fsm -st 1", fsm))}}
+    del st1, st2, fsm
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 26. the variants, card against CPU
+# ---------------------------------------------------------------------------
+
+FSM_BAND = 1e-4  # |sigmoid score - threshold| within which a mask may flip
+
+
+def _two_utterances() -> tuple[np.ndarray, np.ndarray]:
+    """Phase 7's batch: 5 s and 4.2 s (padded), normalized."""
+    from privacy_preserve_federated_asr_tpu_torch.data.audio import normalize_input_values
+
+    x = np.zeros((2, 80000), np.float32)
+    x[0] = normalize_input_values(_utterance(5.0, 11))
+    x[1, :67200] = normalize_input_values(_utterance(4.2, 12))
+    return x, np.array([80000, 67200], np.int32)
+
+
+def _step_vs_cpu(cfg, sd, host: dict, tag: str, lr: float = 1e-4, check=None) -> None:
+    """Phase 7's rule for one full-forward train step (the recipe's
+    ``make_train_step``) of ``cfg`` from ``sd`` on the card and on the CPU:
+    loss rtol 1e-4, grad norm rtol 1e-3, at most 0.5% of the param elements
+    beyond 1e-2 lr. ``check(model)`` runs on the card's model first."""
+    from privacy_preserve_federated_asr_tpu_torch.models.recipes import get_recipe
+    from privacy_preserve_federated_asr_tpu_torch.train import (
+        DeviceBatch, create_train_state, make_optimizer, make_train_step)
+
+    recipe = get_recipe(cfg.method)
+    metrics, params = {}, {}
+    for dev in ("cuda", "cpu"):
+        with torch.device("meta"):
+            model = recipe.make_model(cfg, torch.float32)
+        model = model.to_empty(device=dev)
+        model.load_state_dict(sd)
+        if check is not None and dev == "cuda":
+            check(model)
+        state = create_train_state(model, make_optimizer(
+            model, cfg.stage, learning_rate=lr, trainable_pred=recipe.trainable(cfg.stage)), 3)
+        batch = DeviceBatch(**{k: torch.from_numpy(v).to(dev) for k, v in host.items()})
+        m = make_train_step(cfg)(state, batch)
+        metrics[dev] = {k: float(m[k]) for k in ("loss", "grad_norm")}
+        params[dev] = {k: v.cpu() for k, v in model.state_dict().items()}
+    a, c = metrics["cuda"], metrics["cpu"]
+    for k, rtol in (("loss", 1e-4), ("grad_norm", 1e-3)):
+        assert abs(a[k] - c[k]) <= rtol * abs(c[k]), (tag, k, a[k], c[k])
+    off = sum(int(((params["cuda"][k] - v).abs() > 1e-2 * lr).sum())
+              for k, v in params["cpu"].items())
+    frac = off / sum(v.numel() for v in params["cpu"].values())
+    assert all(torch.isfinite(v).all() for v in params["cuda"].values()), tag
+    assert frac <= 5e-3, (tag, frac)
+    log(f"[{tag}] one AdamW step at lr {lr:g}: card vs CPU loss {a['loss']:.4f} / "
+        f"{c['loss']:.4f}, grad norm {a['grad_norm']:.4f} / {c['grad_norm']:.4f}; "
+        f"{frac:.2e} of param elements beyond 1e-2 lr (limit 5e-3)")
+
+
+def variants_vs_cpu() -> dict:
+    """The 4-layer fp32 data2vec-audio-large under single-toggle (stage 2,
+    injected Gumbel noise) and FSM (stage 1): forward outputs card vs CPU
+    (phase 4's 1e-3; single-toggle's mask equal except at Gumbel margins
+    below ``NEAR_TIE``, FSM's except where the CPU's score is within
+    ``FSM_BAND`` of the threshold, the elements in that band counted), then
+    train steps by phase 7's rule (the same noise on both), and FSM's
+    machines' gradient exactly zero on the card."""
+    from privacy_preserve_federated_asr_tpu_torch.models import (
+        BackboneConfig, DACSConfig, feat_extract_output_lengths, init_dacs_state_dict)
+    from privacy_preserve_federated_asr_tpu_torch.models import variants
+    from privacy_preserve_federated_asr_tpu_torch.models.recipes import get_recipe
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bb = BackboneConfig.data2vec_audio_large().replace(
+        num_hidden_layers=4, hidden_dropout=0.0, activation_dropout=0.0,
+        attention_dropout=0.0, feat_proj_dropout=0.0)
+    x, il = _two_utterances()
+    t = feat_extract_output_lengths(bb, x.shape[1])
+    noise = np.random.default_rng(9).gumbel(size=(2, t, bb.hidden_size, 2)).astype(np.float32)
+    from privacy_preserve_federated_asr_tpu_torch.data.tokenizer import CTCCharTokenizer
+
+    tok = CTCCharTokenizer()
+    ids = [tok.encode(s) for s in SENTENCES[:2]]
+    labels = np.full((2, 32), -100, np.int64)
+    for i, s in enumerate(ids):
+        labels[i, : len(s)] = s
+    host = dict(input_values=x, input_lengths=il, labels=labels,
+                label_lengths=np.array([len(s) for s in ids]),
+                dementia_labels=np.array([1, 0]), sample_mask=np.ones(2, np.float32))
+    band_counts = {}
+    real_sample = variants.sample_gumbel
+    reset_counts()  # the CPU runs the plain version: only the card's launches count
+    try:
+        # the steps' draws: the same numpy noise on both devices
+        variants.sample_gumbel = lambda shape, gen, dev: torch.from_numpy(noise).to(dev)
+        for method, stage in (("single_toggle", 2), ("fsm", 1)):
+            cfg = DACSConfig(backbone=bb, method=method, stage=stage)
+            sd = init_dacs_state_dict(cfg, torch.Generator("cpu").manual_seed(8))
+            outs = {}
+            for dev in ("cuda", "cpu"):
+                with torch.device("meta"):
+                    model = get_recipe(method).make_model(cfg, torch.float32)
+                model = model.to_empty(device=dev)
+                model.load_state_dict(sd, strict=True)
+                model.eval()
+                with torch.inference_mode():
+                    out = model(torch.from_numpy(x).to(dev), torch.from_numpy(il).to(dev),
+                                gumbel_noise=(torch.from_numpy(noise).to(dev),)
+                                if method == "single_toggle" else None)
+                outs[dev] = {k: v.float().cpu() for k, v in vars(out).items()
+                             if isinstance(v, torch.Tensor) and v.is_floating_point()}
+            g, c = outs["cuda"], outs["cpu"]
+            if method == "single_toggle":
+                s = c["lm_score"] + torch.from_numpy(noise)
+                near = (s[..., 0] - s[..., 1]).abs() < NEAR_TIE
+                masks = ("lm_mask",)
+            else:
+                near = (c["lm_score"] - cfg.fsm_lm_thres).abs() < FSM_BAND
+                near_ad = (c["dementia_score"] - cfg.fsm_ad_thres).abs() < FSM_BAND
+                masks = ("lm_mask", "dementia_mask")
+            flips, same = {}, torch.ones(c["lm_mask"].shape[:2], dtype=torch.bool)
+            for m in masks:
+                band = near if m == "lm_mask" else near_ad
+                differ = g[m] != c[m]
+                assert not (differ & ~band).any(), (method, m)
+                flips[m] = int(differ.sum())
+                band_counts[f"{method} {m}"] = int(band.sum())
+                same &= ~differ.any(-1)
+            # every stream on every frame where no mask element flipped
+            # (a flip moves that frame's masked streams by design)
+            errs = {k: (g[k] - c[k])[same].abs().max().item() for k in c
+                    if "logits" in k or k == "hidden_states"}
+            assert max(errs.values()) <= 1e-3, (method, errs)
+            log(f"[variants-e2e] 4-layer fp32 {method} stage {stage}, 5 s + 4.2 s: card vs "
+                f"CPU max|err| " + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+                + f" (limit 1e-3); mask elements in the near-tie band "
+                + ", ".join(f"{m} {band_counts[f'{method} {m}']}" for m in masks)
+                + f" of {c['lm_mask'].numel()} each, flipped {flips}; streams compared on "
+                f"{int(same.sum())} of {same.numel()} frames")
+
+            def zero_machine_grads(model, cfg=cfg):
+                if cfg.method != "fsm":
+                    return
+                model.train()
+                dev = next(model.parameters()).device
+                out = model(torch.from_numpy(x).to(dev), torch.from_numpy(il).to(dev))
+                loss, _ = get_recipe("fsm").loss(
+                    out, *(torch.from_numpy(host[k]).to(dev) for k in
+                           ("labels", "label_lengths", "dementia_labels")), cfg, model,
+                    None, True)
+                loss.backward()
+                for name in ("lm_fsm", "dementia_fsm"):
+                    for p in getattr(model, name).parameters():
+                        assert p.grad is None or not p.grad.any(), name
+                assert model.backbone.encoder.layers[0].attention.q_proj.weight.grad.any()
+                model.zero_grad(set_to_none=True)
+                log("[variants-e2e] FSM on the card: lm_fsm and dementia_fsm get exactly "
+                    "zero gradient (the reference's zero-gradient hack), the encoder a "
+                    "non-zero one")
+
+            _step_vs_cpu(cfg, sd, host, f"variants-e2e {method} -st {stage}",
+                         check=zero_machine_grads)
+    finally:
+        variants.sample_gumbel = real_sample
+    tally("variants, card vs CPU")
+    return band_counts
+
+
+# ---------------------------------------------------------------------------
+# 27. SEW-D at full width
+# ---------------------------------------------------------------------------
+
+def sewd_full_width(root: Path) -> dict:
+    """sew_d_mid (12 layers, D=768, 13-conv GroupNorm frontend, squeeze 2,
+    256 buckets; bf16; random weights from a seed) through ``cli.main``:
+    ``train -st 0`` (B=16 x 5 s, 3 steps, no frontend cache: the GroupNorm
+    frontend), then ``-st 1`` on the encoder cache, ``serve -st 2`` answering
+    8 concurrent 5 s and 8 concurrent 30 s requests, ``extract`` in fp32
+    and bf16; B1 and B2 launch 0 times throughout (SEW-D's attention adds
+    c2p and p2c terms the kernel does not compute). The engine's batch
+    forward at 8 x 5 s and 8 x 30 s timed with its peak memory."""
+    from privacy_preserve_federated_asr_tpu_torch.evaluation import read_records
+    from privacy_preserve_federated_asr_tpu_torch.models.sewd import SEWDBackbone
+    from privacy_preserve_federated_asr_tpu_torch.ops.attention import (
+        flash_attention_bwd, flash_attention_fwd)
+
+    data = root / "variants"
+    model = ["--model_type", "sewd"]
+    st0 = _train_checked(data, [*model, "-st", "0", "-model_out", "sewd0"],
+                         "cli train sewd -st 0", 0, 0)
+    tr = st0["tr"]
+    assert isinstance(tr.state.model.backbone, SEWDBackbone)
+    assert not tr._cache_frontend and not tr._cache_encoder
+    assert not any(k.startswith(FROZEN_AT_STAGE0) for k in st0["moved"])
+    st1 = _train_checked(data, [*model, "-st", "1", "-model_in", "sewd0/final",
+                                "-model_out", "sewd1"], "cli train sewd -st 1", 0, 0)
+    assert st1["tr"]._cache_encoder
+    assert {k.split(".")[0] for k in st1["moved"]} == {"dementia_head"}, st1["moved"]
+    train = {"step_ms": st0["step_s"] * 1e3, "peak_gib": st0["peak_gib"], "idle": st0["idle"]}
+    log("[sewd] cli train --model_type sewd: stage 0 without a frontend cache (the GroupNorm "
+        "frontend) moved the encoder but not its frontend; stage 1 on the encoder cache "
+        "moved dementia_head alone; 0 B1 and 0 B2 launches")
+    del st0, st1, tr
+    torch.cuda.empty_cache()
+
+    reset_counts()
+    serve_model = [*model, "-st", "2", "-model_in", str(data / "sewd1/final"),
+                   "--eval_batch_size", str(B), "--device", "cuda"]
+    served = {}
+    with _cli_server(data, "--no_warmup", model=serve_model) as (url, _, engine):
+        for secs in (5, 30):
+            audios = [_utterance(secs - 0.25 * i, 700 + i) for i in range(B)]
+            with ThreadPoolExecutor(B) as ex:
+                got = list(ex.map(lambda a: _post(f"{url}/asr", a, "f32"), audios))
+            assert all(isinstance(r["transcript"], str) and r["ad_pred"] in (0, 1)
+                       for r, _ in got), got
+            served[secs] = max(s for _, s in got)
+    assert flash_attention_fwd.launches == 0 and flash_attention_bwd.launches == 0
+    tally("cli serve sewd")
+    log(f"[sewd] cli serve --model_type sewd -st 2: {B} concurrent requests of ~5 s answered "
+        f"within {served[5] * 1e3:.0f} ms, {B} of ~30 s within {served[30] * 1e3:.0f} ms; "
+        f"0 B1 launches  [{card_line()}]")
+
+    eng = engine  # the server's (bf16, batch 8), its HTTP front end shut down
+    fwd = {}
+    reset_counts()
+    for secs in (5, 30):
+        batch = [_utterance(secs, 800 + i) for i in range(B)]
+        eng.infer_batch(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ms = wall_ms(lambda: eng.infer_batch(batch), 3, warmup=0)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        prof = profile_forward(eng, batch)
+        idle = ("not measured" if prof is None else
+                f"device busy {prof['device_ms']:.1f} of {prof['wall_ms']:.1f} ms (idle "
+                f"{1 - prof['device_ms'] / prof['wall_ms']:.1%})")
+        fwd[secs] = {"ms": ms, "peak_gib": peak}
+        log(f"[sewd] infer_batch of {B} x {secs} s (bf16): {ms:.1f} ms mean of 3, the forward "
+            f"adds {peak:.2f} GiB at its peak; one forward under torch.profiler: {idle}  "
+            f"[{card_line()}]")
+    assert flash_attention_fwd.launches == 0
+    tally("sewd serving")
+    del eng, engine
+    torch.cuda.empty_cache()
+
+    rows = {}
+    for dt in ("float32", "bfloat16"):
+        reset_counts()
+        _, _, wall = _run_cli(data, [
+            "extract", *model, "-st", "1", "-model_in", "sewd1/final", "--compute_dtype", dt,
+            "--eval_batch_size", str(VAR_BATCH), "--audio_dir", "data/clips",
+            "--train_csv", "data/train.csv", "--test_csv", "data/test.csv",
+            "--spk2label", "data/spk2label.npy", "--dataset_cache", "cache",
+            "--csv_out_dir", f"res_sewd_{dt}", "--device", "cuda"])
+        assert flash_attention_fwd.launches == 0
+        tally(f"cli extract sewd {dt}")
+        rows[dt] = read_records(str(data / f"res_sewd_{dt}/extract.pkl"))
+        assert len(rows[dt]) == VAR_TEST and all(
+            set(r) == ROW_COLUMNS and np.isfinite(r["hidden_states"]).all() for r in rows[dt])
+        log(f"[sewd] cli extract --model_type sewd -st 1 --compute_dtype {dt}: {VAR_TEST} + "
+            f"{VAR_TRAIN} rows in {wall:.1f} s")
+    cos = []
+    for a, b in zip(rows["bfloat16"], rows["float32"]):
+        u, v = (r["hidden_states"].astype(np.float64).ravel() for r in (a, b))
+        cos.append(float(u @ v / (np.linalg.norm(u) * np.linalg.norm(v))))
+    assert min(cos) > 0.99, cos
+    log(f"[sewd] bf16 rows against fp32: hidden-state cosine min {min(cos):.5f} (rule > 0.99)")
+    return {"forward": fwd, "train": train}
+
+
+# ---------------------------------------------------------------------------
+# 28. SEW-D, card against CPU
+# ---------------------------------------------------------------------------
+
+def sewd_vs_cpu() -> None:
+    """The HF SEW-D golden (tests/fixtures/golden_sewd.npz) through
+    ``state_dict_from_hf`` on the card against its HF output (the JAX golden
+    test's rtol 2e-3, atol 3e-4 over frames rounded down to the squeeze
+    factor); the 4-layer fp32 sew_d_mid (dropout off) DACS forward card vs
+    CPU (1e-3) and stage-0 train steps by phase 7's rule."""
+    from privacy_preserve_federated_asr_tpu_torch.models import (
+        BackboneConfig, DACSConfig, DACSModel, feat_extract_output_lengths,
+        init_dacs_state_dict, state_dict_from_hf)
+    from privacy_preserve_federated_asr_tpu_torch.models.sewd import SEWDBackbone
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    z = np.load(os.path.join(ROOT, "tests/fixtures/golden_sewd.npz"))
+    meta = json.loads(bytes(z["meta"]).decode())
+    gcfg = BackboneConfig(**{k: tuple(v) if isinstance(v, list) else v
+                             for k, v in meta.items()
+                             if k in BackboneConfig.__dataclass_fields__})
+    sd = {k[3:]: z[k] for k in z.files if k.startswith("sd/")}
+    model = SEWDBackbone(gcfg).to("cuda").eval()
+    model.load_state_dict(state_dict_from_hf(sd, gcfg), strict=True)
+    x, lengths, expected = z["x"], z["lengths"], z["expected"]
+    fl = feat_extract_output_lengths(gcfg, lengths)
+    t = feat_extract_output_lengths(gcfg, x.shape[1])
+    fm = (np.arange(t)[None] < fl[:, None]).astype(np.int32)
+    reset_counts()
+    with torch.inference_mode():
+        ours = model(torch.from_numpy(x).cuda(), torch.from_numpy(fm).cuda()).cpu().numpy()
+    worst = 0.0
+    for b, n in enumerate(fl):
+        n = int(n) // gcfg.squeeze_factor * gcfg.squeeze_factor
+        np.testing.assert_allclose(ours[b, :n], expected[b, :n], rtol=2e-3, atol=3e-4)
+        worst = max(worst, float(np.abs(ours[b, :n] - expected[b, :n]).max()))
+    log(f"[sewd-e2e] golden_sewd.npz (HF SEW-D state dict, strict) on the card: max|err| "
+        f"{worst:.2e} against HF's output (rtol 2e-3, atol 3e-4)")
+
+    cfg = DACSConfig(backbone=BackboneConfig.sew_d_mid().replace(
+        num_hidden_layers=4, hidden_dropout=0.0, activation_dropout=0.0,
+        attention_dropout=0.0, feat_proj_dropout=0.0), stage=0)
+    sd = init_dacs_state_dict(cfg, torch.Generator("cpu").manual_seed(10))
+    xx, il = _two_utterances()
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        with torch.device("meta"):
+            m = DACSModel(cfg, torch.float32)
+        m = m.to_empty(device=dev)
+        m.load_state_dict(sd, strict=True)
+        with torch.inference_mode():
+            out = m.eval()(torch.from_numpy(xx).to(dev), torch.from_numpy(il).to(dev),
+                           need_masks=False)
+        outs[dev] = {k: getattr(out, k).float().cpu() for k in ("hidden_states",
+                                                                "logits_unmask")}
+    errs = {k: (outs["cuda"][k] - outs["cpu"][k]).abs().max().item() for k in outs["cpu"]}
+    assert max(errs.values()) <= 1e-3, errs
+    log(f"[sewd-e2e] 4-layer fp32 sew_d_mid DACS, 5 s + 4.2 s: card vs CPU max|err| "
+        + ", ".join(f"{k} {e:.2e}" for k, e in errs.items()) + " (limit 1e-3)")
+    tok_ids = [[5, 6, 7, 8], [9, 10]]
+    labels = np.full((2, 32), -100, np.int64)
+    for i, s in enumerate(tok_ids):
+        labels[i, : len(s)] = s
+    host = dict(input_values=xx, input_lengths=il, labels=labels,
+                label_lengths=np.array([4, 2]), dementia_labels=np.array([1, 0]),
+                sample_mask=np.ones(2, np.float32))
+    _step_vs_cpu(cfg, sd, host, "sewd-e2e -st 0")
+    from privacy_preserve_federated_asr_tpu_torch.ops.attention import (
+        flash_attention_bwd, flash_attention_fwd)
+
+    assert flash_attention_fwd.launches == 0 and flash_attention_bwd.launches == 0
+    tally("sewd, card vs CPU")
+
+
+# ---------------------------------------------------------------------------
+# 29. cli teacher
+# ---------------------------------------------------------------------------
+
+TEACHER_LAYERS = 4
+
+
+def teacher_phase(root: Path) -> dict:
+    """``cli teacher`` (the CTC self-training teacher, ``--method grl -st
+    0``: the unmasked stream) of phase 8's final model on the 8 test WAVs as
+    an unlabeled CSV: 24 B1 per batch; its transcripts equal ``cli
+    transcribe`` greedy of the same model and clips at fp32; its CSV then
+    feeds one ``cli federated -fl_st 1 -sl 0.5 --unsup_train_csv`` round of
+    the model cut to 4 layers (random init), with exact B1 / B2 launches."""
+    from privacy_preserve_federated_asr_tpu_torch import cli
+    from privacy_preserve_federated_asr_tpu_torch.ops.attention import (
+        flash_attention_bwd, flash_attention_fwd)
+
+    names = [line.split(",")[0] for line in (root / "data/test.csv").read_text().splitlines()[1:]]
+    (root / "data/teacher_in.csv").write_text("path\n" + "\n".join(names) + "\n")
+    reset_counts()
+    trs, out, wall = _run_cli(root, [
+        "teacher", *MODEL_ARGS, "--method", "grl", "-st", "0", "-model_in", FINAL,
+        "--audio_dir", "data/clips", "--train_csv", "data/teacher_in.csv",
+        "--spk2label", "data/spk2label.npy", "--dataset_cache", "cache",
+        "--out", "teacher/pseudo.csv"])
+    b1 = flash_attention_fwd.launches
+    tally("cli teacher")
+    n_batches = -(-len(names) // FL_BATCH)
+    assert b1 == LAYERS * n_batches, b1
+    assert sorted(trs) == sorted(names)
+    assert json.loads((root / "teacher/pseudo.json").read_text()) == trs
+    kept = (root / "teacher/pseudo.csv").read_text().splitlines()
+    assert kept[0] == "path,sentence" and len(kept) - 1 == sum(bool(t.strip())
+                                                               for t in trs.values())
+    rows, _, tb1 = _transcribe(root, FINAL, "--method", "grl", "-st", "0",
+                               "--compute_dtype", "float32", phase="cli transcribe, teacher")
+    assert tb1 == LAYERS * n_batches, tb1
+    got = {Path(r["path"]).name: r["transcript"] for r in rows}
+    assert got == trs, (got, trs)
+    log(f"[teacher] cli teacher --method grl -st 0 (phase 8's final model, fp32) of "
+        f"{len(names)} WAVs: {wall:.1f} s, B1 {b1} = {LAYERS} x {n_batches}; its "
+        f"transcripts equal cli transcribe's greedy of the same clips; {len(kept) - 1} "
+        f"labeled rows in teacher/pseudo.csv")
+
+    real_cfg = cli._dacs_cfg
+    cli._dacs_cfg = lambda args: (lambda c: c.replace(backbone=c.backbone.replace(
+        num_hidden_layers=TEACHER_LAYERS)))(real_cfg(args))
+    try:
+        reset_counts()
+        eng, out, fwall = _run_cli(root, [
+            "federated", *FL_ARGS, "--epochs", "1", "-fl_st", "1", "-sl", "0.5",
+            "--unsup_train_csv", "teacher/pseudo.csv", "-model_out", "out/teacher_fl"])
+        fb1, fb2 = flash_attention_fwd.launches, flash_attention_bwd.launches
+        tally("cli federated -sl 0.5, teacher CSV")
+    finally:
+        cli._dacs_cfg = real_cfg
+    assert eng.cfg.backbone.num_hidden_layers == TEACHER_LAYERS
+    rows = eng.logger.history
+    rnd = next(r for r in rows if "phase" in r)
+    assert len(rnd["phase"].split("+")) == 2, rnd  # the unlabeled phase, then the labeled
+    ws = sum(r["warm_start_steps"] for r in rows if "warm_start_steps" in r)
+    local = sum(r["local_steps"] for r in rows if "local_steps" in r)
+    n_evals = sum("eval_loss" in r for r in rows) + 1  # the CLI's final evaluation
+    n_eval = -(-FL_TEST // FL_BATCH)
+    want = (TEACHER_LAYERS * (ws + local + n_evals * n_eval), TEACHER_LAYERS * (ws + local))
+    assert (fb1, fb2) == want, (fb1, fb2, want, rows)
+    ev = _last_json(out)
+    assert all(np.isfinite(v) for v in ev.values()), ev
+    log(f"[teacher] cli federated -fl_st 1 -sl 0.5 --unsup_train_csv teacher/pseudo.csv "
+        f"({TEACHER_LAYERS} layers, random init): round phases {rnd['phase']} "
+        f"({rnd['phase_steps']} steps per client), {fwall:.1f} s; B1 {fb1}, B2 {fb2} "
+        f"(= {TEACHER_LAYERS} x ({ws:.0f} warm-start + {local:.0f} local steps [+ "
+        f"{n_evals} evaluations x {n_eval} batches for B1]))  [{card_line()}]")
+    del eng
+    torch.cuda.empty_cache()
+    return {"b1": b1 + tb1 + fb1, "b2": fb2}
+
+
 def _shape_times(row: dict, **shape) -> dict:
     return {**shape, **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                             "library_ms")}}
@@ -2967,6 +3578,11 @@ def main(argv=None) -> None:
         int8_vs_cpu()
         streaming = streaming_full_width(root)
         streaming_exact(root)
+        variants = variants_full_width(root)
+        bands = variants_vs_cpu()
+        sewd = sewd_full_width(root)
+        sewd_vs_cpu()
+        teacher = teacher_phase(root)
     tools_b1 = (sum(transcribe["launches"].values()) + sum(export["launches"].values())
                 + sweep["b1"])
     by_dtype = {name: {dt: sum(c.get(name, {}).get(dt, 0) for c in COUNTS.values())
@@ -2977,12 +3593,16 @@ def main(argv=None) -> None:
            "federated round, card vs CPU", "extraction, card vs CPU",
            "grad_accum and remat, card vs CPU", "aggregators, card vs CPU",
            "int8, card vs CPU", "int8_train training step, card vs CPU",
-           "streaming exactness", "cli stream-report")
+           "streaming exactness", "cli stream-report", "variants, card vs CPU",
+           "sewd, card vs CPU")
     main_b1 = (serving["launches"] + training["b1"] + federated["b1"]
                + sum(chain["launches"].values()) + tools_b1 + accum["b1"] + fl_opts["b1"]
-               + int8["b1"] + streaming["b1"])
+               + int8["b1"] + streaming["b1"] + variants["b1"] + teacher["b1"])
     main_b2 = (training["b2"] + federated["b2"] + sweep["b2"] + accum["b2"]
-               + fl_opts["b2"] + int8["b2"])
+               + fl_opts["b2"] + int8["b2"] + variants["b2"] + teacher["b2"])
+    # the SEW-D paths launch neither kernel (their counts were asserted 0)
+    assert not any(sum(c[k].values()) for p, c in COUNTS.items() if "sewd" in p
+                   for k in ("flash_fwd", "flash_bwd")), COUNTS
     assert sum(sum(c["flash_fwd"].values()) for p, c in COUNTS.items() if p not in e2e) \
         == main_b1, (COUNTS, main_b1)
     assert sum(sum(c["flash_bwd"].values()) for p, c in COUNTS.items() if p not in e2e) \
@@ -3024,6 +3644,9 @@ def main(argv=None) -> None:
         f"B={BWD_SHAPES[0][0]} T={BWD_SHAPES[0][1]} bf16 rate {TRAIN_RATE}; each kernel's "
         f"\"times\" at every main-path shape in both dtypes (per stage (B1, B2) in cli "
         f"federated: {federated['stages']}); fp32 bounds are 3xTF32 on the tensor cores")
+    log(f"[variants] step ms {variants['step_ms']}, idle share {variants['idle']}; FSM / "
+        f"single-toggle mask elements in the near-tie band, card vs CPU: {bands}; SEW-D "
+        f"step {sewd['train']}, batch forward {sewd['forward']}  [{card_line()}]")
     print(json.dumps(line))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

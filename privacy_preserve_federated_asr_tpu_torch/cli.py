@@ -1,7 +1,7 @@
 """Command-line interface of the port: ``train``, ``federated``, ``serve``,
 ``extract``, ``svm``, ``detail-wer``, ``feat-scoring``, ``pkl2csv``,
-``dp-budget``, ``transcribe``, ``export-hf`` and ``sweep`` (the JAX
-package's subcommands of those names, same flag names).
+``dp-budget``, ``transcribe``, ``teacher``, ``export-hf`` and ``sweep`` (the
+JAX package's subcommands of those names, same flag names).
 
     python -m privacy_preserve_federated_asr_tpu_torch.cli train \
         --model_type data2vec -st 0 --epochs 30 --audio_dir ... \
@@ -39,12 +39,23 @@ package's subcommands of those names, same flag names).
     python -m privacy_preserve_federated_asr_tpu_torch.cli sweep svm \
         --train_pkl ... --test_pkl ... --spk2label ... --preset dementia-svm
 
-``--model_in`` takes a port checkpoint (a ``final/`` export or a
-``checkpoint-<step>/`` directory of ``train``), or a ForCTC torch state dict
-as the JAX package's and the port's ``cli export-hf`` write it (or an HF
-encoder/ForCTC ``pytorch_model.bin`` or ``model.safetensors``); heads the
-file lacks keep their random init. Without it the weights are a random init
-from ``--seed``. Every command that runs a
+    python -m privacy_preserve_federated_asr_tpu_torch.cli teacher \
+        --model_type data2vec -st 0 -model_in ... --audio_dir ... \
+        --train_csv unlabeled.csv --out saves/teacher/unsup.csv
+
+``--method`` is any of the five method families (``dacs``, ``toggle_more``,
+``grl``, ``single_toggle``, ``fsm``; ``federated`` takes ``dacs`` only) and
+``--model_type sewd`` selects the SEW-D backbone (``export-hf`` has no ForCTC
+layout for it and raises). ``--model_in`` takes a port checkpoint (a
+``final/`` export or a ``checkpoint-<step>/`` directory of ``train``), or a
+ForCTC torch state dict as the JAX package's and the port's ``cli
+export-hf`` write it (or an HF encoder/ForCTC ``pytorch_model.bin`` or
+``model.safetensors``, SEW-D's ``sew_d.`` prefix included). Of the file's
+heads, those the method's model has at the same shape are carried over; a
+head at another shape is skipped with a warning (a DACS checkpoint's D->4D
+arbitrator under ``--method single_toggle``), and every head not carried
+keeps its random init. Without it the weights are a random init from
+``--seed``. Every command that runs a
 model or the SVM runs on ``--device`` (default ``cuda``; with no GPU it
 exits with an error rather than run on the CPU). ``federated`` writes
 ``<model_out>_FLASR_global/final``, ``<model_out>_FLAD_global/final`` and
@@ -61,8 +72,11 @@ with a character-bigram LM fitted on ``--lm_train_csv`` for shallow fusion).
 also answers the streaming routes ``/stream/*`` (``--no_hub``: standalone
 sessions only; ``--transport int16``: int16 uploads); ``stream-client``
 streams a WAV to it and ``stream-report`` measures the finalization flip
-rate per right context. ``sweep text`` raises ``NotImplementedError`` (port
-slice 12).
+rate per right context. ``teacher`` labels an unlabeled CSV with the
+model's greedy transcripts (the self-training teacher) and writes the CSV
+``federated --unsup_train_csv`` takes, with a transcript JSON beside it.
+``teacher --whisper_hf`` (port slice 11) and ``sweep text`` (port slice 12)
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -80,9 +94,11 @@ BACKBONES = {
     "wav2vec2": "wav2vec2_large_960h_lv60",
     "wav2vec2-base": "wav2vec2_base_960h",
     "hubert": "hubert_large_ls960",
+    "sewd": "sew_d_mid",
     "unispeech": "unispeech_sat_large",
     "tiny": "tiny_for_tests",  # smoke tests
 }
+METHODS = ["dacs", "toggle_more", "grl", "single_toggle", "fsm"]
 
 
 def _dacs_cfg(args):
@@ -107,11 +123,13 @@ def _dacs_cfg(args):
 
 def load_weights(cfg, model_in: str | None, seed: int = 0,
                  device: str | torch.device = "cpu") -> dict[str, torch.Tensor]:
-    """DACSModel weights: a seeded random init (generator on ``device``),
-    with a port checkpoint or a torch checkpoint's encoder and heads carried
-    over it when ``model_in`` is given. A torch checkpoint is a file
-    (``.bin`` or ``.safetensors``) or an HF directory holding
-    ``pytorch_model.bin`` or, failing that, ``model.safetensors``."""
+    """Weights of the method's model: a seeded random init (generator on
+    ``device``), with a port checkpoint or a torch checkpoint's encoder and
+    heads carried over it when ``model_in`` is given. A torch checkpoint is
+    a file (``.bin`` or ``.safetensors``) or an HF directory holding
+    ``pytorch_model.bin`` or, failing that, ``model.safetensors``. Its
+    encoder must match the model's shapes (else ``ValueError``); its heads
+    are grafted by :func:`_graft_matching_heads`."""
     from .models import init_dacs_state_dict, state_dict_from_hf
     from .models.port import read_safetensors
     from .train.checkpoint import load_state_dict
@@ -137,11 +155,39 @@ def load_weights(cfg, model_in: str | None, seed: int = 0,
     raw = (read_safetensors(str(path)) if path.suffix == ".safetensors"
            else torch.load(str(path), map_location="cpu", weights_only=True))
     ported = state_dict_from_hf(raw, cfg)
+    heads = {}
     for k, v in ported.items():
-        if v.shape != sd[k].shape:
+        if not k.startswith("backbone."):
+            heads[k] = v
+        elif v.shape != sd[k].shape:
             raise ValueError(f"checkpoint {k} has shape {tuple(v.shape)}, the "
                              f"model {tuple(sd[k].shape)} (wrong --model_type?)")
-        sd[k] = v
+        else:
+            sd[k] = v
+    return _graft_matching_heads(sd, heads)
+
+
+def _graft_matching_heads(sd: dict[str, torch.Tensor],
+                          heads: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """Carry each checkpoint head (``lm_head``, ``arbitrator``,
+    ``lm_heads.0``, ...) into ``sd`` in place, only where the method's model
+    has it and only at the same keys and shapes (the JAX CLI's
+    ``_graft_matching_heads``): the variants share the backbone but not the
+    heads, e.g. single-toggle's arbitrator is D->2D where DACS's is D->4D.
+    A head at another shape is skipped loudly and keeps its random init."""
+    def shapes(d, head):
+        return {k: tuple(v.shape) for k, v in d.items() if k.rsplit(".", 1)[0] == head}
+
+    for head in sorted({k.rsplit(".", 1)[0] for k in heads}):
+        have = shapes(sd, head)
+        if not have:  # the method's model has no such head
+            continue
+        got = shapes(heads, head)
+        if got == have:
+            sd.update({k: heads[k] for k in got})
+        else:
+            print(f"[load] WARNING: checkpoint head '{head}' shape {got} != model's "
+                  f"{have} — skipped (wrong --method or vocab for this checkpoint?)")
     return sd
 
 
@@ -252,14 +298,14 @@ def cmd_stream_report(args):
     return rows
 
 
-def _load_examples(args, csv_path):
+def _load_examples(args, csv_path, with_transcript=True):
     from .data.dataset import csv_to_examples, load_spk2label, prepare_examples
     from .data.tokenizer import CTCCharTokenizer
 
     tok = CTCCharTokenizer()
     spk2label = load_spk2label(args.spk2label) if args.spk2label else {}
     exs = csv_to_examples(args.audio_dir, csv_path, spk2label,
-                          cache_dir=args.dataset_cache)
+                          with_transcript=with_transcript, cache_dir=args.dataset_cache)
     return prepare_examples(exs, tok), tok
 
 
@@ -527,6 +573,48 @@ def cmd_transcribe(args):
     return rows
 
 
+def cmd_teacher(args):
+    """Offline teacher-transcription pass (the reference's
+    ``TeacherStudentLearning`` + transcript.json merge,
+    federated/src/federated_main.py:29-68,283-298): transcribe the clips of
+    an unlabeled CSV (``--train_csv``) and write a transcript JSON (path ->
+    text) beside ``--out``, and at ``--out`` the labeled CSV
+    ``federated --unsup_train_csv`` takes (empty transcripts dropped, as the
+    reference's ``FilterAvailAudios`` does). The teacher is the package's
+    own CTC model from ``-model_in`` (self-training, fp32 greedy);
+    ``--whisper_hf`` is not ported yet. Returns the path -> text map."""
+    import csv
+
+    from .data.teacher import transcribe_with_ctc_model
+    from .serving.engine import resolve_device
+
+    if args.whisper_hf:
+        raise NotImplementedError("teacher --whisper_hf (the Whisper teacher) is not "
+                                  "ported yet: it comes with port slice 11")
+    device = resolve_device(args.device)
+    exs, tok = _load_examples(args, args.train_csv, with_transcript=False)
+    cfg = _dacs_cfg(args)
+    sd = load_weights(cfg, args.model_in_path, args.seed, device)
+    trs = transcribe_with_ctc_model(cfg, sd, exs, tok, batch_size=args.eval_batch_size,
+                                    device=device)
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with open(out.with_suffix(".json"), "w") as f:
+        json.dump(trs, f, indent=1)
+    kept = 0
+    with open(out, "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=["path", "sentence"])
+        w.writeheader()
+        for e in exs:
+            text = (trs.get(e.path) or "").upper().strip()
+            if text:
+                w.writerow({"path": e.path, "sentence": text})
+                kept += 1
+    print(json.dumps({"transcribed": len(trs), "kept": kept,
+                      "csv": str(out), "json": str(out.with_suffix('.json'))}))
+    return trs
+
+
 def cmd_export_hf(args):
     """Export the model's weights to an HF torch state_dict
     (pytorch_model.bin layout, ForCTC keys) so reference-style torch
@@ -615,7 +703,7 @@ def _add_train(p) -> None:
     parallelism and layout flags are accepted and refused by the Trainer
     until they are ported), plus ``--device``."""
     p.add_argument("--model_type", default="data2vec", choices=sorted(BACKBONES))
-    p.add_argument("--method", default="dacs", choices=["dacs", "toggle_more", "grl"])
+    p.add_argument("--method", default="dacs", choices=METHODS)
     p.add_argument("-GRL", "--GRL", action="store_true", default=False,
                    help="method=grl: gradient-reversed AD CE")
     p.add_argument("-model_in", "--model_in_path", default=None,
@@ -724,7 +812,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = sub.add_parser("serve", help="batched ASR+AD inference server on the GPU")
     p.add_argument("--model_type", default="data2vec", choices=sorted(BACKBONES))
-    p.add_argument("--method", default="dacs", choices=["dacs", "toggle_more", "grl"])
+    p.add_argument("--method", default="dacs", choices=METHODS)
     p.add_argument("-model_in", "--model_in_path", default=None,
                    help="ForCTC torch state dict (JAX `cli export-hf` output)")
     p.add_argument("-st", "--STAGE", type=int, default=0)
@@ -851,6 +939,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_seconds", type=float, default=30.0)
     _add_beam(p)
     p.set_defaults(fn=cmd_transcribe)
+
+    p = sub.add_parser("teacher",
+                       help="offline teacher transcription: label an unlabeled CSV "
+                            "(--train_csv) with the model's transcripts")
+    _add_train(p)
+    p.add_argument("--out", required=True,
+                   help="output CSV path (path,sentence: feed to `federated "
+                        "--unsup_train_csv`); a transcript JSON is written beside it")
+    p.add_argument("--whisper_hf", default=None,
+                   help="HF Whisper checkpoint dir (not ported yet); default teacher "
+                        "is this package's CTC model from -model_in (self-training)")
+    p.set_defaults(fn=cmd_teacher)
 
     p = sub.add_parser("export-hf",
                        help="model weights -> HF torch state_dict "

@@ -15,8 +15,14 @@ read the other's files.
 Here a ``torch.Generator`` on the model's device is reseeded with ``seed``
 before every batch: one fixed stream per batch shape, as in JAX, but not
 JAX's numbers. ``gumbel_noise`` (a function of the batch's ``[B, T, D, 2]``
-mask-score shape returning the lm and the AD draw) injects the noise
-instead, so that tests hand both packages the same draw.
+mask-score shape returning the model's draws: lm and AD for the DACS model,
+lm alone for single-toggle, none for FSM, whose masks are thresholds)
+injects the noise instead, so that tests hand both packages the same draw.
+
+**Row schema per method** (the JAX package's, after the reference's eval
+scripts): ``dacs`` / ``toggle_more`` both masks and the AD-masked logits;
+``fsm`` both threshold masks; ``single_toggle`` ``lm_mask`` only, AD logits
+from the lm-masked stream; ``grl`` no masks (``Recipe.extract_streams``).
 
 **Pickles without pandas.** The JAX package dumps rows as a pandas
 DataFrame. :func:`rows_to_pickle` writes the bytes of
@@ -88,11 +94,11 @@ def load_model(make_model: Callable, cfg: DACSConfig,
 
 
 def batch_inputs(cfg: DACSConfig, b: Batch, seed: int, generator: torch.Generator,
-                 gumbel_noise: NoiseFn | None, device: torch.device):
+                 gumbel_noise: NoiseFn | None, device: torch.device, draws: int = 2):
     """A host batch's waveforms and lengths on ``device``, and its Gumbel
-    noise (lm, then AD): ``gumbel_noise(shape)`` when given, else two draws
-    from ``generator`` reseeded with ``seed``, the order and shapes the
-    model's own draw takes."""
+    noise (the model's ``draws``: lm, then AD): ``gumbel_noise(shape)`` when
+    given, else ``draws`` draws from ``generator`` reseeded with ``seed``,
+    the order and shapes the model's own draw takes."""
     x = torch.from_numpy(b.input_values).to(device)
     lengths = torch.from_numpy(b.input_lengths).to(device)
     shape = (x.shape[0], feat_extract_output_lengths(cfg.backbone, x.shape[1]),
@@ -101,8 +107,7 @@ def batch_inputs(cfg: DACSConfig, b: Batch, seed: int, generator: torch.Generato
         noise = tuple(torch.as_tensor(n, device=device) for n in gumbel_noise(shape))
     else:
         generator.manual_seed(seed)
-        noise = (sample_gumbel(shape, generator, device),
-                 sample_gumbel(shape, generator, device))
+        noise = tuple(sample_gumbel(shape, generator, device) for _ in range(draws))
     return x, lengths, noise
 
 
@@ -129,7 +134,7 @@ def extract_embeddings(
 ) -> list[ExtractionRow]:
     """Rows of every example, in the batcher's order (epoch seed 0).
 
-    ``state_dict`` holds the port's DACSModel weights. ``compute_dtype``
+    ``state_dict`` holds the weights of the method's model. ``compute_dtype``
     "float32" (the reference's extraction precision, the default),
     "bfloat16" (the serving precision) or "int8" (bf16 with W8A8 Dense
     matmuls, ops/quant.py); rows are fp32 in every case.
@@ -150,7 +155,8 @@ def extract_embeddings(
     rows: list[ExtractionRow] = []
     for b in batcher.epoch(epoch_seed=0):
         with torch.inference_mode():
-            x, lengths, noise = batch_inputs(cfg, b, seed, generator, gumbel_noise, device)
+            x, lengths, noise = batch_inputs(cfg, b, seed, generator, gumbel_noise, device,
+                                             model.gumbel_draws)
             out = model(x, lengths, gumbel_noise=noise)
             ctc_logits, ad_logits, lm_mask, ad_mask = recipe.extract_streams(out, cfg)
             pred = greedy_ids(ctc_logits, out.frame_mask, cfg.backbone.pad_token_id)

@@ -11,15 +11,18 @@ unispeech-sat SSL encoder family; the structural switches are:
   * ``do_stable_layer_norm``: pre-norm (wav2vec2/hubert large) vs post-norm
     (data2vec, base checkpoints) transformer blocks.
 
+``model_type="sew-d"`` selects the SEW-D backbone (models/sewd.py), which
+reads the SEW-D fields (squeeze factor, relative-position buckets,
+disentangled attention terms).
+
 The fields are the subset of the JAX package's that serving and training
 read, with the same names, defaults and presets, so a configuration (or a
 golden fixture's metadata) means the same model in both packages.
 ``dense_impl`` picks the backbone's Dense matmuls: ``"fp"``, the inference
-W8A8 ``"int8"`` or the trainable ``"int8_train"`` (ops/quant.py). The JAX
-fields left out belong to paths the port does not run (``attention_impl``:
-the port always takes its kernel on the card; ``layerdrop``, unused under
-jit in JAX too; SEW-D; the FSM thresholds); each later slice adds the
-fields it runs.
+W8A8 ``"int8"`` or the trainable ``"int8_train"`` (ops/quant.py). The two
+JAX fields left out belong to paths the port does not run
+(``attention_impl``: the port always takes its kernel on the card;
+``layerdrop``, unused under jit in JAX too).
 """
 
 from __future__ import annotations
@@ -59,6 +62,15 @@ class BackboneConfig:
     # Dense matmuls of the projections and FFNs: "fp" | "int8" (dynamic
     # W8A8, inference) | "int8_train" (W8A8 with SwitchBack gradients)
     dense_impl: str = "fp"
+
+    # SEW-D extras (squeezed encoder + DeBERTa-v2 disentangled attention)
+    squeeze_factor: int = 1
+    position_buckets: int = -1
+    relative_attention: bool = False
+    pos_att_type: tuple[str, ...] = ()
+    norm_rel_ebd: str = "none"
+    max_position_embeddings: int = 512
+    feature_layer_norm_eps: float = 1e-5
 
     # SpecAugment (the reference trains with mask_time_prob=0)
     mask_time_prob: float = 0.0
@@ -118,6 +130,24 @@ class BackboneConfig:
                    do_stable_layer_norm=True)
 
     @classmethod
+    def sew_d_mid(cls) -> "BackboneConfig":
+        """asapp/sew-d-mid-* family (HF SEWDConfig defaults)."""
+        return cls(
+            model_type="sew-d", hidden_size=768, num_hidden_layers=12,
+            num_attention_heads=12, intermediate_size=3072,
+            conv_dim=(64, 128, 128, 128, 128, 256, 256, 256, 256, 512, 512, 512, 512),
+            conv_kernel=(10, 3, 1, 3, 1, 3, 1, 3, 1, 2, 1, 2, 1),
+            conv_stride=(5, 2, 1, 2, 1, 2, 1, 2, 1, 2, 1, 2, 1),
+            conv_bias=False, feat_extract_norm="group",
+            pos_conv_type="single", num_conv_pos_embeddings=128,
+            num_conv_pos_embedding_groups=16,
+            squeeze_factor=2, position_buckets=256, relative_attention=True,
+            pos_att_type=("p2c", "c2p"), norm_rel_ebd="layer_norm",
+            max_position_embeddings=512, layer_norm_eps=1e-7,
+            feature_layer_norm_eps=1e-5, hidden_act="gelu_python",
+        )
+
+    @classmethod
     def unispeech_sat_large(cls) -> "BackboneConfig":
         return cls(model_type="unispeech-sat", conv_bias=True, feat_extract_norm="layer",
                    pos_conv_type="single", num_conv_pos_embeddings=128,
@@ -140,8 +170,8 @@ class DACSConfig:
     Data2VecAudioForCTC.__init__ :262-326 and forward :375-631)."""
 
     backbone: BackboneConfig = field(default_factory=BackboneConfig)
-    # method family: dacs | toggle_more | grl share DACSModel and run in the
-    # port; single_toggle | fsm wait for their slice (models/recipes.py)
+    # method family (models/recipes.py): dacs | toggle_more | grl share
+    # DACSModel; single_toggle | fsm have their own (models/variants.py)
     method: str = "dacs"
     stage: int = 2               # 0 = ASR fine-tune, 1 = AD head, 2 = toggling net
     lambda_grl: float = 0.5      # GRL strength (args.LAMBDA)
@@ -157,6 +187,8 @@ class DACSConfig:
     # timesteps, padding included (batch size 1 there)
     pool_valid_frames_only: bool = True
     num_lms: int = 1             # >1 adds the N-best multitask lm heads
+    fsm_lm_thres: float = 0.5    # method="fsm": sigmoid mask thresholds
+    fsm_ad_thres: float = 0.5
 
     @property
     def hidden_size(self) -> int:

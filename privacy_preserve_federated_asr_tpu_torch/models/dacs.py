@@ -66,7 +66,11 @@ class DACSModel(nn.Module):
     """``dtype`` is the compute dtype; ``param_dtype`` (default: ``dtype``)
     the storage dtype of the matmul and conv weights (fp32 when training in
     bf16, as flax keeps fp32 params); ``remat`` recomputes each encoder
-    layer in the backward pass (``torch.utils.checkpoint``)."""
+    layer in the backward pass (``torch.utils.checkpoint``). ``gumbel_draws``:
+    the forward takes two Gumbel tensors of the mask-score shape, lm then AD
+    (models/variants.py)."""
+
+    gumbel_draws = 2
 
     def __init__(self, cfg: DACSConfig, dtype: torch.dtype = torch.float32,
                  param_dtype: torch.dtype | None = None, remat: bool = False):

@@ -6,12 +6,13 @@ import torch
 
 from .backbone import SSLBackbone
 from .config import BackboneConfig
+from .sewd import SEWDBackbone
 
 
 def make_backbone(cfg: BackboneConfig, dtype: torch.dtype = torch.float32,
-                  param_dtype: torch.dtype | None = None) -> SSLBackbone:
-    """SSLBackbone for wav2vec2/hubert/data2vec/unispeech-sat. SEW-D waits
-    for its slice."""
+                  param_dtype: torch.dtype | None = None) -> SSLBackbone | SEWDBackbone:
+    """SSLBackbone for wav2vec2/hubert/data2vec/unispeech-sat; SEWDBackbone
+    for ``model_type="sew-d"``."""
     if cfg.model_type == "sew-d":
-        raise NotImplementedError("model_type='sew-d' is not ported yet")
+        return SEWDBackbone(cfg, dtype, param_dtype)
     return SSLBackbone(cfg, dtype, param_dtype)

@@ -14,10 +14,19 @@ The port's modules keep HF attribute names, so:
     weight-normed positional conv (wav2vec2/hubert ``single``) merged into a
     plain weight: weight norm is a reparametrisation, not a function.
 
-A ``BackboneConfig`` gives an :class:`SSLBackbone` state dict; a
-``DACSConfig`` gives a :class:`DACSModel` one (backbone under ``backbone.``
-plus the heads). Values are fp32 CPU tensors; ``load_state_dict`` casts
-them to each module's dtype and device.
+A ``BackboneConfig`` gives the backbone's state dict (:class:`SSLBackbone`,
+or :class:`SEWDBackbone` for ``model_type="sew-d"``); a ``DACSConfig``
+gives the state dict of its method's model (``get_recipe(cfg.method).
+make_model``: the DACS model, or a variant of models/variants.py, with the
+backbone under ``backbone.`` plus the method's heads). Values are fp32 CPU
+tensors; ``load_state_dict`` casts them to each module's dtype and device.
+
+SEW-D's flax tree (the JAX package's ``SEWDBackbone``) names its modules
+otherwise than HF: ``pos_conv``, the raw ``rel_embeddings`` param and its
+``rel_embeddings_layer_norm``, ``layers_{i}/attention_self|
+attention_output|attention_layer_norm|intermediate|output|
+output_layer_norm`` and ``upsample``; :data:`_SEWD_NAMES` maps them onto
+the HF names both ways.
 """
 
 from __future__ import annotations
@@ -30,14 +39,28 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from .backbone import SSLBackbone
 from .config import BackboneConfig, DACSConfig
-from .dacs import DACSModel
+from .factory import make_backbone
 
-# ForCTC head names -> the port's DACSModel attributes
+# ForCTC head names -> the port's model attributes (the heads the JAX
+# package's ``port_dacs_heads`` carries)
 _HEADS = {"lm_head": "lm_head", "dementia_head": "dementia_head",
           "arbitrator": "arbitrator", "criterion_similar.fc": "similar_fc"}
-_ENCODER_PREFIXES = ("data2vec_audio.", "wav2vec2.", "hubert.", "unispeech_sat.", "")
+_ENCODER_PREFIXES = ("data2vec_audio.", "wav2vec2.", "hubert.", "unispeech_sat.",
+                     "sew_d.", "")
+# SEW-D: flax module path (dotted, ``{i}`` a layer index) <-> HF module name
+_SEWD_NAMES = (
+    ("pos_conv", "encoder.pos_conv_embed.conv"),
+    ("rel_embeddings_layer_norm", "encoder.encoder.LayerNorm"),
+    ("layers.{i}.attention_self", "encoder.encoder.layer.{i}.attention.self"),
+    ("layers.{i}.attention_output", "encoder.encoder.layer.{i}.attention.output.dense"),
+    ("layers.{i}.attention_layer_norm", "encoder.encoder.layer.{i}.attention.output.LayerNorm"),
+    ("layers.{i}.intermediate", "encoder.encoder.layer.{i}.intermediate.dense"),
+    ("layers.{i}.output", "encoder.encoder.layer.{i}.output.dense"),
+    ("layers.{i}.output_layer_norm", "encoder.encoder.layer.{i}.output.LayerNorm"),
+    ("upsample", "encoder.upsample.projection"),
+)
+_SEWD_REL = "encoder.encoder.rel_embeddings.weight"
 
 
 def _tensor(x) -> torch.Tensor:
@@ -46,10 +69,35 @@ def _tensor(x) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(np.asarray(x, dtype=np.float32)))
 
 
-def _skeleton_keys(cfg: BackboneConfig | DACSConfig) -> list[str]:
+def _skeleton(cfg: BackboneConfig | DACSConfig) -> torch.nn.Module:
+    """The module a config's state dict belongs to, on the meta device."""
+    from .recipes import get_recipe
+
     with torch.device("meta"):
-        model = DACSModel(cfg) if isinstance(cfg, DACSConfig) else SSLBackbone(cfg)
-    return list(model.state_dict())
+        if isinstance(cfg, DACSConfig):
+            return get_recipe(cfg.method).make_model(cfg)
+        return make_backbone(cfg)
+
+
+def _skeleton_keys(cfg: BackboneConfig | DACSConfig) -> list[str]:
+    return list(_skeleton(cfg).state_dict())
+
+
+def _sewd_rename(key: str, to_hf: bool) -> str:
+    """A SEW-D state-dict key between the flax module path (dotted) and the
+    HF name, either way; a ``backbone.`` prefix is kept. The raw flax
+    ``rel_embeddings`` param is the HF embedding's ``weight``."""
+    prefix = "backbone." if key.startswith("backbone.") else ""
+    rest = key[len(prefix):]
+    if rest == ("rel_embeddings" if to_hf else _SEWD_REL):
+        return prefix + (_SEWD_REL if to_hf else "rel_embeddings")
+    for flax, hf in _SEWD_NAMES:
+        src, dst = (flax, hf) if to_hf else (hf, flax)
+        m = re.match(re.escape(src).replace(r"\{i\}", r"(\d+)") + r"\.", rest)
+        if m:
+            head = dst.replace("{i}", m.group(1)) if m.groups() else dst
+            return f"{prefix}{head}.{rest[m.end():]}"
+    return key
 
 
 # ---------------------------------------------------------------------------
@@ -117,7 +165,10 @@ def state_dict_from_flax(params: Mapping[str, Any],
     ``layers.{i}`` / ``conv_layers.{i}`` / ``lm_heads.{i}``, and a
     ``scan_layers`` tree's stacked ``layers_scan/layer`` is read as its
     ``L`` layers; SpecAugment's ``masked_spec_embed`` (present when
-    ``mask_time_prob > 0``) keeps its name."""
+    ``mask_time_prob > 0``) keeps its name. A SEW-D tree's names are mapped
+    onto HF's (:data:`_SEWD_NAMES`)."""
+    bcfg = cfg.backbone if isinstance(cfg, DACSConfig) else cfg
+    sewd = bcfg.model_type == "sew-d"
     sd = {}
     for path, value in _flatten(_unstack_scan_layers(params)):
         mods = [re.sub(r"^(conv_layers|layers|lm_heads)_(\d+)$", r"\1.\2", p)
@@ -129,7 +180,8 @@ def state_dict_from_flax(params: Mapping[str, Any],
             leaf = "weight"
         elif leaf == "scale":
             leaf = "weight"
-        sd[".".join(mods + [leaf])] = _tensor(w)
+        key = ".".join(mods + [leaf])
+        sd[_sewd_rename(key, to_hf=True) if sewd else key] = _tensor(w)
     want = set(_skeleton_keys(cfg))
     if set(sd) != want:
         raise KeyError(f"flax params do not match the port's model: missing "
@@ -143,9 +195,13 @@ def flax_from_state_dict(sd: Mapping[str, torch.Tensor], scan_layers: bool = Fal
     inverse of :func:`state_dict_from_flax`): 2-D weights become Dense
     ``kernel`` (transposed), 3-D conv weights ``kernel [k, in/g, out]``, 1-D
     ``weight`` (LayerNorm / GroupNorm) ``scale``. ``scan_layers`` writes the
-    encoder layers in the JAX ``scan_layers`` layout (stacked)."""
+    encoder layers in the JAX ``scan_layers`` layout (stacked). A SEW-D
+    state dict gets the JAX ``SEWDBackbone``'s names."""
+    sewd = any(k.endswith(_SEWD_REL) for k in sd)
     tree: dict = {}
     for key, value in sd.items():
+        if sewd:
+            key = _sewd_rename(key, to_hf=False)
         *mods, leaf = key.split(".")
         w = value.detach().to("cpu", torch.float32).numpy()
         if leaf == "weight":
@@ -270,12 +326,11 @@ def read_safetensors(path: str) -> dict[str, torch.Tensor]:
 
 def init_dacs_state_dict(cfg: DACSConfig,
                          generator: torch.Generator) -> dict[str, torch.Tensor]:
-    """Seeded random DACSModel weights in fp32 on ``generator.device``:
-    normal(0, 1/sqrt(fan_in)) matmul and conv weights (flax's lecun scale),
-    zero biases, unit norm scales, and ``masked_spec_embed`` uniform in
-    [0, 1) as flax initialises it."""
-    with torch.device("meta"):
-        shapes = {k: v.shape for k, v in DACSModel(cfg).state_dict().items()}
+    """Seeded random weights of the method's model (``cfg.method``) in fp32
+    on ``generator.device``: normal(0, 1/sqrt(fan_in)) matmul, conv and
+    embedding weights (flax's lecun scale), zero biases, unit norm scales,
+    and ``masked_spec_embed`` uniform in [0, 1) as flax initialises it."""
+    shapes = {k: v.shape for k, v in _skeleton(cfg).state_dict().items()}
     dev = generator.device
     sd = {}
     for name, shape in shapes.items():

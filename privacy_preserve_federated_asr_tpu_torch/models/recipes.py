@@ -1,12 +1,11 @@
 """Method-family recipes (the port's ``models/recipes.py``).
 
-``dacs``, ``toggle_more`` and ``grl`` share :class:`DACSModel`; a
+``dacs``, ``toggle_more`` and ``grl`` share :class:`DACSModel`;
+``single_toggle`` and ``fsm`` have their own models (models/variants.py). A
 :class:`Recipe` bundles what stage- and method-routed training and serving
 need: the loss, the per-stage trainable-parameter predicate, whether the
 encoder trains, the streams greedy decode and the AD vote consume, and what
 extraction dumps per utterance.
-``single_toggle`` and ``fsm`` use their own models and wait for their
-slice.
 """
 
 from __future__ import annotations
@@ -19,6 +18,14 @@ import torch
 from .config import DACSConfig
 from .dacs import DACSModel
 from .objectives import dacs_loss, grl_multitask_loss
+from .variants import (
+    FSMModel,
+    SingleToggleModel,
+    fsm_loss,
+    fsm_trainable,
+    single_toggle_loss,
+    single_toggle_trainable,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,13 +151,52 @@ GRL = Recipe(
     extract_streams=lambda out, cfg: (out.logits_unmask, out.dementia_logits_unmask,
                                       None, None))
 
-RECIPES: dict[str, Recipe] = {r.name: r for r in (DACS, TOGGLE_MORE, GRL)}
-_LATER = ("single_toggle", "fsm")
+
+def _st_loss(out, labels, label_lengths, dementia_labels, cfg, model, sample_mask,
+             aux_metrics):
+    del model, aux_metrics
+    return single_toggle_loss(out, labels, label_lengths, dementia_labels, cfg, sample_mask)
+
+
+SINGLE_TOGGLE = Recipe(
+    name="single_toggle", stages=(1, 2, 3),
+    make_model=SingleToggleModel,
+    loss=_st_loss, trainable=single_toggle_trainable,
+    # the backbone is frozen in every single-toggle stage
+    # (trainer_data2vec_toggle.py:83-100)
+    backbone_trains=lambda stage: False,
+    uses_masks=lambda stage: True,
+    # AD logits come from the lm-masked stream, the stream the method trains
+    # and its eval script dumps (eval_SingleToggle.py:341,454)
+    eval_streams=lambda out, cfg: (out.logits, out.dementia_logits_lm),
+    # eval_SingleToggle.py rows: lm_mask only, no dementia_mask column
+    extract_streams=lambda out, cfg: (out.logits, out.dementia_logits_lm,
+                                      out.lm_mask, None))
+
+
+def _fsm_loss(out, labels, label_lengths, dementia_labels, cfg, model, sample_mask,
+              aux_metrics):
+    del aux_metrics
+    return fsm_loss(out, labels, label_lengths, dementia_labels, cfg,
+                    model.similar_fc.weight, sample_mask)
+
+
+FSM = Recipe(
+    name="fsm", stages=(1, 2, 3, 4, 5, 6),
+    make_model=FSMModel,
+    loss=_fsm_loss, trainable=fsm_trainable,
+    # stages 1/2 fine-tune the encoder (trainer_data2vec_5st.py:108-148)
+    backbone_trains=lambda stage: stage in (1, 2),
+    uses_masks=lambda stage: True,
+    eval_streams=lambda out, cfg: (out.logits, out.dementia_logits),
+    # eval_FSM.py:177-230: both (sigmoid-threshold) masks
+    extract_streams=lambda out, cfg: (out.logits, out.dementia_logits,
+                                      out.lm_mask, out.dementia_mask))
+
+RECIPES: dict[str, Recipe] = {r.name: r for r in (DACS, TOGGLE_MORE, GRL, SINGLE_TOGGLE, FSM)}
 
 
 def get_recipe(method: str) -> Recipe:
-    if method in _LATER:
-        raise NotImplementedError(f"method {method!r} is not ported yet")
     try:
         return RECIPES[method]
     except KeyError:

@@ -10,8 +10,8 @@ reference's):
     fc weight in a loop that rebinds a local name and so never normalizes W;
     only x is normalized. Reproduced (``normalize_weight=False``).
   * ``cross_entropy_loss``  — torch ``nn.CrossEntropyLoss`` (mean)
-
-``fsm_attention_loss`` comes with the variants slice.
+  * ``fsm_attention_loss``  — the FSM mask-decorrelation loss
+    (centralized/Models.py:56-74)
 """
 
 from __future__ import annotations
@@ -115,3 +115,24 @@ def am_softmax_loss(x: torch.Tensor, labels: torch.Tensor, fc_weight: torch.Tens
     denominator = torch.exp(numerator) + excl
     loss = -_weighted_mean(numerator - torch.log(denominator), sample_weight)
     return loss, wf
+
+
+def fsm_attention_loss(lm_masks: torch.Tensor, ad_masks: torch.Tensor,
+                       frame_mask: torch.Tensor | None = None,
+                       eps: float = 1e-6) -> torch.Tensor:
+    """Mask-decorrelation loss: mean over the batch of
+    ``||[[0, s12], [s21, 0]]||_F`` with s12 = s21 the cosine similarity of
+    the time-averaged lm and AD masks ``[B, T, D]``, so ``sqrt(2) * |cos|``.
+    ``frame_mask`` [B, T] restricts the time average to valid frames; the
+    reference (batch size 1) averages over all frames."""
+    lm, ad = lm_masks.float(), ad_masks.float()
+    if frame_mask is None:
+        lm_mean, ad_mean = lm.mean(1), ad.mean(1)
+    else:
+        fm = frame_mask.float()[:, :, None]
+        denom = fm.sum(1).clamp_min(1.0)
+        lm_mean, ad_mean = (lm * fm).sum(1) / denom, (ad * fm).sum(1) / denom
+    num = (lm_mean * ad_mean).sum(-1)
+    cos = num / (torch.linalg.vector_norm(lm_mean, dim=-1)
+                 * torch.linalg.vector_norm(ad_mean, dim=-1)).clamp_min(eps)
+    return torch.sqrt(2.0 * cos * cos).mean()

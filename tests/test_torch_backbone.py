@@ -1,7 +1,8 @@
 """The port's SSLBackbone (privacy_preserve_federated_asr_tpu_torch/models/
-backbone.py): the 4 SSL goldens loaded through ``state_dict_from_hf`` with
-strict=True, and the flax SSLBackbone under the same weights carried across
-with ``state_dict_from_flax``, post-norm and pre-norm, at fp32."""
+backbone.py) and SEWDBackbone (models/sewd.py): the 4 SSL goldens and the
+SEW-D golden loaded through ``state_dict_from_hf`` with strict=True, and the
+flax SSLBackbone under the same weights carried across with
+``state_dict_from_flax``, post-norm and pre-norm, at fp32."""
 
 import jax
 import jax.numpy as jnp
@@ -17,6 +18,8 @@ from privacy_preserve_federated_asr_tpu_torch.models import (
     state_dict_from_flax,
     state_dict_from_hf,
 )
+from privacy_preserve_federated_asr_tpu_torch.models.factory import make_backbone
+from privacy_preserve_federated_asr_tpu_torch.models.sewd import SEWDBackbone
 from test_golden_port import _load
 
 # the JAX configs' dropouts off (the port's config has none: inference only)
@@ -39,8 +42,12 @@ def _frame_mask(cfg, lengths, n):
     return fl, (np.arange(t)[None, :] < fl[:, None]).astype(np.int32)
 
 
-@pytest.mark.parametrize("name", ["data2vec", "wav2vec2", "hubert", "unispeech_sat"])
+@pytest.mark.parametrize("name", ["data2vec", "wav2vec2", "hubert", "unispeech_sat", "sewd"])
 def test_golden_hf_state_dict_strict(name):
+    """The HF goldens through ``state_dict_from_hf`` with strict=True. SEW-D
+    at the JAX golden test's tolerance (rtol 2e-3, atol 3e-4) over frames
+    rounded down to a multiple of the squeeze factor; the SSL families at
+    rtol 5e-4, atol 5e-5."""
     jcfg, sd, x, lengths, expected = _load(name)
     from privacy_preserve_federated_asr_tpu.models import BackboneConfig as JaxCfg
 
@@ -50,14 +57,18 @@ def test_golden_hf_state_dict_strict(name):
     for f in set(jcfg.__dataclass_fields__) - ours_fields:
         assert getattr(jcfg, f) == getattr(JaxCfg(), f), f
     cfg = BackboneConfig(**{f: getattr(jcfg, f) for f in ours_fields})
-    model = SSLBackbone(cfg).eval()
+    model = make_backbone(cfg).eval()
+    assert isinstance(model, SEWDBackbone if name == "sewd" else SSLBackbone)
     model.load_state_dict(state_dict_from_hf(sd, cfg), strict=True)
     fl, fm = _frame_mask(cfg, lengths, x.shape[1])
     with torch.inference_mode():
         ours = model(torch.from_numpy(x), torch.from_numpy(fm)).numpy()
     assert ours.shape == expected.shape
+    tol = dict(rtol=2e-3, atol=3e-4) if name == "sewd" else dict(rtol=5e-4, atol=5e-5)
     for b, n in enumerate(fl):
-        np.testing.assert_allclose(ours[b, :n], expected[b, :n], rtol=5e-4, atol=5e-5)
+        if name == "sewd":
+            n = int(n) // cfg.squeeze_factor * cfg.squeeze_factor
+        np.testing.assert_allclose(ours[b, :n], expected[b, :n], **tol)
 
 
 def random_flax_params(module, example, seed, rng_names=("params",)):
