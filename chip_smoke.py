@@ -11,7 +11,8 @@ FedProx, FedAdam, top-k, secure and compressed aggregation, a
 semi-supervised N-best phase and round checkpoints with their sidecars), its
 system-run chain (extract, svm, detail-wer, feat-scoring) and the tools
 around it (the native loaders, transcribe, export-hf, sweep, teacher), the
-method variants (single-toggle, FSM) and the SEW-D backbone
+method variants (single-toggle, FSM), the SEW-D backbone, the Whisper teacher
+and the text branch
 (privacy_preserve_federated_asr_tpu_torch) and holds its
 hand-written kernels against their plain versions. It imports nothing of JAX or of the
 JAX package. Phases, in order; any failure raises and ends the run with a
@@ -181,13 +182,40 @@ non-zero exit:
    WAVs: its transcripts equal ``cli transcribe``'s greedy at fp32, and its
    CSV feeds one ``cli federated -fl_st 1 -sl 0.5 --unsup_train_csv`` round
    of the model cut to 4 layers, with exact B1 / B2 launches;
-30. one JSON line listing each kernel (launches on the main paths, in all
+30. Whisper large-v2 at full width and depth (32 + 32 layers, d_model 1280,
+   fp32, seeded random weights): the encoder's ms for 8 windows, the median
+   decoder step at B=8, the idle share of one decode (torch.profiler), and
+   ``WhisperTeacher`` greedy on 8 clips (4 x 30 s, 4 x 45 s) with timestamps
+   off (frontier windows: 8 then 4) and on (the seek): walls, windows/s,
+   peak memory; 0 B1 and 0 B2 launches;
+31. ``cli teacher --whisper_hf <dir>`` at large-v2 width with 4 + 4 layers
+   from an HF directory the phase writes (config.json, pytorch_model.bin,
+   whisper's multilingual token layout in vocab.json and added_tokens.json)
+   on phase 8's 8 test WAVs with the CLI's defaults (timestamps, six
+   temperatures, conditioning): its JSON equals a library WhisperTeacher
+   run, its CSV holds exactly the non-empty transcripts, and it ends;
+32. the text branch at BERT-base width (bert-base-multilingual-cased's
+   config, a seeded HF-named checkpoint and vocab.txt written here): ``cli
+   text --bert_checkpoint`` frozen on phase 10's pickles, ``--finetune`` at
+   max_length 128, B=8, 2 epochs on 64 + 16 synthetic sessions, the registry's
+   ``sentence_3input_heterogeneous`` with ``--audio_root`` (the wav2vec2-base
+   conv frontend), ``svm --mode fusion`` with session text tables and
+   ``sweep text``: docs/s, the fine-tune step ms and idle share, peak
+   memory, 0 B1 and 0 B2 on every path;
+33. card against CPU, fp32: Whisper at large-v2 width with 2 + 2 layers
+   (log-mel, encoder and logits within 1e-4; greedy ids equal up to a first
+   difference at a top-2 near-tie, counted) and BERT-base width at 2 layers
+   (forward within 1e-4; one FinetuneTextTrainer and one TextTrainer step at
+   dropout 0 by phase 7's rule);
+34. one JSON line listing each kernel (launches on the main paths, in all
    and by dtype: each phase that drives a main path sets the wrappers'
    counts to 0 just before and reads them just after, the fp32 card-vs-CPU
    and exactness phases 4, 7, 9, 11, 18, 20, 22, 24, 26 and 28 included; error
    against the plain version, times and bound, and under "times" the same
    numbers at each main-path shape in both dtypes), the card's name and
-   power limit, and last ``{"ok": true, "device": {...}}``.
+   power limit, and last ``{"ok": true, "device": {...}}``. The Whisper and
+   text paths (30-33) launch neither kernel: they run as torch ops, as their
+   JAX counterparts run as XLA einsums.
 
 ``--kernels-only`` runs phases 1, 2 and 5 and prints neither of the last
 two lines.
@@ -198,6 +226,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import os
@@ -1434,8 +1463,8 @@ def extraction_chain(root: Path) -> dict:
     svm = json.loads(svm_text)
     assert set(svm) == {"ACC", "BACC", "F1", "Sens", "Spec", "UAR"} and all(
         0.0 <= v <= 1.0 for v in svm.values()), svm
-    x_train, y_train = _features(runs["float32"]["train"], "mean", False)
-    x_test, _ = _features(runs["float32"]["test"], "mean", False)
+    x_train, y_train, _ = _features(runs["float32"]["train"], "mean", False)
+    x_test, _, _ = _features(runs["float32"]["test"], "mean", False)
     xs = standard_scale(*(torch.from_numpy(x).to("cuda", torch.float64)
                           for x in (x_train, x_test)))
     y = torch.from_numpy(y_train).to("cuda")
@@ -3533,6 +3562,603 @@ def teacher_phase(root: Path) -> dict:
     return {"b1": b1 + tb1 + fb1, "b2": fb2}
 
 
+# ---------------------------------------------------------------------------
+# 30. Whisper large-v2 at full width and depth
+# ---------------------------------------------------------------------------
+
+def _no_flash(phase: str) -> None:
+    """Tally a phase that must launch neither kernel, and assert it."""
+    tally(phase)
+    assert not any(n for k in ("flash_fwd", "flash_bwd") for n in COUNTS[phase][k].values()), \
+        (phase, COUNTS[phase])
+
+
+def _profile_idle(fn) -> tuple[float | None, float]:
+    """(device idle share, host ms) of one call of ``fn`` under
+    torch.profiler (None when the profiler records no device time)."""
+    got = profile_step(fn, ())
+    if got is None:
+        return None, float("nan")
+    return 1.0 - got["device_ms"] / got["wall_ms"], got["wall_ms"]
+
+
+def _decode_loop(cfg, model, mel, timestamps: bool, max_new_tokens: int | None = None,
+                 profiled: bool = False) -> dict:
+    """One greedy ``decode_with_stats`` of ``mel``: its wall, the wall of
+    its step loop alone (from the end of the step's CUDA graph capture,
+    synchronized, to the end: the encoder, the prefill and the capture are
+    outside it) and the steps the loop ran. ``profiled``: under
+    torch.profiler, the device busy time of the loop's kernels (those that
+    start after the capture), its idle share and its top kernels by device
+    time (name, ms, share of busy)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from privacy_preserve_federated_asr_tpu_torch.models import whisper as W
+
+    real, mark = W._single_token_step, {"steps": 0}
+
+    def captured(*a):
+        run = real(*a)
+        torch.cuda.synchronize()
+        mark["t0"] = time.perf_counter()
+        with record_function("step_loop"):
+            pass
+
+        def counted(*b):
+            mark["steps"] += 1
+            return run(*b)
+        return counted
+
+    def decode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            ids, _ = W.decode_with_stats(cfg, model, mel, max_new_tokens=max_new_tokens,
+                                         timestamps=timestamps)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        mark.update(wall_ms=(t1 - t0) * 1e3, loop_ms=(t1 - mark["t0"]) * 1e3,
+                    eot_rows=int((ids[:, -1] == cfg.eot_token).sum()))
+
+    W._single_token_step = captured
+    try:
+        if not profiled:
+            decode()
+            return mark
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            decode()
+    finally:
+        W._single_token_step = real
+    events = prof.events()
+    start = next(e.time_range.start for e in events if e.name == "step_loop")
+    dev = [e for e in events if e.device_type == DeviceType.CUDA and e.time_range.start >= start]
+    busy = _busy_ms(dev)
+    by_name: dict[str, float] = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    assert busy > 0.0, "the profiler saw no device time in the step loop"
+    mark.update(busy_ms=busy, idle=1.0 - busy / mark["loop_ms"],
+                top=[(k[:60], round(v, 2), round(v / busy, 3)) for k, v in top])
+    return mark
+
+
+def whisper_full_width() -> dict:
+    """``WhisperTeacher`` of Whisper large-v2 (32 + 32 layers, d_model 1280,
+    20 heads, FFN 5120, vocab 51865; fp32; seeded random weights) on 8
+    synthetic clips (4 of 30 s, 4 of 45 s: long form), greedy, with
+    timestamps off (the frontier loop) and on (the seek): the encoder's ms
+    for 8 windows, the median decoder step at B=8, a full-budget decode's
+    wall and its step loop's wall beside steps x the step's time, the
+    loop's idle share, the teacher's walls, windows/s, the peak memory and
+    0 B1 / B2 launches."""
+    from privacy_preserve_federated_asr_tpu_torch.data.teacher import WhisperTeacher
+    from privacy_preserve_federated_asr_tpu_torch.models import whisper as W
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = W.WhisperConfigT.large_v2()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = W.port_hf_whisper(W.init_whisper_state_dict(
+        cfg, torch.Generator("cuda").manual_seed(0)), cfg, device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[whisper] large-v2 ({n_params / 1e9:.3f} B params, fp32) built on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    clips = [_utterance(30.0 if i < 4 else 45.0, 3000 + i) for i in range(8)]
+    chunk = W.chunk_samples(cfg)
+    windows = torch.from_numpy(np.stack([W.pad_or_trim(c[:chunk], chunk) for c in clips])).cuda()
+    with torch.no_grad():
+        mel = W.log_mel_spectrogram(windows, cfg.num_mel_bins)
+        enc_ms = cuda_ms(lambda: model.encode(mel), iters=2, warmup=1, windows=3)
+        enc = model.encode(mel)
+        assert enc.shape == (8, cfg.max_source_positions, cfg.d_model)
+        assert torch.isfinite(enc).all()
+        dec = model.model.decoder
+        cross = dec.cross_kv(enc)
+        cache = W.KVCache(cfg, 8, torch.float32, "cuda")
+        slot = 224   # a mid-decode step
+        tok = torch.full((8, 1), cfg.sot_token, device="cuda")
+        pos = torch.full((8, 1), slot, device="cuda")
+        # the decode's step (one CUDA graph) beside the same step launched
+        # eagerly from Python (attending to the slot's 225 keys only)
+        run = W._single_token_step(dec, cross, cache, None, 8, slot)
+        step_ms = cuda_ms(lambda: run(tok, pos, slot), iters=20, warmup=3, windows=5)
+        eager_ms = cuda_ms(lambda: dec(tok, pos, cross, lambda i, a: cache.writer(i, a, slot),
+                                       None), iters=20, warmup=3, windows=5)
+        del cross, cache, enc, run
+    log(f"[whisper] encoder, 8 windows: {enc_ms:.2f} ms; decoder step at B=8 (slot "
+        f"{slot}): {step_ms:.3f} ms median as the decode's CUDA graph, {eager_ms:.3f} ms "
+        f"launched eagerly  [{card_line()}]")
+    out = {"encoder_ms": enc_ms, "step_ms": step_ms, "eager_step_ms": eager_ms}
+    for timestamps in (False, True):
+        # a full-budget decode (444 steps unless every row ends first), then
+        # the first 128 steps of the loop under torch.profiler
+        full = _decode_loop(cfg, model, mel, timestamps)
+        prof = _decode_loop(cfg, model, mel, timestamps, max_new_tokens=129, profiled=True)
+        out[f"decode, timestamps={timestamps}"] = {
+            "wall_ms": full["wall_ms"], "loop_ms": full["loop_ms"], "steps": full["steps"],
+            "loop_ms_per_step": full["loop_ms"] / max(full["steps"], 1),
+            "steps_x_step_ms": full["steps"] * step_ms, "loop_idle": prof["idle"]}
+        log(f"[whisper] greedy decode of 8 windows, timestamps={timestamps}: {full['wall_ms']:.1f}"
+            f" ms measured, {full['wall_ms'] - full['loop_ms']:.1f} ms of it before the step "
+            f"loop (encoder, prefill, graph capture) and {full['loop_ms']:.1f} ms in the loop "
+            f"of {full['steps']} steps ({full['loop_ms'] / max(full['steps'], 1):.3f} ms a step; "
+            f"{full['eot_rows']}/8 rows ended by EOT); the extrapolation steps x the graph's "
+            f"step ({step_ms:.3f} ms) gives {full['steps'] * step_ms:.1f} ms. The loop's first "
+            f"{prof['steps']} steps under torch.profiler: {prof['loop_ms']:.1f} ms, device busy "
+            f"{prof['busy_ms']:.1f} ms (idle {prof['idle']:.3f}); top kernels (name, ms, share "
+            f"of busy): {prof['top']}  [{card_line()}]")
+    exs = [_Example(f"clip{i}.wav", c) for i, c in enumerate(clips)]
+    for timestamps in (False, True):
+        teacher = WhisperTeacher(cfg, model, lambda ids: " ".join(map(str, ids)),
+                                 temperatures=(0.0,), timestamps=timestamps, device="cuda")
+        n_windows = []
+        real = teacher._decode_windows
+        teacher._decode_windows = lambda w, idx, *a: (n_windows.append(len(idx)),
+                                                      real(w, idx, *a))[1]
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trs = teacher.transcribe(exs, batch_size=8)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        _no_flash(f"whisper teacher, timestamps={timestamps}")
+        assert sorted(trs) == sorted(e.path for e in exs) and all(
+            isinstance(t, str) for t in trs.values())
+        if not timestamps:   # 30 s clips: one window; 45 s: two
+            assert n_windows == [8, 4], n_windows
+        out[f"timestamps={timestamps}"] = {"wall_s": wall, "windows": sum(n_windows),
+                                           "windows_per_s": sum(n_windows) / wall}
+        log(f"[whisper] WhisperTeacher greedy, timestamps={timestamps}: 8 clips (4 x 30 s, "
+            f"4 x 45 s) in {wall:.2f} s, {len(n_windows)} decodes of {n_windows} windows "
+            f"({sum(n_windows) / wall:.2f} windows/s); non-empty transcripts "
+            f"{sum(bool(t) for t in trs.values())}/8; B1 0, B2 0")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[whisper] peak memory {out['peak_gib']:.2f} GiB  [{card_line()}]")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+class _Example:
+    """The fields of an ``AsrExample`` that the teacher reads."""
+
+    def __init__(self, path: str, array: np.ndarray):
+        self.path, self.array = path, array
+
+
+# ---------------------------------------------------------------------------
+# 31. cli teacher --whisper_hf
+# ---------------------------------------------------------------------------
+
+WHISPER_SPECIALS = (["<|startoftranscript|>"] + [f"<|l{i}|>" for i in range(99)]
+                    + ["<|translate|>", "<|transcribe|>", "<|startoflm|>", "<|startofprev|>",
+                       "<|nocaptions|>", "<|notimestamps|>"])
+
+
+def _write_whisper_dir(d: Path, cfg_json: dict, sd: dict) -> None:
+    """An HF Whisper checkpoint directory: config.json, pytorch_model.bin
+    (HF names), and whisper's multilingual tokenizer layout: vocab.json of
+    50257 byte-level tokens + <|endoftext|> (50257), added_tokens.json of
+    the specials (50258-50363) and 1501 timestamps, special_tokens_map.json."""
+    from privacy_preserve_federated_asr_tpu_torch.data.whisper_tokens import bytes_to_unicode
+
+    d.mkdir(parents=True)
+    (d / "config.json").write_text(json.dumps(cfg_json))
+    torch.save({k: v.cpu() for k, v in sd.items()}, d / "pytorch_model.bin")
+    b2u = bytes_to_unicode()
+    words = [w.lower() for s in SENTENCES for w in s.split()]
+    toks = [b2u[b] for b in range(256)]
+    toks += list(dict.fromkeys("".join(b2u[b] for b in f" {w}".encode()) for w in words))
+    toks += ["".join(b2u[b] for b in f"w{i}".encode()) for i in range(50257 - len(toks))]
+    vocab = {t: i for i, t in enumerate(toks)}
+    vocab["<|endoftext|>"] = 50257
+    added = {t: 50258 + i for i, t in enumerate(WHISPER_SPECIALS)}
+    added.update({f"<|{i * 0.02:.2f}|>": 50364 + i for i in range(1501)})
+    (d / "vocab.json").write_text(json.dumps(vocab))
+    (d / "added_tokens.json").write_text(json.dumps(added))
+    (d / "special_tokens_map.json").write_text(json.dumps({
+        "bos_token": "<|endoftext|>", "eos_token": "<|endoftext|>",
+        "unk_token": "<|endoftext|>", "additional_special_tokens": ["<|endoftext|>",
+                                                                    *WHISPER_SPECIALS]}))
+
+
+WHISPER_CLI_LAYERS = 4
+
+
+def whisper_cli_phase(root: Path) -> dict:
+    """``cli teacher --whisper_hf <dir>`` at large-v2 width with 4 + 4
+    layers (seeded random weights written as an HF directory by this
+    phase) on phase 8's 8 test WAVs, with the CLI's defaults (timestamps
+    and the seek, the six-temperature fallback, conditioning): its JSON
+    equals a library ``WhisperTeacher`` of the same weights and
+    detokenizer, its CSV holds exactly the non-empty transcripts, 0 B1 /
+    B2; that the phase ends shows the seek loop ends on random timestamps."""
+    from privacy_preserve_federated_asr_tpu_torch import cli
+    from privacy_preserve_federated_asr_tpu_torch.data.teacher import WhisperTeacher
+    from privacy_preserve_federated_asr_tpu_torch.data.whisper_tokens import WhisperDetokenizer
+    from privacy_preserve_federated_asr_tpu_torch.models import whisper as W
+
+    hf = dict(vocab_size=51865, num_mel_bins=80, d_model=1280,
+              encoder_layers=WHISPER_CLI_LAYERS, decoder_layers=WHISPER_CLI_LAYERS,
+              encoder_attention_heads=20, decoder_attention_heads=20, encoder_ffn_dim=5120,
+              decoder_ffn_dim=5120, max_source_positions=1500, max_target_positions=448,
+              eos_token_id=50257, decoder_start_token_id=50258)
+    cfg = W.WhisperConfigT.from_hf_config(hf)
+    assert (cfg.task_token, cfg.no_timestamps_token, cfg.prev_token) == (50359, 50363, 50361)
+    sd = W.init_whisper_state_dict(cfg, torch.Generator("cuda").manual_seed(1))
+    d = root / "whisper_hf"
+    t0 = time.perf_counter()
+    _write_whisper_dir(d, hf, sd)
+    log(f"[whisper-cli] wrote {d.name}/ (config.json, pytorch_model.bin of "
+        f"{(d / 'pytorch_model.bin').stat().st_size / 2 ** 30:.2f} GiB, vocab.json, "
+        f"added_tokens.json, special_tokens_map.json) in {time.perf_counter() - t0:.1f} s")
+    names = [line.split(",")[0] for line in (root / "data/test.csv").read_text().splitlines()[1:]]
+    (root / "data/whisper_in.csv").write_text("path\n" + "\n".join(names) + "\n")
+    argv = ["teacher", "--audio_dir", "data/clips", "--train_csv", "data/whisper_in.csv",
+            "--spk2label", "data/spk2label.npy", "--dataset_cache", "cache",
+            "--eval_batch_size", "8", "--whisper_hf", str(d), "--out", "whisper/pseudo.csv"]
+    reset_counts()
+    trs, out, wall = _run_cli(root, argv)
+    _no_flash("cli teacher --whisper_hf")
+    assert sorted(trs) == sorted(names), trs
+    assert json.loads((root / "whisper/pseudo.json").read_text()) == trs
+    rows = (root / "whisper/pseudo.csv").read_text().splitlines()
+    assert rows[0] == "path,sentence"
+    assert [r.split(",")[0] for r in rows[1:]] == [n for n in names if trs[n].strip()]
+    with _cwd(root):   # the clips as the CLI loads them
+        exs, _ = cli._load_examples(cli.build_parser().parse_args(argv),
+                                    "data/whisper_in.csv", with_transcript=False)
+    teacher = WhisperTeacher(cfg, sd, WhisperDetokenizer.from_pretrained(d), timestamps=True,
+                             device="cuda")
+    lib = teacher.transcribe(exs, batch_size=8)
+    assert lib == trs, (lib, trs)
+    log(f"[whisper-cli] cli teacher --whisper_hf ({WHISPER_CLI_LAYERS} + "
+        f"{WHISPER_CLI_LAYERS} layers, large-v2 width, fp32, timestamps, six temperatures) "
+        f"of {len(names)} WAVs: {wall:.1f} s; {_last_json(out)}; its JSON equals the "
+        f"library WhisperTeacher's; {len(rows) - 1} non-empty rows in the CSV; B1 0, B2 0  "
+        f"[{card_line()}]")
+    del teacher, sd
+    torch.cuda.empty_cache()
+    return {"wall_s": wall}
+
+
+# ---------------------------------------------------------------------------
+# 32. the text branch at BERT-base width
+# ---------------------------------------------------------------------------
+
+BERT_BASE = dict(vocab_size=119547, hidden_size=768, num_hidden_layers=12,
+                 num_attention_heads=12, intermediate_size=3072, max_position_embeddings=512)
+TEXT_TRAIN, TEXT_TEST = 64, 16
+
+
+def _write_text_corpus(root: Path) -> None:
+    """Extraction-style pickles of 64 train and 16 test sessions (3-4
+    utterances each, labels by session parity), written without pandas."""
+    from privacy_preserve_federated_asr_tpu_torch.evaluation import columns_to_pickle
+
+    rng = np.random.default_rng(7)
+    for split, n, base in (("train", TEXT_TRAIN, 100), ("test", TEXT_TEST, 300)):
+        rows = []
+        for s in range(n):
+            for u in range(3 + s % 2):
+                text = " ".join(SENTENCES[int(rng.integers(len(SENTENCES)))].lower().split()[
+                    : int(rng.integers(3, 7))])
+                rows.append({"path": f"S{base + s}_{'INV' if u == 3 else 'PAR'}_{u}_"
+                                     f"{u * 900}_{u * 900 + 800}.wav", "text": text,
+                             "pred_str": text, "dementia_labels": s % 2})
+        columns_to_pickle({k: [r[k] for r in rows] for k in rows[0]},
+                          str(root / f"text/{split}.pkl"))
+
+
+def text_full_width(root: Path) -> dict:
+    """The text branch through ``cli.main`` at BERT-base width (the config
+    of HF bert-base-multilingual-cased, the reference's ``mbert``: 12
+    layers, 768, 12 heads, FFN 3072, 512 positions, vocab 119547; a seeded
+    random HF-named checkpoint and a vocab.txt written here): ``text
+    --bert_checkpoint --vocab`` (frozen) on phase 10's extraction pickles;
+    ``text --finetune`` at max_length 128, B=8, 2 epochs on 64 + 16
+    synthetic sessions; the registry's ``sentence_3input_heterogeneous``
+    with its audio input through ``--audio_root`` (the wav2vec2-base conv
+    frontend on the card); ``svm --mode fusion`` with session text tables
+    embedded by the checkpoint; ``sweep text`` with one combo. Docs/s
+    embedded, the fine-tune step ms and its idle share, peak memory, 0 B1 /
+    B2 on every path."""
+    from privacy_preserve_federated_asr_tpu_torch import cli
+    from privacy_preserve_federated_asr_tpu_torch.evaluation import columns_to_pickle
+    from privacy_preserve_federated_asr_tpu_torch.text import assemble_sessions
+    from privacy_preserve_federated_asr_tpu_torch.text.bert import (
+        BertConfigT, BertEncoder, WordPieceTokenizer, seeded_init_)
+    from privacy_preserve_federated_asr_tpu_torch.text.finetune import (
+        FinetuneConfig, FinetuneTextTrainer, FinetuneTrainerConfig)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    (root / "text/bert").mkdir(parents=True)
+    _write_text_corpus(root)
+    words = sorted({w for s in SENTENCES for w in s.lower().split()})
+    vocab = (["[PAD]", "[UNK]", "[CLS]", "[SEP]"] + words + [f"##{w[1:]}" for w in words]
+             + list(".,'"))
+    vocab += [f"t{i}" for i in range(BERT_BASE["vocab_size"] - len(vocab))]
+    (root / "text/bert/vocab.txt").write_text("\n".join(vocab) + "\n")
+    (root / "text/bert/config.json").write_text(json.dumps(BERT_BASE))
+    bcfg = BertConfigT(**BERT_BASE)
+    with torch.device("cuda"):
+        enc = seeded_init_(BertEncoder(bcfg), torch.Generator("cuda").manual_seed(2))
+    torch.save({k: v.cpu() for k, v in enc.state_dict().items()},
+               root / "text/bert/pytorch_model.bin")
+    del enc
+    bert = ["--bert_checkpoint", "text/bert/pytorch_model.bin", "--vocab", "text/bert/vocab.txt"]
+    out = {}
+
+    # docs/s of the frozen embedder on session documents that fill its
+    # 512-token window (110 of the sentences, ~550 words, each word one
+    # WordPiece token): 256 documents in batches of 16, three timed passes
+    args = cli.build_parser().parse_args(["text", "--train_pkl", "x", "--test_pkl", "x", *bert])
+    with _cwd(root):
+        embed, dim = cli._build_bert_embed(args, torch.device("cuda"))
+        rows = cli._load_rows("text/train.pkl")
+    docs = list(assemble_sessions(rows).values())
+    rng = np.random.default_rng(9)
+    long_docs = [" ".join(SENTENCES[int(j)].lower() for j in rng.integers(len(SENTENCES), size=110))
+                 for _ in range(256)]
+    n_tok = [len(WordPieceTokenizer(vocab).encode(d, max_length=512)[0]) for d in long_docs]
+    assert min(n_tok) == 512, (min(n_tok), max(n_tok))
+    embed(long_docs[:16])
+    passes = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = embed(long_docs)
+        torch.cuda.synchronize()
+        passes.append(len(long_docs) / (time.perf_counter() - t0))
+    out["docs_per_s"] = float(np.median(passes))
+    assert x.shape == (len(long_docs), dim) and np.isfinite(x).all()
+    log(f"[text] frozen BERT-base embedding (fp32) of {len(long_docs)} session documents of "
+        f"512 tokens each, batches of 16: {out['docs_per_s']:.1f} docs/s median of 3 passes "
+        f"({', '.join(f'{r:.1f}' for r in passes)}), tokenization on the host included  "
+        f"[{card_line()}]")
+    x = embed(docs)
+    assert x.shape == (TEXT_TRAIN, dim) and np.isfinite(x).all()
+
+    res = "res_float32"
+    runs = [("cli text (frozen BERT)", ["text", "--train_pkl", f"{res}/extract_train.pkl",
+                                        "--test_pkl", f"{res}/extract.pkl", *bert,
+                                        "--epochs", "3", "--train_batch_size", "2"]),
+            ("cli text --finetune", ["text", "--train_pkl", "text/train.pkl", "--test_pkl",
+                                     "text/test.pkl", *bert, "--finetune", "--max_length",
+                                     "128", "--train_batch_size", "8", "--epochs", "2"]),
+            ("cli text --experiment", ["text", "--train_pkl", f"{res}/extract_train.pkl",
+                                       "--test_pkl", f"{res}/extract.pkl", *bert,
+                                       "--experiment", "sentence_3input_heterogeneous",
+                                       "--audio_root", "data/clips", "--epochs", "3"])]
+    for phase, argv in runs:
+        reset_counts()
+        got, _, wall = _run_cli(root, argv + ["--device", "cuda"])
+        _no_flash(phase)
+        metrics = {k: v for k, v in got.items() if isinstance(v, float)}
+        assert metrics and all(0.0 <= v <= 1.0 for v in metrics.values()), got
+        out[phase] = {"wall_s": wall, **got}
+        log(f"[text] {phase}: {got}, {wall:.1f} s; B1 0, B2 0")
+
+    # the fine-tune step at B=8 x 128: ms, device idle share, and the peak
+    # memory of one fine-tune (fp32 params, grads, Adam moments, activations)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    sd, bcfg, tok = cli._load_bert_assets(cli.build_parser().parse_args(
+        ["text", "--train_pkl", "x", "--test_pkl", "x",
+         *[str(root / a) if a.startswith("text/") else a for a in bert]]))
+    tr = FinetuneTextTrainer(FinetuneConfig(bert=bcfg), tok,
+                             FinetuneTrainerConfig(max_length=128, batch_size=8), device="cuda")
+    tr.init_params(sd)
+    ids, mask = tr.tokenize([docs[:8]])
+    ids_t, mask_t, _, y_t = tr._tensors(ids, mask, np.arange(8) % 2)
+    opt = torch.optim.AdamW(tr.model.parameters(), lr=2e-5)
+    gen = torch.Generator("cuda").manual_seed(0)
+
+    def step():
+        tr._loss(ids_t, mask_t, None, y_t, gen).backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+
+    out["finetune_step_ms"] = wall_ms(step, iters=5, warmup=2)
+    out["finetune_idle"], _ = _profile_idle(step)
+    out["peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    log(f"[text] fine-tune step (BERT-base, B=8 x 128, AdamW over all params): "
+        f"{out['finetune_step_ms']:.1f} ms, device idle {out['finetune_idle']}; the "
+        f"fine-tune's peak memory {out['peak_gib']:.2f} GiB  [{card_line()}]")
+    del tr, opt, sd
+    torch.cuda.empty_cache()
+
+    # svm --mode fusion with session text tables from the checkpoint
+    for split in ("", "_train"):
+        rows = cli._load_rows(str(root / f"{res}/extract{split}.pkl"))
+        docs_by = assemble_sessions(rows)
+        sessions = sorted(docs_by)
+        columns_to_pickle({"session": sessions, "Embedding": list(embed(
+            [docs_by[k] for k in sessions]))}, str(root / f"text/emb{split}.pkl"))
+    reset_counts()
+    _, svm, _ = _run_cli(root, ["svm", "--train_pkl", f"{res}/extract_train.pkl", "--test_pkl",
+                                f"{res}/extract.pkl", "--spk2label", "data/spk2label.npy",
+                                "-sq", "mean", "--mode", "fusion", "--text_train_pkl",
+                                "text/emb_train.pkl", "--text_test_pkl", "text/emb.pkl",
+                                "--results_csv", "text/svm.csv", "--device", "cuda"])
+    _no_flash("cli svm --mode fusion")
+    svm = _last_json(svm)
+    assert all(0.0 <= v <= 1.0 for v in svm.values()), svm
+    reset_counts()
+    sweep, _, _ = _run_cli(root, ["sweep", "text", "--train_pkl", "text/train.pkl",
+                                  "--test_pkl", "text/test.pkl", "--grid",
+                                  "experiment=session_1input", "num_epochs=2", "batch_size=8",
+                                  "--results_csv", "text/sweep.csv", "--device", "cuda"])
+    _no_flash("cli sweep text")
+    assert len(sweep) == 1 and 0.0 <= sweep[0]["acc"] <= 1.0, sweep
+    log(f"[text] svm --mode fusion (audio mean-pooled + 768-wide session text "
+        f"embeddings): {svm}; sweep text: {sweep}; B1 0, B2 0")
+    del embed
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 33. Whisper and BERT, card against CPU
+# ---------------------------------------------------------------------------
+
+WHISPER_TIE = 1e-4   # a top-2 logit gap within the devices' rounding of fp32 logits
+
+
+def whisper_text_vs_cpu() -> dict:
+    """fp32 in one process, the same weights on both devices: Whisper at
+    large-v2 width with 2 + 2 layers (encoder states and teacher-forced
+    logits within atol 1e-4, rtol 1e-4; 24-token greedy ids, plain and
+    with left-padded conditioning prompts of two lengths and the timestamp
+    rules, equal up to a first difference, which must fall where the CPU's
+    logits of the two devices' picks are within 1e-4, counted, and
+    avg_logprob within 1e-4 where equal); BERT-base width at 2 layers: the forward within
+    1e-4, one FinetuneTextTrainer step and one TextTrainer step at dropout
+    0 (loss rtol 1e-4, parameters by phase 7's rule at 1e-2 lr)."""
+    from privacy_preserve_federated_asr_tpu_torch.models import whisper as W
+    from privacy_preserve_federated_asr_tpu_torch.text import bert as tb
+    from privacy_preserve_federated_asr_tpu_torch.text import classifier as tc
+    from privacy_preserve_federated_asr_tpu_torch.text import finetune as tf
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(W.WhisperConfigT.large_v2(), encoder_layers=2, decoder_layers=2)
+    sd = W.init_whisper_state_dict(cfg, torch.Generator().manual_seed(5))
+    models = {dev: W.port_hf_whisper(sd, cfg, device=dev) for dev in ("cpu", "cuda")}
+    chunk = W.chunk_samples(cfg)
+    audio = np.stack([W.pad_or_trim(_utterance(s, 4000 + i), chunk)
+                      for i, s in enumerate((12.0, 30.0))])
+    toks = torch.tensor([cfg.forced_tokens(False) + [440, 262, 2068, 318]] * 2)
+    # right-aligned <|startofprev|> prompts of 5 and 12 slots (row 0 left-
+    # padded with EOT, its padding slots masked inside the step's graph)
+    pl = (5, 12)
+    prompts = torch.full((2, max(pl)), cfg.eot_token)
+    for r, n in enumerate(pl):
+        prompts[r, max(pl) - n:] = torch.tensor([cfg.prev_token] + [262 + 7 * j for j in
+                                                                  range(n - 1)])
+    res = {}
+    with torch.no_grad():
+        for dev, m in models.items():
+            mel = W.log_mel_spectrogram(torch.from_numpy(audio).to(dev), cfg.num_mel_bins)
+            ids, lps = W.decode_with_stats(cfg, m, mel, max_new_tokens=24)
+            pids, plps = W.decode_with_stats(cfg, m, mel, max_new_tokens=24,
+                                             prompt_ids=prompts.to(dev),
+                                             prompt_lens=torch.tensor(pl, device=dev),
+                                             timestamps=True)
+            res[dev] = {"enc": m.encode(mel).cpu(), "logits": m(mel, toks.to(dev)).cpu(),
+                        "ids": ids.cpu(), "lps": lps.cpu(), "pids": pids.cpu(),
+                        "plps": plps.cpu(), "mel": mel.cpu()}
+    c, g = res["cpu"], res["cuda"]
+    torch.testing.assert_close(g["mel"], c["mel"], atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(g["enc"], c["enc"], atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(g["logits"], c["logits"], atol=1e-4, rtol=1e-4)
+
+    def ties_of(key: str, head) -> int:
+        """Rows whose greedy ids differ between the devices: the first
+        difference must fall where the CPU's teacher-forced logits of the
+        row's own tokens (``head(r)`` + the ids before it) put the two
+        devices' picks within WHISPER_TIE; rows that agree hold avg_logprob
+        within 1e-4."""
+        n = 0
+        for r in range(2):
+            diff = (g[key][r] != c[key][r]).nonzero()
+            if len(diff):
+                p = int(diff[0])
+                prefix = torch.tensor([head(r) + c[key][r, :p].tolist()])
+                with torch.no_grad():
+                    lg = models["cpu"](c["mel"][r:r + 1], prefix)[0, -1]
+                gap = abs(float(lg[c[key][r, p]] - lg[g[key][r, p]]))
+                assert gap < WHISPER_TIE, (key, r, p, gap)
+                n += 1
+            else:
+                lp = "lps" if key == "ids" else "plps"
+                torch.testing.assert_close(g[lp][r], c[lp][r], atol=1e-4, rtol=1e-4)
+        return n
+
+    ties = ties_of("ids", lambda r: cfg.forced_tokens(False))
+    pties = ties_of("pids", lambda r: prompts[r, max(pl) - pl[r]:].tolist()
+                    + cfg.forced_tokens(True))
+    assert not torch.equal(c["pids"][0], c["pids"][1])
+    log(f"[vs-cpu] Whisper (large-v2 width, 2 + 2 layers, fp32) card (the step's CUDA graph) "
+        f"vs CPU (eager): log-mel, encoder and logits within 1e-4; 24-token greedy ids equal "
+        f"in {2 - ties}/2 rows plain and in {2 - pties}/2 rows with <|startofprev|> prompts "
+        f"of {pl} slots and the timestamp rules, avg_logprob within 1e-4 where equal; "
+        f"{ties} + {pties} first differences at near-ties (the picks' CPU logits within "
+        f"{WHISPER_TIE})")
+    res_out = {"whisper_ties": ties + pties}
+    del models
+    torch.cuda.empty_cache()
+
+    bcfg = tb.BertConfigT(**{**BERT_BASE, "num_hidden_layers": 2}, hidden_dropout=0.0,
+                          attention_dropout=0.0)
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]"] + sorted(
+        {w for s in SENTENCES for w in s.lower().split()})
+    tok = tb.WordPieceTokenizer(vocab)
+    docs = [s.lower() for s in SENTENCES] + ["the the boy"]
+    trainers = {dev: tf.FinetuneTextTrainer(
+        tf.FinetuneConfig(bert=bcfg), tok,
+        tf.FinetuneTrainerConfig(learning_rate=1e-4, num_epochs=1, batch_size=8,
+                                 max_length=32), device=dev) for dev in ("cpu", "cuda")}
+    trainers["cpu"].init_params()
+    trainers["cuda"].init_params()
+    trainers["cuda"].model.load_state_dict(trainers["cpu"].model.state_dict())
+    ids, mask = trainers["cpu"].tokenize([docs])
+    with torch.no_grad():
+        fw = {dev: tr.model.encoder_0(*(torch.as_tensor(a, device=dev).long()
+                                        for a in (ids[:, 0], mask[:, 0])))
+              for dev, tr in trainers.items()}
+    for a, b in zip(fw["cuda"], fw["cpu"]):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
+    y = np.arange(8) % 2
+    hist = {dev: tr.fit([docs], y)["history"][0]["train_loss"] for dev, tr in trainers.items()}
+    assert abs(hist["cuda"] - hist["cpu"]) <= 1e-4 * abs(hist["cpu"]), hist
+    ft = _close_params({k: v.cpu() for k, v in trainers["cuda"].model.state_dict().items()},
+                       trainers["cpu"].model.state_dict(), 1e-4)
+    x = np.random.default_rng(8).normal(size=(16, 768)).astype(np.float32)
+    ccfg = tc.TextClassifierConfig(embed_dim=768, hidden_dim=256, dropout=0.0)
+    tcfg = tc.TextTrainerConfig(learning_rate=1e-3, num_epochs=1, batch_size=16)
+    tts = {dev: tc.TextTrainer(ccfg, tcfg, device=dev) for dev in ("cpu", "cuda")}
+    init = tts["cpu"].init_params(x[:1])
+    for dev, tr in tts.items():
+        tr.init_params = lambda _x, dev=dev: {k: v.to(dev) for k, v in init.items()}
+    thist = {dev: tr.fit(x, np.arange(16) % 2)["history"][0]["train_loss"]
+             for dev, tr in tts.items()}
+    assert abs(thist["cuda"] - thist["cpu"]) <= 1e-4 * abs(thist["cpu"]), thist
+    tt = _close_params({k: v.cpu() for k, v in tts["cuda"].model.state_dict().items()},
+                       tts["cpu"].model.state_dict(), 1e-3)
+    log(f"[vs-cpu] BERT-base width at 2 layers, fp32, dropout 0: forward within 1e-4; one "
+        f"fine-tune step loss {hist['cuda']:.6f} vs {hist['cpu']:.6f}, params max |diff| "
+        f"{ft[0]:.2e} ({ft[1]:.4%} beyond 1e-2 lr); one TextTrainer step loss "
+        f"{thist['cuda']:.6f} vs {thist['cpu']:.6f}, params max |diff| {tt[0]:.2e}")
+    del trainers, tts
+    torch.cuda.empty_cache()
+    return res_out
+
+
 def _shape_times(row: dict, **shape) -> dict:
     return {**shape, **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                             "library_ms")}}
@@ -3583,6 +4209,10 @@ def main(argv=None) -> None:
         sewd = sewd_full_width(root)
         sewd_vs_cpu()
         teacher = teacher_phase(root)
+        whisper = whisper_full_width()
+        whisper_cli_phase(root)
+        text = text_full_width(root)
+        whisper_text_vs_cpu()
     tools_b1 = (sum(transcribe["launches"].values()) + sum(export["launches"].values())
                 + sweep["b1"])
     by_dtype = {name: {dt: sum(c.get(name, {}).get(dt, 0) for c in COUNTS.values())
@@ -3600,8 +4230,10 @@ def main(argv=None) -> None:
                + int8["b1"] + streaming["b1"] + variants["b1"] + teacher["b1"])
     main_b2 = (training["b2"] + federated["b2"] + sweep["b2"] + accum["b2"]
                + fl_opts["b2"] + int8["b2"] + variants["b2"] + teacher["b2"])
-    # the SEW-D paths launch neither kernel (their counts were asserted 0)
-    assert not any(sum(c[k].values()) for p, c in COUNTS.items() if "sewd" in p
+    # the SEW-D, Whisper and text paths launch neither kernel (their counts
+    # were asserted 0)
+    assert not any(sum(c[k].values()) for p, c in COUNTS.items()
+                   if any(w in p for w in ("sewd", "whisper", "text", "fusion"))
                    for k in ("flash_fwd", "flash_bwd")), COUNTS
     assert sum(sum(c["flash_fwd"].values()) for p, c in COUNTS.items() if p not in e2e) \
         == main_b1, (COUNTS, main_b1)
@@ -3647,6 +4279,12 @@ def main(argv=None) -> None:
     log(f"[variants] step ms {variants['step_ms']}, idle share {variants['idle']}; FSM / "
         f"single-toggle mask elements in the near-tie band, card vs CPU: {bands}; SEW-D "
         f"step {sewd['train']}, batch forward {sewd['forward']}  [{card_line()}]")
+    log(f"[whisper] encoder {whisper['encoder_ms']:.2f} ms for 8 windows, decoder step "
+        f"{whisper['step_ms']:.3f} ms, full decodes {whisper['decode, timestamps=False']} / "
+        f"{whisper['decode, timestamps=True']}, teacher {whisper['timestamps=False']} / "
+        f"{whisper['timestamps=True']}, peak {whisper['peak_gib']:.2f} GiB; text: "
+        f"{text['docs_per_s']:.1f} docs/s, fine-tune step {text['finetune_step_ms']:.1f} ms "
+        f"(idle {text['finetune_idle']}); B1 and B2 launch 0 times on both  [{card_line()}]")
     print(json.dumps(line))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Command-line interface of the port: ``train``, ``federated``, ``serve``,
 ``extract``, ``svm``, ``detail-wer``, ``feat-scoring``, ``pkl2csv``,
-``dp-budget``, ``transcribe``, ``teacher``, ``export-hf`` and ``sweep`` (the
-JAX package's subcommands of those names, same flag names).
+``dp-budget``, ``transcribe``, ``teacher``, ``export-hf``, ``text`` and
+``sweep`` (the JAX package's subcommands of those names, same flags, plus
+``--device``; only ``--no_fast_rng``, a switch of the TPU's RNG, is absent).
 
     python -m privacy_preserve_federated_asr_tpu_torch.cli train \
         --model_type data2vec -st 0 --epochs 30 --audio_dir ... \
@@ -41,7 +42,12 @@ JAX package's subcommands of those names, same flag names).
 
     python -m privacy_preserve_federated_asr_tpu_torch.cli teacher \
         --model_type data2vec -st 0 -model_in ... --audio_dir ... \
-        --train_csv unlabeled.csv --out saves/teacher/unsup.csv
+        --train_csv unlabeled.csv --out saves/teacher/unsup.csv \
+        [--whisper_hf whisper-large-v2/ [--no-timestamps]]
+    python -m privacy_preserve_federated_asr_tpu_torch.cli text \
+        --train_pkl extract_train.pkl --test_pkl extract.pkl \
+        [--bert_checkpoint bert/pytorch_model.bin --vocab bert/vocab.txt] \
+        [--finetune --max_length 128] [--experiment sentence_1input]
 
 ``--method`` is any of the five method families (``dacs``, ``toggle_more``,
 ``grl``, ``single_toggle``, ``fsm``; ``federated`` takes ``dacs`` only) and
@@ -74,9 +80,18 @@ sessions only; ``--transport int16``: int16 uploads); ``stream-client``
 streams a WAV to it and ``stream-report`` measures the finalization flip
 rate per right context. ``teacher`` labels an unlabeled CSV with the
 model's greedy transcripts (the self-training teacher) and writes the CSV
-``federated --unsup_train_csv`` takes, with a transcript JSON beside it.
-``teacher --whisper_hf`` (port slice 11) and ``sweep text`` (port slice 12)
-raise ``NotImplementedError``.
+``federated --unsup_train_csv`` takes, with a transcript JSON beside it;
+``teacher --whisper_hf <dir>`` makes an HF Whisper checkpoint the teacher
+(long-form windows, the temperature fallback, timestamps unless
+``--no-timestamps``; the directory's ``vocab.json`` and added tokens
+detokenize, ``data/whisper_tokens.py``). ``text`` trains the text-branch AD
+classifier on session documents of extraction pickles (hashed bag of words,
+or a BERT checkpoint frozen or with ``--finetune``, or a registry
+``--experiment``); ``svm --mode text|fusion`` reads session text embeddings
+from ``--text_train_pkl/--text_test_pkl`` and ``sweep text`` replays the
+BERT grids. The parallel options (``--dp``/``--tp``/``--pp``/``--sp``/
+``--zero1``, the federated meshes, ``extract --dp``, ``text --finetune
+--dp``) raise ``NotImplementedError`` until the parallel slice.
 """
 
 from __future__ import annotations
@@ -448,14 +463,16 @@ def cmd_svm(args):
     from .serving.engine import resolve_device
 
     device = resolve_device(args.device)
-    if args.text_train_pkl or args.text_test_pkl:
-        raise NotImplementedError("svm --text_train_pkl/--text_test_pkl (session text "
-                                  "embeddings) is not ported yet")
+    text_train = text_test = None
+    if args.text_train_pkl:   # session -> text embedding tables
+        t1, t2 = read_records(args.text_train_pkl), read_records(args.text_test_pkl)
+        text_train = {r["session"]: r["Embedding"] for r in t1}
+        text_test = {r["session"]: r["Embedding"] for r in t2}
     m = predict_ad_svm(
         read_records(args.train_pkl), read_records(args.test_pkl),
         load_spk2label(args.spk2label), pooling=args.squeeze, masked=args.masked,
-        mode=args.mode, par_only=not args.INV, results_csv=args.results_csv,
-        title=args.title, device=device)
+        mode=args.mode, text_embeddings_train=text_train, text_embeddings_test=text_test,
+        par_only=not args.INV, results_csv=args.results_csv, title=args.title, device=device)
     print(json.dumps(m))
 
 
@@ -581,22 +598,38 @@ def cmd_teacher(args):
     text) beside ``--out``, and at ``--out`` the labeled CSV
     ``federated --unsup_train_csv`` takes (empty transcripts dropped, as the
     reference's ``FilterAvailAudios`` does). The teacher is the package's
-    own CTC model from ``-model_in`` (self-training, fp32 greedy);
-    ``--whisper_hf`` is not ported yet. Returns the path -> text map."""
+    own CTC model from ``-model_in`` (self-training, fp32 greedy), or with
+    ``--whisper_hf <dir>`` an HF WhisperForConditionalGeneration checkpoint
+    (``config.json``, ``pytorch_model.bin``, ``vocab.json`` and its added
+    tokens; fp32, the six-temperature fallback, conditioning on the previous
+    text, and the timestamp seek unless ``--no-timestamps``). Returns the
+    path -> text map."""
     import csv
 
-    from .data.teacher import transcribe_with_ctc_model
     from .serving.engine import resolve_device
 
-    if args.whisper_hf:
-        raise NotImplementedError("teacher --whisper_hf (the Whisper teacher) is not "
-                                  "ported yet: it comes with port slice 11")
     device = resolve_device(args.device)
     exs, tok = _load_examples(args, args.train_csv, with_transcript=False)
-    cfg = _dacs_cfg(args)
-    sd = load_weights(cfg, args.model_in_path, args.seed, device)
-    trs = transcribe_with_ctc_model(cfg, sd, exs, tok, batch_size=args.eval_batch_size,
-                                    device=device)
+    if args.whisper_hf:
+        from .data.teacher import WhisperTeacher
+        from .data.whisper_tokens import WhisperDetokenizer
+        from .models.whisper import WhisperConfigT
+
+        d = Path(args.whisper_hf)
+        with open(d / "config.json") as f:
+            wcfg = WhisperConfigT.from_hf_config(json.load(f))
+        sd = torch.load(d / "pytorch_model.bin", map_location="cpu", weights_only=True)
+        teacher = WhisperTeacher(wcfg, sd, WhisperDetokenizer.from_pretrained(d),
+                                 timestamps=args.timestamps, device=device)
+        del sd
+        trs = teacher.transcribe(exs, batch_size=args.eval_batch_size)
+    else:
+        from .data.teacher import transcribe_with_ctc_model
+
+        cfg = _dacs_cfg(args)
+        sd = load_weights(cfg, args.model_in_path, args.seed, device)
+        trs = transcribe_with_ctc_model(cfg, sd, exs, tok, batch_size=args.eval_batch_size,
+                                        device=device)
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     with open(out.with_suffix(".json"), "w") as f:
@@ -632,10 +665,175 @@ def cmd_export_hf(args):
     print(json.dumps({"keys": len(out_sd), "out": str(out)}))
 
 
+def _load_rows(pkl: str) -> list[dict]:
+    """An extraction pickle's rows, ``text`` defaulting to ``pred_str``."""
+    from .evaluation import read_records
+
+    rows = read_records(pkl)
+    for r in rows:
+        r.setdefault("text", r.get("pred_str"))
+    return rows
+
+
+def _load_bert_assets(args):
+    """An HF ``BertModel`` checkpoint (``--bert_checkpoint``, with its
+    ``config.json`` beside it where present) and ``--vocab`` ->
+    (``BertEncoder`` state dict, BertConfigT, WordPieceTokenizer)."""
+    from .text.bert import BertConfigT, WordPieceTokenizer, port_hf_bert
+
+    sd = torch.load(args.bert_checkpoint, map_location="cpu", weights_only=True)
+    n_layers = max(int(k.split(".")[2]) for k in sd if k.startswith("encoder.layer.")) + 1
+    hidden = sd["embeddings.word_embeddings.weight"].shape[1]
+    # geometry not derivable from the state dict: prefer the HF config.json
+    # next to the checkpoint, else the standard head_dim=64 rule
+    heads, cfg_json = None, Path(args.bert_checkpoint).parent / "config.json"
+    if cfg_json.exists():
+        with open(cfg_json) as f:
+            heads = json.load(f).get("num_attention_heads")
+    if heads is None:
+        heads = (hidden // 64 if hidden % 64 == 0 and hidden >= 64
+                 else max(h for h in (8, 4, 2, 1) if hidden % h == 0))
+    bcfg = BertConfigT(
+        vocab_size=sd["embeddings.word_embeddings.weight"].shape[0], hidden_size=hidden,
+        num_hidden_layers=n_layers, num_attention_heads=heads,
+        intermediate_size=sd["encoder.layer.0.intermediate.dense.weight"].shape[0],
+        max_position_embeddings=sd["embeddings.position_embeddings.weight"].shape[0])
+    return port_hf_bert(sd, bcfg), bcfg, WordPieceTokenizer.from_vocab_file(args.vocab)
+
+
+def _build_bert_embed(args, device):
+    """The BERT checkpoint as a frozen embedder on ``device``: texts ->
+    pooled [N, hidden] (numpy), and its width."""
+    from .text.bert import BertEncoder
+    from .text.classifier import embed_sessions
+
+    sd, bcfg, tok = _load_bert_assets(args)
+    with torch.device("meta"):
+        enc = BertEncoder(bcfg)
+    enc.load_state_dict({k: v.to(device) for k, v in sd.items()}, strict=True, assign=True)
+    enc.eval()
+
+    @torch.no_grad()
+    def apply(ids, mask):
+        return enc(torch.as_tensor(ids, device=device).long(),
+                   torch.as_tensor(mask, device=device))[1].cpu().numpy()
+
+    return (lambda texts: embed_sessions(apply, tok, texts)), bcfg.hidden_size
+
+
+def cmd_text(args):
+    """Text-branch AD classification over session documents assembled from
+    extraction pickles (reference 0207_DM_* experiment scripts), on
+    ``--device``. Embeddings: a BERT checkpoint (``--bert_checkpoint`` +
+    ``--vocab``), frozen or fine-tuned end to end (``--finetune``), or a
+    hashed bag of words; ``--experiment`` runs a registry experiment
+    instead. Prints the test metrics as one JSON line and returns them."""
+    import numpy as np
+
+    from .serving.engine import resolve_device
+    from .text import assemble_sessions
+    from .text.classifier import TextClassifierConfig, TextTrainer, TextTrainerConfig
+
+    device = resolve_device(args.device)
+    if args.finetune and args.dp > 1:
+        raise NotImplementedError(f"text --finetune --dp {args.dp} (data-parallel "
+                                  f"fine-tuning) is not ported yet: the parallel slice")
+    train_rows, test_rows = _load_rows(args.train_pkl), _load_rows(args.test_pkl)
+
+    if args.experiment:  # named 0207_DM_* registry experiment
+        from .text.experiments import EXPERIMENTS, TEXT_BACKENDS, run_experiment
+
+        backends, ft_kw = None, {}
+        if args.finetune:
+            from .text.finetune import FinetuneTrainerConfig
+
+            ft_kw = {"finetune": True, "ftcfg": FinetuneTrainerConfig(
+                num_epochs=args.epochs, batch_size=args.train_batch_size,
+                learning_rate=args.learning_rate or 2e-5, lr_schedule=args.lr_schedule,
+                seed=args.seed, max_length=args.max_length, dp=args.dp)}
+            if args.bert_checkpoint:   # fine-tune INTO the checkpoint
+                params, bcfg, tok = _load_bert_assets(args)
+                ft_kw.update(bert_cfg=bcfg, tokenizer=tok, encoder_params=params)
+        elif args.bert_checkpoint:
+            # frozen fast path: the checkpoint serves every TEXT backend
+            embed, _ = _build_bert_embed(args, device)
+            backends = {i.backend: embed for i in EXPERIMENTS[args.experiment].inputs
+                        if i.backend in TEXT_BACKENDS}
+        out = run_experiment(
+            args.experiment, train_rows, test_rows, backends=backends,
+            audio_root=args.audio_root,
+            tcfg=TextTrainerConfig(num_epochs=args.epochs, batch_size=args.train_batch_size,
+                                   learning_rate=args.learning_rate or 1e-3,
+                                   lr_schedule=args.lr_schedule, seed=args.seed),
+            seeds=tuple(range(args.seed, args.seed + 3)), device=device, **ft_kw)
+        out = {"experiment": args.experiment, **out}
+        print(json.dumps(out))
+        return out
+
+    docs_train = assemble_sessions(train_rows, text_key=args.use_text)
+    docs_test = assemble_sessions(test_rows, text_key=args.use_text)
+
+    def labels_of(rows):
+        return {r["path"].split("_")[0]: int(r["dementia_labels"]) for r in rows}
+
+    y_train_map, y_test_map = labels_of(train_rows), labels_of(test_rows)
+    sessions_train, sessions_test = sorted(docs_train), sorted(docs_test)
+    xtr = [docs_train[s] for s in sessions_train]
+    xte = [docs_test[s] for s in sessions_test]
+    y_train = np.asarray([y_train_map[s] for s in sessions_train], dtype=np.int32)
+    y_test = np.asarray([y_test_map[s] for s in sessions_test], dtype=np.int32)
+    if args.finetune:
+        # end to end: the encoder trains inside the graph (reference
+        # SingleForwardModel; AdamW over all params)
+        from .text.bert import BertConfigT, WordPieceTokenizer
+        from .text.finetune import FinetuneConfig, FinetuneTextTrainer, FinetuneTrainerConfig
+
+        enc_params = None
+        if args.bert_checkpoint:
+            enc_params, bcfg, tok = _load_bert_assets(args)
+        else:
+            tok = WordPieceTokenizer.from_corpus(xtr)
+            bcfg = BertConfigT(vocab_size=max(len(tok.vocab), 8), hidden_size=128,
+                               num_hidden_layers=4, num_attention_heads=4,
+                               intermediate_size=256, max_position_embeddings=args.max_length)
+        tr = FinetuneTextTrainer(
+            FinetuneConfig(bert=bcfg), tok,
+            FinetuneTrainerConfig(num_epochs=args.epochs, batch_size=args.train_batch_size,
+                                  learning_rate=args.learning_rate or 2e-5,
+                                  lr_schedule=args.lr_schedule, seed=args.seed,
+                                  max_length=args.max_length, dp=args.dp),
+            device=device)
+        tr.fit([xtr], y_train, val_texts_per_input=[xte], val_labels=y_test,
+               encoder_params=enc_params)
+        out = {**{f"test_{k}": v for k, v in tr.evaluate([xte], y_test).items()},
+               "mode": "finetune"}
+        print(json.dumps(out))
+        return out
+
+    if args.bert_checkpoint:
+        embed, _ = _build_bert_embed(args, device)
+    else:
+        from .text.experiments import hash_embed_backend
+
+        embed = hash_embed_backend(256)
+    x_train, x_test = embed(xtr), embed(xte)
+    tr = TextTrainer(
+        TextClassifierConfig(embed_dim=x_train.shape[1], hidden_dim=args.hidden_dim),
+        TextTrainerConfig(num_epochs=args.epochs, batch_size=args.train_batch_size,
+                          learning_rate=args.learning_rate or 1e-3,
+                          lr_schedule=args.lr_schedule, seed=args.seed),
+        device=device)
+    tr.fit(x_train, y_train, x_test, y_test)
+    out = {"test_" + k: v for k, v in tr.evaluate(x_test, y_test).items()}
+    print(json.dumps(out))
+    return out
+
+
 def cmd_sweep(args):
     """Replay the reference's run_*.sh sweep grids as one command
-    (run_dementia_SVM.sh, run_HyperparameterTune.sh — see sweep.py for the
-    full mapping); returns the rows. ``sweep text`` is not ported yet."""
+    (run_dementia_BERTparamsTuning.sh, run_dementia_SVM.sh,
+    run_HyperparameterTune.sh — see sweep.py for the full mapping); returns
+    the rows."""
     from .sweep import (
         ASR_PRESETS,
         SVM_PRESETS,
@@ -652,23 +850,16 @@ def cmd_sweep(args):
     if not grid:
         raise SystemExit(f"sweep {args.target}: give --preset "
                          f"({', '.join(sorted(presets))}) and/or --grid key=v1,v2")
-    if args.target == "text":
-        return sweep_text(grid, args.train_pkl, args.test_pkl,
-                          results_csv=args.results_csv, seed=args.seed)
     from .serving.engine import resolve_device
 
     device = resolve_device(args.device)
+    if args.target == "text":
+        return sweep_text(grid, _load_rows(args.train_pkl), _load_rows(args.test_pkl),
+                          results_csv=args.results_csv, seed=args.seed, device=device)
     if args.target == "svm":
         from .data.dataset import load_spk2label
-        from .evaluation import read_records
 
-        def load_rows(pkl):
-            rows = read_records(pkl)
-            for r in rows:
-                r.setdefault("text", r.get("pred_str"))
-            return rows
-
-        return sweep_svm(grid, load_rows(args.train_pkl), load_rows(args.test_pkl),
+        return sweep_svm(grid, _load_rows(args.train_pkl), _load_rows(args.test_pkl),
                          load_spk2label(args.spk2label), results_csv=args.results_csv,
                          device=device)
     from .train.trainer import TrainerConfig
@@ -699,9 +890,9 @@ def _add_beam(p) -> None:
 
 
 def _add_train(p) -> None:
-    """The JAX ``_add_common`` flags the port's Trainer takes (the
-    parallelism and layout flags are accepted and refused by the Trainer
-    until they are ported), plus ``--device``."""
+    """The JAX ``_add_common`` flags (the parallelism flags are accepted and
+    refused by the Trainer until they are ported; ``--no_fast_rng`` only
+    switches the TPU's RNG and is not ported), plus ``--device``."""
     p.add_argument("--model_type", default="data2vec", choices=sorted(BACKBONES))
     p.add_argument("--method", default="dacs", choices=METHODS)
     p.add_argument("-GRL", "--GRL", action="store_true", default=False,
@@ -716,6 +907,9 @@ def _add_train(p) -> None:
     p.add_argument("-toggle_rt", "--TOGGLE_RATIO", type=float, default=0.0)
     p.add_argument("-ad_loss", "--AD_loss", default="cel")
     p.add_argument("-w_loss", "--W_LOSS", type=float, nargs="+", default=None)
+    p.add_argument("--num_lms", type=int, default=1,
+                   help="N-best multitask lm heads (lm_heads.{i}): trained at stage 0, "
+                        "exported, read by the federated N-best phase")
     p.add_argument("--train_batch_size", type=int, default=8)
     p.add_argument("--eval_batch_size", type=int, default=8)
     p.add_argument("-lr", "--learning_rate", type=float, default=None)
@@ -759,7 +953,6 @@ def _add_train(p) -> None:
 def _add_federated(p) -> None:
     """The JAX ``cli federated`` flags; the meshes and ``--fl_zero1`` are
     accepted and refused by the engine's config until the parallel slice."""
-    p.add_argument("--num_lms", type=int, default=1)
     p.add_argument("-fl_st", "--FL_STAGE", type=int, default=0,
                    help="1/2/3, or 0 = full pipeline")
     p.add_argument("--epochs", type=int, default=10, help="FL rounds")
@@ -811,20 +1004,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.set_defaults(fn=cmd_federated)
 
     p = sub.add_parser("serve", help="batched ASR+AD inference server on the GPU")
-    p.add_argument("--model_type", default="data2vec", choices=sorted(BACKBONES))
-    p.add_argument("--method", default="dacs", choices=METHODS)
-    p.add_argument("-model_in", "--model_in_path", default=None,
-                   help="ForCTC torch state dict (JAX `cli export-hf` output)")
-    p.add_argument("-st", "--STAGE", type=int, default=0)
-    p.add_argument("-gs_tau", "--GS_TAU", type=float, default=1.0)
-    p.add_argument("-toggle_rt", "--TOGGLE_RATIO", type=float, default=0.0)
-    p.add_argument("--eval_batch_size", type=int, default=8)
-    p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--compute_dtype", default="bfloat16",
-                   choices=["float32", "bfloat16", "int8"],
-                   help="int8: bf16 with dynamic-W8A8 Dense matmuls (ops/quant.py)")
-    p.add_argument("--device", default="cuda",
-                   help="torch device; cpu only when asked for explicitly")
+    _add_train(p)
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8008)
     p.add_argument("--max_seconds", type=float, default=30.0)
@@ -948,9 +1128,45 @@ def build_parser() -> argparse.ArgumentParser:
                    help="output CSV path (path,sentence: feed to `federated "
                         "--unsup_train_csv`); a transcript JSON is written beside it")
     p.add_argument("--whisper_hf", default=None,
-                   help="HF Whisper checkpoint dir (not ported yet); default teacher "
-                        "is this package's CTC model from -model_in (self-training)")
+                   help="HF WhisperForConditionalGeneration checkpoint dir (config.json, "
+                        "pytorch_model.bin, vocab.json and its added tokens); default "
+                        "teacher is this package's CTC model from -model_in")
+    p.add_argument("--timestamps", action=argparse.BooleanOptionalAction, default=True,
+                   help="whisper teacher only: decode with timestamp tokens and advance "
+                        "windows by the last predicted segment boundary (upstream "
+                        "whisper.transcribe's default); --no-timestamps: fixed 30 s hops")
     p.set_defaults(fn=cmd_teacher)
+
+    p = sub.add_parser("text", help="text-branch AD classifier over session docs")
+    p.add_argument("--train_pkl", required=True)
+    p.add_argument("--test_pkl", required=True)
+    p.add_argument("--use_text", default="text", choices=["text", "pred_str"])
+    p.add_argument("--experiment", default=None,
+                   help="named 0207_DM_* experiment from the registry "
+                        "(text/experiments.py); overrides the plain path")
+    p.add_argument("--bert_checkpoint", default=None,
+                   help="HF BertModel state dict (pytorch_model.bin)")
+    p.add_argument("--vocab", default=None, help="its WordPiece vocab.txt")
+    p.add_argument("--hidden_dim", type=int, default=256)
+    p.add_argument("--epochs", type=int, default=30)
+    p.add_argument("--train_batch_size", type=int, default=8)
+    p.add_argument("-lr", "--learning_rate", type=float, default=None)
+    p.add_argument("--lr_schedule", default="lin", choices=["exp", "lin", "cos"])
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--finetune", action="store_true",
+                   help="train the BERT encoder inside the graph (AdamW over all "
+                        "params, the reference SingleForwardModel setup) instead of the "
+                        "frozen-embedding head")
+    p.add_argument("--max_length", type=int, default=128,
+                   help="finetune: static token length per example")
+    p.add_argument("--dp", type=int, default=1,
+                   help="finetune: data-parallel devices (not ported yet: > 1 raises)")
+    p.add_argument("--audio_root", default=None,
+                   help="resolve audio InputSpecs (en/gr/multi/wv) against this "
+                        "directory and embed the waveforms through the SSL conv frontend")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; cpu only when asked for explicitly")
+    p.set_defaults(fn=cmd_text)
 
     p = sub.add_parser("export-hf",
                        help="model weights -> HF torch state_dict "
@@ -977,7 +1193,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.set_defaults(fn=cmd_sweep, target="asr")
     for name, choices, hlp in (
         ("text", ["bert", "bert-regression", "bert-params-tuning"],
-         "text-branch grids (run_dementia_BERT*.sh; not ported yet)"),
+         "text-branch grids (run_dementia_BERT*.sh)"),
         ("svm", ["dementia-svm"], "SVM grids (run_dementia_SVM.sh)"),
     ):
         sp = sweep_sub.add_parser(name, help=hlp)
@@ -990,7 +1206,7 @@ def build_parser() -> argparse.ArgumentParser:
                         default=f"./saves/results/sweep/{name}_results.csv")
         sp.add_argument("--seed", type=int, default=0)
         sp.add_argument("--device", default="cuda",
-                        help="torch device of the SVM; cpu only when asked")
+                        help="torch device; cpu only when asked for explicitly")
         sp.set_defaults(fn=cmd_sweep, target=name)
     return parser
 

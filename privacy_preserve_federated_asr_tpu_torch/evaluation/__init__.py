@@ -1,5 +1,6 @@
 from .extract import (
     ExtractionRow,
+    columns_to_pickle,
     extract_embeddings,
     read_records,
     rows_to_pickle,
@@ -12,6 +13,7 @@ from .forced_toggle import mask_off_n_groups, aggressive_passive_masking
 
 __all__ = [
     "ExtractionRow",
+    "columns_to_pickle",
     "extract_embeddings",
     "read_records",
     "rows_to_pickle",

@@ -228,8 +228,14 @@ def rows_to_pickle(rows: list[ExtractionRow], path: str) -> None:
     """Dump rows as the pickle of a pandas DataFrame with the reference's
     column names, written without pandas (module docstring)."""
     dicts = [_row_dict(r) for r in rows]
-    columns = {k: [d[k] for d in dicts] for k in (dicts[0] if dicts else ())}
-    body = pickle.dumps(columns, protocol=2)  # PROTO 2 ... STOP
+    columns_to_pickle({k: [d[k] for d in dicts] for k in (dicts[0] if dicts else ())}, path)
+
+
+def columns_to_pickle(columns: Mapping[str, Sequence], path: str) -> None:
+    """Dump ``{column: values}`` as the pickle of ``pandas.DataFrame(columns)``,
+    written without pandas (e.g. the ``session``/``Embedding`` tables that
+    ``svm --text_train_pkl`` reads)."""
+    body = pickle.dumps(dict(columns), protocol=2)  # PROTO 2 ... STOP
     data = (body[:2] + pickle.GLOBAL + b"pandas.core.frame\nDataFrame\n" + body[2:-1]
             + pickle.TUPLE1 + pickle.REDUCE + pickle.STOP)
     Path(path).parent.mkdir(parents=True, exist_ok=True)

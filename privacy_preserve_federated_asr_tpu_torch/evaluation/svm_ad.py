@@ -2,7 +2,8 @@
 ``evaluation/svm_ad.py``; reference: centralized/pred_AD_svm.py).
 
 Pipeline parity: pool each utterance's (optionally masked) hidden states
-over time with min/max/mean/median; standard scaler + RBF SVC; **speaker-
+over time with min/max/mean/median; optionally fuse (concat) or replace
+with session-level text embeddings; standard scaler + RBF SVC; **speaker-
 level majority vote over PAR utterances** (vote > 0.5 -> AD); report
 ACC/BACC/F1/Sens/Spec/UAR appended to a results CSV.
 
@@ -13,8 +14,7 @@ The JAX package calls scikit-learn; the port needs neither it nor pandas.
 the device: libsvm's dual SMO with its second-order working-set selection,
 its two-variable update and its stopping rule (maximal violating pair gap
 < 1e-3), in fp64 over the precomputed kernel matrix, and the intercept from
-the free support vectors. ``mode="text"`` and ``"fusion"`` (session text
-embeddings) wait for the text slice.
+the free support vectors.
 """
 
 from __future__ import annotations
@@ -31,9 +31,13 @@ from ..serving.engine import resolve_device
 POOLING = {"mean": np.mean, "min": np.min, "max": np.max, "median": np.median}
 
 
-def _features(rows: Sequence[Mapping], pooling: str, masked: bool):
-    """Pooled (optionally lm-masked) hidden states and AD labels."""
-    xs, ys = [], []
+def _features(rows: Sequence[Mapping], pooling: str, masked: bool,
+              text_embeddings: Mapping[str, np.ndarray] | None = None, mode: str = "audio"):
+    """Pooled (optionally lm-masked) hidden states, or with ``mode`` "text"
+    the row's session text embedding, or with "fusion" both concatenated;
+    rows whose session has no text embedding are dropped in those modes.
+    -> (features, AD labels, the rows kept)."""
+    xs, ys, keep = [], [], []
     for r in rows:
         h = np.asarray(r["hidden_states"])
         if h.ndim == 3:  # reference keeps a leading batch dim of 1
@@ -43,9 +47,17 @@ def _features(rows: Sequence[Mapping], pooling: str, masked: bool):
             if m.ndim == 3:
                 m = m[0]
             h = h * m
-        xs.append(POOLING[pooling](h, axis=0))
+        emb = POOLING[pooling](h, axis=0)
+        if mode in ("fusion", "text"):
+            session = r["path"].split("_")[0]
+            if text_embeddings is None or session not in text_embeddings:
+                continue
+            t = np.asarray(text_embeddings[session])
+            emb = np.concatenate([emb, t]) if mode == "fusion" else t
+        xs.append(emb)
         ys.append(int(r["dementia_labels"]))
-    return np.stack(xs), np.asarray(ys)
+        keep.append(r)
+    return np.stack(xs), np.asarray(ys), keep
 
 
 def speaker_vote_metrics(paths: Sequence[str], preds: Sequence[int],
@@ -257,17 +269,13 @@ def predict_ad_svm(
 ) -> dict[str, float]:
     """The JAX ``predict_ad_svm`` with the scaler and the SVC in torch on
     ``device`` (``cuda`` unless the caller asks for the CPU)."""
-    del text_embeddings_train, text_embeddings_test  # text modes: text slice
-    if mode != "audio":
-        raise NotImplementedError(f"svm mode={mode!r} (session text embeddings) is "
-                                  f"not ported yet")
     device = resolve_device(device)
     if par_only:  # reference default: train/test on participant utts only
         train_rows = [r for r in train_rows if "PAR" in r["path"]]
         test_rows = [r for r in test_rows if "PAR" in r["path"]]
 
-    x_train, y_train = _features(train_rows, pooling, masked)
-    x_test, _ = _features(test_rows, pooling, masked)
+    x_train, y_train, _ = _features(train_rows, pooling, masked, text_embeddings_train, mode)
+    x_test, _, test_rows = _features(test_rows, pooling, masked, text_embeddings_test, mode)
     x_train, x_test = standard_scale(
         *(torch.from_numpy(x).to(device, torch.float64) for x in (x_train, x_test)))
     svm = RbfSVC().fit(x_train, torch.from_numpy(y_train).to(device))

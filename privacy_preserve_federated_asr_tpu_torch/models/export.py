@@ -82,12 +82,15 @@ def export_hf_state_dict(
 
 def export_dacs_heads(state_dict: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
     """DACS task heads of the port's DACSModel state dict -> reference
-    ForCTC ``state_dict`` keys."""
+    ForCTC ``state_dict`` keys (``lm_heads.{i}`` as the reference's
+    Data2VecAudioForCTCMultitask_model.py:270-275 names them)."""
     sd: dict[str, np.ndarray] = {}
     for ours, theirs in _HEADS.items():
         for leaf in ("weight", "bias"):
             if f"{ours}.{leaf}" in state_dict:
                 sd[f"{theirs}.{leaf}"] = _np32(state_dict[f"{ours}.{leaf}"])
+    # the multitask N-best heads (num_lms > 1) keep their names
+    sd.update({k: _np32(v) for k, v in state_dict.items() if k.startswith("lm_heads.")})
     return sd
 
 

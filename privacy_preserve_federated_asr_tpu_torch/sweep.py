@@ -21,10 +21,6 @@ Reference counterparts:
   * ``centralized/run_Extract_feat.sh`` (extraction across model families)
     -> ``cli extract`` already covers single runs; :func:`sweep_asr` with a
     ``model_type`` axis covers the family loop.
-
-The text sweep needs the text branch (``text/``), which the port does not
-have yet: :func:`sweep_text` raises ``NotImplementedError``; its presets
-are kept so the CLI names them as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -128,11 +124,62 @@ def append_results_csv(path: str, row: Mapping[str, Any]) -> None:
 # runners
 
 
-def sweep_text(grid, train_rows, test_rows, results_csv=None, seed=0):
-    """Text-branch sweep (the JAX package's ``sweep_text``): needs
-    ``text/classifier.py`` and ``text/experiments.py``."""
-    raise NotImplementedError("sweep text needs the text branch (text/), which is "
-                              "not ported yet (port slice 12)")
+def sweep_text(
+    grid: Mapping[str, Sequence],
+    train_rows: Sequence[Mapping],
+    test_rows: Sequence[Mapping],
+    results_csv: str | None = None,
+    seed: int = 0,
+    device="cuda",
+) -> list[dict[str, Any]]:
+    """Text-branch sweep: each combo = one registry experiment trained with
+    the combo's TextTrainerConfig overrides (``finetune=true`` fine-tunes the
+    encoder end to end, ``max_length`` riding along), on ``device``."""
+    import dataclasses
+
+    from .text.classifier import TextTrainerConfig
+    from .text.experiments import run_experiment
+
+    tcfg_fields = {f.name for f in dataclasses.fields(TextTrainerConfig)}
+    rows = []
+    for combo in _combos(grid):
+        name = combo.get("experiment", "sentence_1input")
+        overrides = {k: v for k, v in combo.items() if k in tcfg_fields}
+        # finetune=true sweeps the END-TO-END mode (encoder in the graph,
+        # the reference's actual training setup); max_length rides along
+        special = {"experiment", "finetune", "max_length"}
+        unknown = set(combo) - tcfg_fields - special
+        if unknown:
+            raise ValueError(f"unknown text sweep fields: {sorted(unknown)}")
+        tcfg = TextTrainerConfig(seed=seed, **overrides)
+        ft_kw = {}
+        if str(combo.get("finetune", "")).lower() in ("true", "1", "yes"):
+            from .text.finetune import FinetuneTrainerConfig
+
+            # carry EVERY TextTrainerConfig override into the finetune
+            # config (the two dataclasses share these field names) — a
+            # dropped weight_decay/patience axis would silently sweep
+            # nothing
+            ft_kw = {"finetune": True, "ftcfg": FinetuneTrainerConfig(
+                num_epochs=tcfg.num_epochs, batch_size=tcfg.batch_size,
+                learning_rate=tcfg.learning_rate,
+                lr_schedule=tcfg.lr_schedule, seed=seed,
+                weight_decay=tcfg.weight_decay,
+                early_stopping_patience=tcfg.early_stopping_patience,
+                max_length=int(combo.get("max_length", 64)))}
+        elif "max_length" in combo:
+            raise ValueError(
+                "max_length only applies with finetune=true (the frozen "
+                "path embeds full documents, no token window)")
+        metrics = run_experiment(name, train_rows, test_rows, tcfg=tcfg, device=device,
+                                 **ft_kw)
+        row = {**combo, **{k: v for k, v in metrics.items()
+                           if isinstance(v, (int, float, str))}}
+        rows.append(row)
+        if results_csv:
+            append_results_csv(results_csv, row)
+        print(json.dumps(row), flush=True)
+    return rows
 
 
 def sweep_asr(

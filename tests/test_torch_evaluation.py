@@ -475,26 +475,26 @@ TINY_CPU = ["--model_type", "tiny", "--device", "cpu"]
 
 
 @pytest.mark.parametrize("call", [
-    dict(mesh=object()), ["teacher", "--whisper_hf", "w", "--out", "t.csv", *TINY_CPU],
-    dict(mode="text"),
-    ["extract", "--dp", "2", *TINY_CPU],
-    ["svm", "--text_train_pkl", "t.pkl", "--train_pkl", "a.pkl", "--test_pkl", "b.pkl",
+    dict(mesh=object()),
+    ["text", "--finetune", "--dp", "2", "--train_pkl", "a.pkl", "--test_pkl", "b.pkl",
      "--device", "cpu"],
+    dict(sp=2),
+    ["extract", "--dp", "2", *TINY_CPU],
+    ["federated", "--fl_zero1", *TINY_CPU],
     dict(tp=2), ["federated", "--client_mesh", "2", *TINY_CPU],
-    ["sweep", "text", "--train_pkl", "a.pkl", "--test_pkl", "b.pkl", "--preset", "bert"]])
+    ["federated", "--data_mesh", "2", *TINY_CPU]])
 def test_options_not_ported_raise(call):
-    """Options of later port slices raise by name, before any data is read:
-    the Whisper teacher, data-parallel extraction, the text branch, tensor
-    parallelism in the Trainer and the federated meshes."""
+    """Options of the parallel slice raise by name, before any data is read:
+    data-parallel extraction and text fine-tuning, tensor and sequence
+    parallelism in the Trainer, ZeRO-1 and the meshes of the federated
+    engine."""
     from privacy_preserve_federated_asr_tpu_torch.train import Trainer, TrainerConfig
 
     cfg = DACSConfig(backbone=BackboneConfig.tiny_for_tests(), stage=2)
     with pytest.raises(NotImplementedError, match="not ported"):
         if isinstance(call, list):
             cli.main(call)
-        elif "mode" in call:
-            ev.predict_ad_svm([], [], {}, device="cpu", **call)
-        elif "tp" in call:
+        elif "tp" in call or "sp" in call:
             Trainer(cfg, {}, [], None, TOK, TrainerConfig(**call), device="cpu")
         else:
             ev.extract_embeddings(cfg, {}, [], TOK, device="cpu", **call)

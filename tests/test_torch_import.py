@@ -1,5 +1,5 @@
 """The port package stands alone: it imports with jax/flax/optax/orbax,
-scikit-learn and pandas blocked and loads nothing of the JAX package (its
+transformers, scikit-learn and pandas blocked and loads nothing of the JAX package (its
 native-library shims included);
 neither its sources nor chip_smoke.py import JAX or the JAX package; and its
 entry points never carry on quietly on the CPU when the default device
@@ -26,7 +26,7 @@ from test_torch_backbone import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = Path(port_pkg.__file__).parent
-BLOCKED = ("jax", "flax", "optax", "orbax")
+BLOCKED = ("jax", "flax", "optax", "orbax", "transformers")
 JAX_PKG = "privacy_preserve_federated_asr_tpu"
 
 _CHILD = f"""

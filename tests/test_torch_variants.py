@@ -530,7 +530,9 @@ def test_load_weights_grafts_matching_heads(tmp_path, capsys):
 def test_cli_teacher_matches_jax(tmp_path, monkeypatch, jax_init_by_shapes):
     """``cli teacher`` (the CTC self-training teacher) of a seeded stage-0
     export against the JAX ``cli teacher`` on the same files: the transcript
-    JSON and the labeled CSV byte-equal; ``--whisper_hf`` is refused;
+    JSON and the labeled CSV byte-equal; ``--whisper_hf`` takes the Whisper
+    teacher's path (it reads the directory's config.json; the teacher itself
+    is held in tests/test_torch_whisper.py);
     ``load_transcripts`` and ``add_transcripts`` equal JAX's. The
     teacher transcribes the method's extraction stream: ``--method grl``
     (the unmasked stream; DACS's is the lm-masked one, Gumbel noise
@@ -558,7 +560,7 @@ def test_cli_teacher_matches_jax(tmp_path, monkeypatch, jax_init_by_shapes):
     for f in ("u.csv", "u.json"):
         assert (tmp_path / "port" / f).read_bytes() == (tmp_path / "jax" / f).read_bytes(), f
     assert json.loads((tmp_path / "port/u.json").read_text()) == trs
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(FileNotFoundError, match="config.json"):
         cli.main(args + ["--out", "w.csv", "--whisper_hf", "whisper", "--device", "cpu"])
 
     # the artifacts read back and attached as JAX's data/teacher.py does
