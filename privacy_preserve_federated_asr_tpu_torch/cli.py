@@ -89,9 +89,17 @@ classifier on session documents of extraction pickles (hashed bag of words,
 or a BERT checkpoint frozen or with ``--finetune``, or a registry
 ``--experiment``); ``svm --mode text|fusion`` reads session text embeddings
 from ``--text_train_pkl/--text_test_pkl`` and ``sweep text`` replays the
-BERT grids. The parallel options (``--dp``/``--tp``/``--pp``/``--sp``/
-``--zero1``, the federated meshes, ``extract --dp``, ``text --finetune
---dp``) raise ``NotImplementedError`` until the parallel slice.
+BERT grids.
+
+The parallel options (``train``/``sweep asr`` ``--dp``/``--tp``/``--pp``/
+``--sp``/``--zero1``, ``federated`` ``--client_mesh``/``--data_mesh``/
+``--model_mesh``/``--num_slices``/``--fl_zero1``, ``extract --dp``, ``text
+--finetune --dp``) run one rank per device (``parallel/``): the command
+starts its own ranks (``python -m <package>.cli <the same arguments>``, one
+process each) and waits for them, or, inside a process group a launcher
+such as ``torchrun`` started, runs as one of them. More ranks than devices
+are refused with JAX's message; ``DACS_RANKS_PER_DEVICE=n`` places n ranks
+on each device (the CPU counts as one). Rank 0 prints and writes.
 """
 
 from __future__ import annotations
@@ -99,6 +107,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 from pathlib import Path
 
 import torch
@@ -114,6 +123,30 @@ BACKBONES = {
     "tiny": "tiny_for_tests",  # smoke tests
 }
 METHODS = ["dacs", "toggle_more", "grl", "single_toggle", "fsm"]
+
+
+def _run_here(args, world: int, check=None) -> bool:
+    """Whether this process runs the command: on one rank, or as a rank of
+    a process group. Otherwise ``check(devices)`` refuses a layout that
+    needs more devices than there are, the command's ``world`` ranks are
+    started here and waited for, and the answer is False."""
+    from .parallel import dist as pdist
+
+    if world <= 1 or pdist.is_parallel() or pdist.in_launched_rank():
+        return True
+    if check is not None:
+        check(pdist.device_count(args.device))
+    rc = pdist.launch_cli(args.argv, world)
+    if rc:
+        raise SystemExit(f"[{args.cmd}] {world} ranks: a rank exited with code {rc}")
+    return False
+
+
+def _lead() -> bool:
+    """Whether this rank prints and writes (rank 0, or the only one)."""
+    from .parallel import dist as pdist
+
+    return pdist.rank() == 0
 
 
 def _dacs_cfg(args):
@@ -314,27 +347,38 @@ def cmd_stream_report(args):
 
 
 def _load_examples(args, csv_path, with_transcript=True):
+    """The CSV's examples; among ranks, rank 0 writes the dataset cache
+    before the others read it."""
     from .data.dataset import csv_to_examples, load_spk2label, prepare_examples
     from .data.tokenizer import CTCCharTokenizer
+    from .parallel import dist as pdist
 
     tok = CTCCharTokenizer()
     spk2label = load_spk2label(args.spk2label) if args.spk2label else {}
-    exs = csv_to_examples(args.audio_dir, csv_path, spk2label,
-                          with_transcript=with_transcript, cache_dir=args.dataset_cache)
+
+    def load():
+        return csv_to_examples(args.audio_dir, csv_path, spk2label,
+                               with_transcript=with_transcript, cache_dir=args.dataset_cache)
+
+    if pdist.is_parallel() and args.dataset_cache:
+        import torch.distributed as dist
+
+        exs = load() if pdist.rank() == 0 else None
+        dist.barrier()
+        exs = load() if exs is None else exs
+    else:
+        exs = load()
     return prepare_examples(exs, tok), tok
 
 
 def cmd_train(args):
     """Train, then print the final evaluation; returns the Trainer."""
+    from .parallel import dist as pdist
     from .serving.engine import resolve_device
-    from .train.trainer import Trainer, TrainerConfig
+    from .train.trainer import Trainer, TrainerConfig, check_devices, validate_layout
 
-    device = resolve_device(args.device)
     cfg = _dacs_cfg(args)
-    train_exs, tok = _load_examples(args, args.train_csv)
-    test_exs, _ = _load_examples(args, args.test_csv)
-    sd = load_weights(cfg, args.model_in_path, args.seed, device)
-    tr = Trainer(cfg, sd, train_exs, test_exs, tok, TrainerConfig(
+    tcfg = TrainerConfig(
         num_epochs=args.epochs, batch_size=args.train_batch_size,
         eval_batch_size=args.eval_batch_size, learning_rate=args.learning_rate,
         eval_steps=args.eval_steps, seed=args.seed,
@@ -345,9 +389,18 @@ def cmd_train(args):
         cache_encoder=False if args.no_cache_encoder else None,
         cache_frontend=False if args.no_cache_frontend else None,
         log_file=args.log_path, save_dir=args.model_out_path,
-        resume_from=args.checkpoint), device=device)
+        resume_from=args.checkpoint)
+    if not _run_here(args, validate_layout(cfg, tcfg), lambda have: check_devices(tcfg, have)):
+        return None
+    device = pdist.init_distributed(resolve_device(args.device))
+    train_exs, tok = _load_examples(args, args.train_csv)
+    test_exs, _ = _load_examples(args, args.test_csv)
+    sd = load_weights(cfg, args.model_in_path, args.seed, device)
+    tr = Trainer(cfg, sd, train_exs, test_exs, tok, tcfg, device=device)
     tr.train()
-    print(json.dumps(tr.evaluate()))
+    ev = tr.evaluate()
+    if _lead():
+        print(json.dumps(ev))
     return tr
 
 
@@ -356,14 +409,34 @@ def cmd_federated(args):
     the FederatedEngine."""
     from .data.splits import CLIENT_SPLITS_ADRESS, filter_by_speakers
     from .federated import FederatedConfig, FederatedEngine
+    from .parallel import dist as pdist
     from .serving.engine import resolve_device
     from .train.checkpoint import save_params
 
-    device = resolve_device(args.device)
+    device = pdist.init_distributed(resolve_device(args.device))
     if args.scan_layers or args.dp > 1 or args.tp > 1:
         print("[federated] note: --scan_layers/--dp/--tp apply to `train` only; FL "
               "parallelism is the engine's (client, data) mesh (FederatedConfig.mesh)")
-    meshes = (args.client_mesh, args.data_mesh, args.model_mesh)
+    mesh = None
+    if args.client_mesh > 1 or args.data_mesh > 1 or args.model_mesh > 1:
+        from .parallel import make_mesh, make_multislice_mesh
+
+        if args.num_slices:
+            if args.model_mesh > 1:
+                raise ValueError("--model_mesh is not supported with --num_slices "
+                                 "(the multislice layout has no model axis)")
+            mesh = make_multislice_mesh(client=args.client_mesh, data=args.data_mesh,
+                                        num_slices=args.num_slices)
+        else:
+            mesh = make_mesh(client=args.client_mesh, data=args.data_mesh,
+                             model=args.model_mesh)
+        if not _run_here(args, mesh.size):
+            return None
+        if _lead():
+            print(f"[federated] device mesh: client={args.client_mesh} x "
+                  f"data={args.data_mesh}"
+                  + (f" x model={args.model_mesh}" if args.model_mesh > 1 else "")
+                  + (f" over {args.num_slices} slices" if args.num_slices else ""))
     fcfg = FederatedConfig(
         num_rounds=args.epochs, num_clients=args.num_users, frac=args.frac,
         local_ep=args.local_ep, global_ep=args.global_ep,
@@ -378,8 +451,7 @@ def cmd_federated(args):
         topk_fraction=args.topk_fraction, fedprox_mu=args.fedprox_mu,
         server_optimizer=args.server_optimizer, server_lr=args.server_lr,
         server_momentum=args.server_momentum, round_save_dir=args.round_save_dir,
-        mesh=meshes if max(meshes) > 1 or args.num_slices else None,
-        zero1=args.fl_zero1, tp=args.model_mesh > 1)
+        mesh=mesh, zero1=args.fl_zero1, tp=args.model_mesh > 1)
 
     cfg = _dacs_cfg(args)
     train_exs, tok = _load_examples(args, args.train_csv)
@@ -423,9 +495,12 @@ def cmd_federated(args):
                                 (3, eng.run_stage3, "final")):
         if args.FL_STAGE in (fl_stage, 0):
             run()
-            save_params(f"{out}_{name}_global/final", eng.global_params,
-                        {"fl_stage": fl_stage})
-    print(json.dumps(eng.evaluate(stage=min(max(args.FL_STAGE - 1, 0), 2))))
+            if _lead():
+                save_params(f"{out}_{name}_global/final", eng.global_params,
+                            {"fl_stage": fl_stage})
+    ev = eng.evaluate(stage=min(max(args.FL_STAGE - 1, 0), 2))
+    if _lead():
+        print(json.dumps(ev))
     return eng
 
 
@@ -433,12 +508,17 @@ def cmd_extract(args):
     """Extraction rows of the test and train CSVs: ``<csv_name>.pkl``,
     ``<csv_name>_train.pkl`` and the test set's ``Result.csv``."""
     from .evaluation import extract_embeddings, rows_to_pickle, write_results_csv
+    from .parallel import dist as pdist
     from .serving.engine import resolve_device
 
-    device = resolve_device(args.device)
-    if args.dp > 1:
-        raise NotImplementedError("extract --dp > 1 (data-parallel extraction) is not "
-                                  "ported yet")
+    device = pdist.init_distributed(resolve_device(args.device))
+    mesh = None
+    if args.dp > 1:  # reference: torch DataParallel eval (--GPU_batchsize)
+        from .parallel import make_mesh
+
+        mesh = make_mesh(client=1, data=args.dp)
+        if not _run_here(args, mesh.size):
+            return None
     cfg = _dacs_cfg(args)
     sd = load_weights(cfg, args.model_in_path, args.seed, device)
     out_dir = Path(args.csv_out_dir)
@@ -450,7 +530,9 @@ def cmd_extract(args):
         rows = extract_embeddings(cfg, sd, exs, tok, batch_size=args.eval_batch_size,
                                   compute_dtype=args.compute_dtype, beam_size=args.beam_size,
                                   lm_fn=lm_fn, lm_alpha=args.lm_alpha,
-                                  lm_beta=args.lm_beta, device=device)
+                                  lm_beta=args.lm_beta, mesh=mesh, device=device)
+        if not _lead():
+            continue
         rows_to_pickle(rows, str(out_dir / f"{args.csv_name}{split}.pkl"))
         if split == "":  # the reference writes Result.csv for the test set
             write_results_csv(rows, str(out_dir))
@@ -734,10 +816,16 @@ def cmd_text(args):
     from .text import assemble_sessions
     from .text.classifier import TextClassifierConfig, TextTrainer, TextTrainerConfig
 
-    device = resolve_device(args.device)
+    from .parallel import dist as pdist
+
     if args.finetune and args.dp > 1:
-        raise NotImplementedError(f"text --finetune --dp {args.dp} (data-parallel "
-                                  f"fine-tuning) is not ported yet: the parallel slice")
+        def check(have):
+            if have < args.dp:
+                raise ValueError(f"dp={args.dp} needs >= that many devices, have {have}")
+
+        if not _run_here(args, args.dp, check):
+            return None
+    device = pdist.init_distributed(resolve_device(args.device))
     train_rows, test_rows = _load_rows(args.train_pkl), _load_rows(args.test_pkl)
 
     if args.experiment:  # named 0207_DM_* registry experiment
@@ -767,7 +855,8 @@ def cmd_text(args):
                                    lr_schedule=args.lr_schedule, seed=args.seed),
             seeds=tuple(range(args.seed, args.seed + 3)), device=device, **ft_kw)
         out = {"experiment": args.experiment, **out}
-        print(json.dumps(out))
+        if _lead():
+            print(json.dumps(out))
         return out
 
     docs_train = assemble_sessions(train_rows, text_key=args.use_text)
@@ -807,7 +896,8 @@ def cmd_text(args):
                encoder_params=enc_params)
         out = {**{f"test_{k}": v for k, v in tr.evaluate([xte], y_test).items()},
                "mode": "finetune"}
-        print(json.dumps(out))
+        if _lead():
+            print(json.dumps(out))
         return out
 
     if args.bert_checkpoint:
@@ -862,19 +952,23 @@ def cmd_sweep(args):
         return sweep_svm(grid, _load_rows(args.train_pkl), _load_rows(args.test_pkl),
                          load_spk2label(args.spk2label), results_csv=args.results_csv,
                          device=device)
-    from .train.trainer import TrainerConfig
+    from .parallel import dist as pdist
+    from .train.trainer import TrainerConfig, check_devices, validate_layout
 
     cfg = _dacs_cfg(args)
-    train_exs, tok = _load_examples(args, args.train_csv)
-    test_exs, _ = _load_examples(args, args.test_csv)
-    sd = load_weights(cfg, args.model_in_path, args.seed, device)
     tcfg = TrainerConfig(
         num_epochs=args.epochs, batch_size=args.train_batch_size,
         eval_batch_size=args.eval_batch_size, seed=args.seed,
         compute_dtype=args.compute_dtype, log_file=args.log_path,
         scan_layers=args.scan_layers, dp=args.dp, tp=args.tp)
+    if not _run_here(args, validate_layout(cfg, tcfg), lambda have: check_devices(tcfg, have)):
+        return None
+    device = pdist.init_distributed(device)
+    train_exs, tok = _load_examples(args, args.train_csv)
+    test_exs, _ = _load_examples(args, args.test_csv)
+    sd = load_weights(cfg, args.model_in_path, args.seed, device)
     return sweep_asr(grid, cfg, tcfg, sd, train_exs, test_exs, tok,
-                     results_csv=args.results_csv, device=device)
+                     results_csv=args.results_csv if _lead() else None, device=device)
 
 
 def _add_beam(p) -> None:
@@ -890,9 +984,8 @@ def _add_beam(p) -> None:
 
 
 def _add_train(p) -> None:
-    """The JAX ``_add_common`` flags (the parallelism flags are accepted and
-    refused by the Trainer until they are ported; ``--no_fast_rng`` only
-    switches the TPU's RNG and is not ported), plus ``--device``."""
+    """The JAX ``_add_common`` flags (``--no_fast_rng``, which only switches
+    the TPU's RNG, has no counterpart here), plus ``--device``."""
     p.add_argument("--model_type", default="data2vec", choices=sorted(BACKBONES))
     p.add_argument("--method", default="dacs", choices=METHODS)
     p.add_argument("-GRL", "--GRL", action="store_true", default=False,
@@ -1160,7 +1253,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_length", type=int, default=128,
                    help="finetune: static token length per example")
     p.add_argument("--dp", type=int, default=1,
-                   help="finetune: data-parallel devices (not ported yet: > 1 raises)")
+                   help="finetune: data-parallel devices (one rank each)")
     p.add_argument("--audio_root", default=None,
                    help="resolve audio InputSpecs (en/gr/multi/wv) against this "
                         "directory and embed the waveforms through the SSL conv frontend")
@@ -1212,7 +1305,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
+    args.argv = argv
     return args.fn(args)
 
 

@@ -113,9 +113,9 @@ struct NoKeyShift {
   bool none;    // no row of this (b, h) has a key
   float fill;   // the masked keys' replaced score
   float log_t;
-  __device__ NoKeyShift(const float* lse_bh, int T)
+  __device__ NoKeyShift(const float* lse_bh, int Tk)
       : none(lse_bh[0] == kMaskFill), fill(none ? 0.f : kMaskFill),
-        log_t(logf((float)T)) {}
+        log_t(logf((float)Tk)) {}
   __device__ float lse(float saved) const { return none ? log_t : saved; }
 };
 
@@ -254,10 +254,10 @@ flash_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                       const float* __restrict__ delta,
                       float* __restrict__ dq_accum, int* __restrict__ dq_sem,
                       __nv_bfloat16* __restrict__ dk,
-                      __nv_bfloat16* __restrict__ dv, int T, int H,
+                      __nv_bfloat16* __restrict__ dv, int T, int Tk, int H,
                       Strides qs, Strides ks, Strides vs, Strides ds,
                       float scale, uint32_t seed, uint32_t t_hash,
-                      uint32_t threshold, float inv_keep) {
+                      uint32_t threshold, float inv_keep, HashPos pos) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t sK = smem_u32(smem);
@@ -278,7 +278,7 @@ flash_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int kt = blockIdx.x, n_kt = gridDim.x;
   const int k0 = kt * kBK;
   const int n_qt = (T + kBQ - 1) / kBQ;
-  const uint32_t seed_bh = seed_of(seed, bh);
+  const uint32_t seed_bh = seed_of(seed, pos.bh(b, h));
 
   const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
   const __nv_bfloat16* kb = k + b * ks.b + h * ks.h;
@@ -286,7 +286,7 @@ flash_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* db = dout + b * ds.b + h * ds.h;
   const float* lse_b = lse + (long long)bh * T;
   const float* delta_b = delta + (long long)bh * T;
-  const NoKeyShift nk(lse_b, T);
+  const NoKeyShift nk(lse_b, Tk);
   // Key tile kt visits the q tiles starting at tile kt: at step `it` it
   // works on q tile (it + kt) mod n_qt, so the key tiles of one (b, h) reach
   // each q tile at different steps and rarely wait on each other's dQ adds.
@@ -337,22 +337,22 @@ flash_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_commit();
   };
 
-  load_tile_async<kBK, kCompute>(sK, kb, ks.t, k0, T, tid);
-  load_tile_async<kBK, kCompute>(sV, vb, vs.t, k0, T, tid);
+  load_tile_async<kBK, kCompute>(sK, kb, ks.t, k0, Tk, tid);
+  load_tile_async<kBK, kCompute>(sV, vb, vs.t, k0, Tk, tid);
   load_q(0);
 
   // this thread's keys: rows g and g+8 of its warp's 16 in the warpgroup's 64
   const int r0 = 64 * wg + 16 * wiw;
   const int keys[2] = {k0 + r0 + g, k0 + r0 + g + 8};
-  const int kcode[2] = {key_code(key_mask + (long long)b * T, keys[0], T),
-                        key_code(key_mask + (long long)b * T, keys[1], T)};
+  const int kcode[2] = {key_code(key_mask + (long long)b * Tk, keys[0], Tk),
+                        key_code(key_mask + (long long)b * Tk, keys[1], Tk)};
   // p of the two keys: exp2(s * scale * log2(e) - lse * log2(e)) for a valid
   // key, 0 past T, and for a masked key exp(fill - lse): 1/T where no key of
   // this (b, h) is valid (NoKeyShift), else 0
   const float scale2 = scale * 1.4426950408889634f;
   float p_masked[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) p_masked[r] = kcode[r] == 0 && nk.none ? 1.f / (float)T : 0.f;
+  for (int r = 0; r < 2; ++r) p_masked[r] = kcode[r] == 0 && nk.none ? 1.f / (float)Tk : 0.f;
   const uint64_t k_desc = gmma_desc(sK + 64 * wg * kRowBytes);  // this warpgroup's keys
   const uint64_t v_desc = gmma_desc(sV + 64 * wg * kRowBytes);
 
@@ -405,8 +405,8 @@ flash_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                                      : p_masked[r];
         float a = p, dp = dpt[nt][j];
         if (threshold) {
-          const bool keep = keep_elem(seed_bh, (uint32_t)(q0 + qc), (uint32_t)keys[r],
-                                      t_hash, threshold);
+          const bool keep = keep_elem(seed_bh, (uint32_t)(pos.q_off + q0 + qc),
+                                      (uint32_t)keys[r], t_hash, threshold);
           a = keep ? p : 0.f;
           dp = keep ? dp : 0.f;
         }
@@ -469,8 +469,8 @@ flash_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     fence_proxy_async();  // the bulk copy reads the share through the async proxy
     bar_arrive(kBarFull + buf, kHandoff);
   }
-  store_rows(dk, dka, keys, b, h, T, H, scale * inv_keep, t4);
-  store_rows(dv, dva, keys, b, h, T, H, inv_keep, t4);
+  store_rows(dk, dka, keys, b, h, Tk, H, scale * inv_keep, t4);
+  store_rows(dv, dva, keys, b, h, Tk, H, inv_keep, t4);
 }
 
 // ---------------------------------------------------------------------------
@@ -494,10 +494,10 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__
                           const float* __restrict__ dout,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta, float* __restrict__ dk,
-                          float* __restrict__ dv, int T, int H, Strides qs,
+                          float* __restrict__ dv, int T, int Tk, int H, Strides qs,
                           Strides ks, Strides vs, Strides ds, float scale,
                           uint32_t seed, uint32_t t_hash, uint32_t threshold,
-                          float inv_keep) {
+                          float inv_keep, HashPos pos) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   // tile it: the planes (hi, lo) of q * scale and dO, and of their
@@ -521,7 +521,7 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__
   const int b = bh / H, h = bh - b * H;
   const int k0 = blockIdx.x * kDkBK;
   const int n_qt = (T + kDkBQ - 1) / kDkBQ;
-  const uint32_t seed_bh = seed_of(seed, bh);
+  const uint32_t seed_bh = seed_of(seed, pos.bh(b, h));
   const float* qb = q + b * qs.b + h * qs.h;
   const float* kb = k + b * ks.b + h * ks.h;
   const float* vb = v + b * vs.b + h * vs.h;
@@ -536,16 +536,16 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__
     load_vec_async<kDkBQ>(rawL + kDkBQ, delta_b, it * kDkBQ, T, tid - kDkBQ);
     cp_async_commit();
   };
-  load_tile_f32_async<kDkBK, kDkThreads>(sK, kb, ks.t, k0, T, tid);
-  load_tile_f32_async<kDkBK, kDkThreads>(sV, vb, vs.t, k0, T, tid);
+  load_tile_f32_async<kDkBK, kDkThreads>(sK, kb, ks.t, k0, Tk, tid);
+  load_tile_f32_async<kDkBK, kDkThreads>(sV, vb, vs.t, k0, Tk, tid);
   load_q(0);
 
-  const NoKeyShift nk(lse_b, T);
+  const NoKeyShift nk(lse_b, Tk);
   // this thread's keys: rows g and g+8 of its warp's 16
   const int r0 = 16 * warp;
   const int keys[2] = {k0 + r0 + g, k0 + r0 + g + 8};
-  const int kcode[2] = {key_code(key_mask + (long long)b * T, keys[0], T),
-                        key_code(key_mask + (long long)b * T, keys[1], T)};
+  const int kcode[2] = {key_code(key_mask + (long long)b * Tk, keys[0], Tk),
+                        key_code(key_mask + (long long)b * Tk, keys[1], Tk)};
 
   float dka[kD / 8][4], dva[kD / 8][4];
 #pragma unroll
@@ -602,8 +602,8 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__
         const float p = expf(replace_masked(stt[nt][j], kcode[r], nk.fill) - ls[qc]);
         float a = p, dp = dpt[nt][j];
         if (threshold) {
-          const bool keep = keep_elem(seed_bh, (uint32_t)(q0 + qc), (uint32_t)keys[r], t_hash,
-                                      threshold);
+          const bool keep = keep_elem(seed_bh, (uint32_t)(pos.q_off + q0 + qc),
+                                      (uint32_t)keys[r], t_hash, threshold);
           a = keep ? p * inv_keep : 0.f;
           dp = keep ? dp * inv_keep : 0.f;
         }
@@ -634,8 +634,8 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if (keys[r] >= T) continue;
-    const long long off = ((long long)b * T + keys[r]) * ((long long)H * kD) + (long long)h * kD;
+    if (keys[r] >= Tk) continue;
+    const long long off = ((long long)b * Tk + keys[r]) * ((long long)H * kD) + (long long)h * kD;
 #pragma unroll
     for (int dn = 0; dn < kD / 8; ++dn) {
       *reinterpret_cast<float2*>(dk + off + dn * 8 + 2 * t4) =
@@ -663,9 +663,9 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
                         const float* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, float* __restrict__ dq,
-                        int T, int H, Strides qs, Strides ks, Strides vs,
+                        int T, int Tk, int H, Strides qs, Strides ks, Strides vs,
                         Strides ds, float scale, uint32_t seed, uint32_t t_hash,
-                        uint32_t threshold, float inv_keep) {
+                        uint32_t threshold, float inv_keep, HashPos pos) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   // tile kt: the planes (hi, lo) of K, of K^T (keys permuted) and of V
@@ -685,25 +685,25 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh - b * H;
   const int q0 = blockIdx.x * kDqBQ;
-  const int n_kt = (T + kDqBK - 1) / kDqBK;
-  const uint32_t seed_bh = seed_of(seed, bh);
+  const int n_kt = (Tk + kDqBK - 1) / kDqBK;
+  const uint32_t seed_bh = seed_of(seed, pos.bh(b, h));
   const float* qb = q + b * qs.b + h * qs.h;
   const float* kb = k + b * ks.b + h * ks.h;
   const float* vb = v + b * vs.b + h * vs.h;
   const float* db = dout + b * ds.b + h * ds.h;
-  const int* mb = key_mask + (long long)b * T;
+  const int* mb = key_mask + (long long)b * Tk;
 
   auto load_kv = [&](int kt) {
-    load_tile_f32_async<kDqBK, kDqThreads>(rawK, kb, ks.t, kt * kDqBK, T, tid);
-    load_tile_f32_async<kDqBK, kDqThreads>(rawV, vb, vs.t, kt * kDqBK, T, tid);
-    load_vec_async<kDqBK>(rawM, mb, kt * kDqBK, T, tid);
+    load_tile_f32_async<kDqBK, kDqThreads>(rawK, kb, ks.t, kt * kDqBK, Tk, tid);
+    load_tile_f32_async<kDqBK, kDqThreads>(rawV, vb, vs.t, kt * kDqBK, Tk, tid);
+    load_vec_async<kDqBK>(rawM, mb, kt * kDqBK, Tk, tid);
     cp_async_commit();
   };
   load_tile_f32_async<kDqBQ, kDqThreads>(sQ, qb, qs.t, q0, T, tid);
   load_tile_f32_async<kDqBQ, kDqThreads>(sD, db, ds.t, q0, T, tid);
   load_kv(0);
 
-  const NoKeyShift nk(lse + (long long)bh * T, T);
+  const NoKeyShift nk(lse + (long long)bh * T, Tk);
   const int r0 = 16 * warp;
   const int rows[2] = {q0 + r0 + g, q0 + r0 + g + 8};
   float lse_r[2], delta_r[2];
@@ -756,11 +756,12 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int r = j >> 1, col = nt * 8 + t4 * 2 + (j & 1);
-        const int code = k0 + col < T ? (mc[col] > 0 ? 1 : 0) : -1;
+        const int code = k0 + col < Tk ? (mc[col] > 0 ? 1 : 0) : -1;
         const float p = expf(replace_masked(s[nt][j], code, nk.fill) - lse_r[r]);
         float dpv = dp[nt][j];
         if (threshold)
-          dpv = keep_elem(seed_bh, (uint32_t)rows[r], (uint32_t)(k0 + col), t_hash, threshold)
+          dpv = keep_elem(seed_bh, (uint32_t)(pos.q_off + rows[r]), (uint32_t)(k0 + col), t_hash,
+                          threshold)
                     ? dpv * inv_keep : 0.f;
         s[nt][j] = p * (dpv - delta_r[r]);
       }
@@ -791,7 +792,9 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
 }  // namespace
 
 // Plain C entry point (bound with ctypes). dtype: 0 = float32, 1 = bfloat16.
-// `lse` is B1's fp32 [B, H, T] output, `delta` an fp32 [B, H, T] scratch
+// T queries against Tk keys; b_offset, q_offset, h_offset and h_total place
+// the call's rows in the logical batch for the keep hash (HashPos,
+// flash_common.cuh). `lse` is B1's fp32 [B, H, T] output, `delta` an fp32 [B, H, T] scratch
 // buffer. For bf16, `dq_accum` is an fp32 [B*H, T, 64] scratch buffer (no
 // initial value needed) and `dq_sem` an int32 buffer of B*H*ceil(T/64)
 // ZEROS (the key-tile order counters); both are unused for fp32. Launches
@@ -800,15 +803,17 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
 extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                          const void* key_mask, const void* o, const void* dout,
                          const void* lse, void* delta, void* dq_accum, void* dq_sem,
-                         void* dq, void* dk, void* dv, int dtype, int B, int T, int H,
-                         int D, long long qsb, long long qst, long long qsh,
+                         void* dq, void* dk, void* dv, int dtype, int B, int T, int Tk,
+                         int H, int D, long long qsb, long long qst, long long qsh,
                          long long ksb, long long kst, long long ksh,
                          long long vsb, long long vst, long long vsh,
                          long long osb, long long ost, long long osh,
                          long long dsb, long long dst, long long dsh,
                          float scale, int seed, int t_hash,
-                         unsigned int threshold, float inv_keep, void* stream) {
-  if (D != kD || B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+                         unsigned int threshold, float inv_keep, int b_offset,
+                         int q_offset, int h_offset, int h_total, void* stream) {
+  if (D != kD || B <= 0 || T <= 0 || Tk <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  const HashPos pos{b_offset, q_offset, h_offset, h_total};
   const Strides qs{qsb, qst, qsh}, ks{ksb, kst, ksh}, vs{vsb, vst, vsh},
       os{osb, ost, osh}, ds{dsb, dst, dsh};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
@@ -829,12 +834,12 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v,
         static_cast<const bf*>(o), static_cast<const bf*>(dout), delta_f, T, H, rows, os,
         ds, 1.f / inv_keep);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    flash_bwd_bf16_kernel<<<dim3((T + kBK - 1) / kBK, B * H), kThreads, kSmemBytes, st>>>(
+    flash_bwd_bf16_kernel<<<dim3((Tk + kBK - 1) / kBK, B * H), kThreads, kSmemBytes, st>>>(
         static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v), km,
         static_cast<const bf*>(dout), lse_f, delta_f, static_cast<float*>(dq_accum),
         static_cast<int*>(dq_sem), static_cast<bf*>(dk),
-        static_cast<bf*>(dv), T, H, qs, ks, vs, ds, scale, (uint32_t)seed,
-        (uint32_t)t_hash, threshold, inv_keep);
+        static_cast<bf*>(dv), T, Tk, H, qs, ks, vs, ds, scale, (uint32_t)seed,
+        (uint32_t)t_hash, threshold, inv_keep, pos);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     const long long n8 = rows * (kD / 8);
     flash_bwd_dq_convert_kernel<<<(unsigned)((n8 + 255) / 256), 256, 0, st>>>(
@@ -853,15 +858,16 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v,
     static const cudaError_t attr_dq = cudaFuncSetAttribute(
         flash_bwd_dq_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmemBytes);
     if (attr_dq != cudaSuccess) return (int)attr_dq;
-    flash_bwd_dkdv_f32_kernel<<<dim3((T + kDkBK - 1) / kDkBK, B * H), kDkThreads, kDkSmemBytes,
+    flash_bwd_dkdv_f32_kernel<<<dim3((Tk + kDkBK - 1) / kDkBK, B * H), kDkThreads, kDkSmemBytes,
                                 st>>>(
         qf, kf, vf, km, df, lse_f, delta_f, static_cast<float*>(dk), static_cast<float*>(dv),
-        T, H, qs, ks, vs, ds, scale, (uint32_t)seed, (uint32_t)t_hash, threshold, inv_keep);
+        T, Tk, H, qs, ks, vs, ds, scale, (uint32_t)seed, (uint32_t)t_hash, threshold, inv_keep,
+        pos);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     flash_bwd_dq_f32_kernel<<<dim3((T + kDqBQ - 1) / kDqBQ, B * H), kDqThreads, kDqSmemBytes,
                               st>>>(
-        qf, kf, vf, km, df, lse_f, delta_f, static_cast<float*>(dq), T, H, qs, ks, vs, ds,
-        scale, (uint32_t)seed, (uint32_t)t_hash, threshold, inv_keep);
+        qf, kf, vf, km, df, lse_f, delta_f, static_cast<float*>(dq), T, Tk, H, qs, ks, vs, ds,
+        scale, (uint32_t)seed, (uint32_t)t_hash, threshold, inv_keep, pos);
     return (int)cudaGetLastError();
   }
   return (int)cudaErrorInvalidValue;

@@ -46,6 +46,16 @@ __device__ __forceinline__ uint32_t seed_of(uint32_t seed, int bh) {
   return fmix32(seed + (uint32_t)bh * kGolden);
 }
 
+// Where a call's rows sit in the logical batch (ops/attention.py): the hash
+// indexes the global (b * h_total + h_off + h) and query row q_off + row.
+// All zero, h_total = H: the call is the whole batch.
+struct HashPos {
+  int b_off, q_off, h_off, h_total;
+  __device__ __forceinline__ int bh(int b, int h) const {
+    return (b_off + b) * h_total + h_off + h;
+  }
+};
+
 __device__ __forceinline__ bool keep_elem(uint32_t seed_bh, uint32_t row,
                                           uint32_t col, uint32_t t_hash,
                                           uint32_t threshold) {

@@ -100,10 +100,10 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ v,
                       const int* __restrict__ key_mask,
                       __nv_bfloat16* __restrict__ o,
-                      float* __restrict__ lse, int T, int H,
+                      float* __restrict__ lse, int T, int Tk, int H,
                       Strides qs, Strides ks, Strides vs, float scale,
                       uint32_t seed, uint32_t t_hash, uint32_t threshold,
-                      float inv_keep) {
+                      float inv_keep, HashPos pos) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t sQ = smem_u32(smem);
@@ -117,20 +117,20 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh - b * H;
   const int q0 = blockIdx.x * kBQ;
-  const uint32_t seed_bh = seed_of(seed, bh);
+  const uint32_t seed_bh = seed_of(seed, pos.bh(b, h));
 
   const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
   const __nv_bfloat16* kb = k + b * ks.b + h * ks.h;
   const __nv_bfloat16* vb = v + b * vs.b + h * vs.h;
-  const int* mb = key_mask + (long long)b * T;
-  const int n_tiles = (T + kBK - 1) / kBK;
+  const int* mb = key_mask + (long long)b * Tk;
+  const int n_tiles = (Tk + kBK - 1) / kBK;
 
   auto load_kv = [&](int kt) {
     const int st = kt % kStages;
-    load_tile_async<kBK, kThreads>(sKV + 2 * st * kTileBytes, kb, ks.t, kt * kBK, T, tid);
-    load_tile_async<kBK, kThreads>(sKV + (2 * st + 1) * kTileBytes, vb, vs.t, kt * kBK, T,
+    load_tile_async<kBK, kThreads>(sKV + 2 * st * kTileBytes, kb, ks.t, kt * kBK, Tk, tid);
+    load_tile_async<kBK, kThreads>(sKV + (2 * st + 1) * kTileBytes, vb, vs.t, kt * kBK, Tk,
                                    tid);
-    load_vec_async<kBK>(mask_s + st * kBK, mb, kt * kBK, T, tid);
+    load_vec_async<kBK>(mask_s + st * kBK, mb, kt * kBK, Tk, tid);
     cp_async_commit();
   };
 
@@ -173,7 +173,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = nt * 8 + t4 * 2 + (j & 1);
-        const int code = k0 + col < T ? (mc[col] > 0 ? 1 : 0) : -1;
+        const int code = k0 + col < Tk ? (mc[col] > 0 ? 1 : 0) : -1;
         const float x = replace_masked(s[nt][j] * scale, code, kMaskFill);
         s[nt][j] = x;
         mx[j >> 1] = fmaxf(mx[j >> 1], x);
@@ -198,7 +198,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
         l[r] += p;  // the denominator sees the undropped p
         if (threshold) {
           const uint32_t col = (uint32_t)(k0 + nt * 8 + t4 * 2 + (j & 1));
-          if (!keep_elem(seed_bh, rows[r], col, t_hash, threshold)) p = 0.f;
+          if (!keep_elem(seed_bh, rows[r] + pos.q_off, col, t_hash, threshold)) p = 0.f;
         }
         s[nt][j] = p;
       }
@@ -266,9 +266,9 @@ __global__ void __launch_bounds__(kF32Threads, 1)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const int* __restrict__ key_mask, float* __restrict__ o,
-                     float* __restrict__ lse, int T, int H, Strides qs,
+                     float* __restrict__ lse, int T, int Tk, int H, Strides qs,
                      Strides ks, Strides vs, float scale, uint32_t seed, uint32_t t_hash,
-                     uint32_t threshold, float inv_keep) {
+                     uint32_t threshold, float inv_keep, HashPos pos) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t sK = smem_u32(smem);       // tile kt: K's planes (hi, lo)
@@ -284,17 +284,17 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh - b * H;
   const int q0 = blockIdx.x * kF32BQ;
-  const uint32_t seed_bh = seed_of(seed, bh);
+  const uint32_t seed_bh = seed_of(seed, pos.bh(b, h));
   const float* qb = q + b * qs.b + h * qs.h;
   const float* kb = k + b * ks.b + h * ks.h;
   const float* vb = v + b * vs.b + h * vs.h;
-  const int* mb = key_mask + (long long)b * T;
-  const int n_tiles = (T + kF32BK - 1) / kF32BK;
+  const int* mb = key_mask + (long long)b * Tk;
+  const int n_tiles = (Tk + kF32BK - 1) / kF32BK;
 
   auto load_kv = [&](int kt) {
-    load_tile_f32_async<kF32BK, kF32Threads>(rawK, kb, ks.t, kt * kF32BK, T, tid);
-    load_tile_f32_async<kF32BK, kF32Threads>(rawV, vb, vs.t, kt * kF32BK, T, tid);
-    load_vec_async<kF32BK>(rawM, mb, kt * kF32BK, T, tid);
+    load_tile_f32_async<kF32BK, kF32Threads>(rawK, kb, ks.t, kt * kF32BK, Tk, tid);
+    load_tile_f32_async<kF32BK, kF32Threads>(rawV, vb, vs.t, kt * kF32BK, Tk, tid);
+    load_vec_async<kF32BK>(rawM, mb, kt * kF32BK, Tk, tid);
     cp_async_commit();
   };
   load_kv(0);
@@ -346,7 +346,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = nt * 8 + t4 * 2 + (j & 1);
-        const int code = k0 + col < T ? (mc[col] > 0 ? 1 : 0) : -1;
+        const int code = k0 + col < Tk ? (mc[col] > 0 ? 1 : 0) : -1;
         const float x = replace_masked(s[nt][j], code, kMaskFill);
         s[nt][j] = x;
         mx[j >> 1] = fmaxf(mx[j >> 1], x);
@@ -371,7 +371,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         l[r] += p;  // the denominator sees the undropped p
         if (threshold) {
           const uint32_t col = (uint32_t)(k0 + nt * 8 + t4 * 2 + (j & 1));
-          if (!keep_elem(seed_bh, rows[r], col, t_hash, threshold)) p = 0.f;
+          if (!keep_elem(seed_bh, rows[r] + pos.q_off, col, t_hash, threshold)) p = 0.f;
         }
         s[nt][j] = p;
       }
@@ -430,13 +430,15 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // synchronise, and returns cudaGetLastError().
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const void* key_mask, void* o, int dtype, int B,
-                         int T, int H, int D, long long qsb, long long qst,
+                         int T, int Tk, int H, int D, long long qsb, long long qst,
                          long long qsh, long long ksb, long long kst,
                          long long ksh, long long vsb, long long vst,
                          long long vsh, float scale, int seed, int t_hash,
-                         unsigned int threshold, float inv_keep, void* lse,
+                         unsigned int threshold, float inv_keep, int b_offset,
+                         int q_offset, int h_offset, int h_total, void* lse,
                          void* stream) {
-  if (D != kD || B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  if (D != kD || B <= 0 || T <= 0 || Tk <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  const HashPos pos{b_offset, q_offset, h_offset, h_total};
   const Strides qs{qsb, qst, qsh}, ks{ksb, kst, ksh}, vs{vsb, vst, vsh};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 1) {
@@ -447,8 +449,8 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
     flash_fwd_bf16_kernel<<<grid, kThreads, kSmemBytes, st>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(key_mask),
-        static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), T, H, qs, ks,
-        vs, scale, (uint32_t)seed, (uint32_t)t_hash, threshold, inv_keep);
+        static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), T, Tk, H, qs, ks,
+        vs, scale, (uint32_t)seed, (uint32_t)t_hash, threshold, inv_keep, pos);
   } else if (dtype == 0) {
     static const cudaError_t attr = cudaFuncSetAttribute(
         flash_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kF32SmemBytes);
@@ -457,8 +459,8 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
     flash_fwd_f32_kernel<<<grid, kF32Threads, kF32SmemBytes, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const int*>(key_mask),
-        static_cast<float*>(o), static_cast<float*>(lse), T, H, qs, ks, vs,
-        scale, (uint32_t)seed, (uint32_t)t_hash, threshold, inv_keep);
+        static_cast<float*>(o), static_cast<float*>(lse), T, Tk, H, qs, ks, vs,
+        scale, (uint32_t)seed, (uint32_t)t_hash, threshold, inv_keep, pos);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -38,6 +38,7 @@ installed. ``write_results_csv`` writes pandas' ``to_csv`` bytes with the
 from __future__ import annotations
 
 import csv
+import dataclasses
 import os
 import pickle
 from dataclasses import dataclass
@@ -141,10 +142,25 @@ def extract_embeddings(
     ``beam_size > 0`` decodes ``pred_str`` with CTC prefix beam search on the
     host over the forward's fp32 log-posteriors (ops/beam.py; optional
     shallow LM fusion ``lm_fn``) instead of the reference's greedy argmax.
-    ``mesh`` data parallelism is not ported yet and raises. Runs on ``device`` (``cuda`` unless the caller asks for the
-    CPU)."""
+    ``mesh`` (``parallel/mesh.py``, with a ``data`` axis; one rank per
+    device) shards the batches over the ``data`` ranks: rank r computes
+    batches r, r + dp, ... exactly as one device computes them (each batch
+    reseeds its Gumbel noise), and the rows come back to every rank in input
+    order, so they are byte-equal to one device's. Runs on ``device``
+    (``cuda`` unless the caller asks for the CPU)."""
+    group, dp, rank = None, 1, 0
     if mesh is not None:
-        raise NotImplementedError("data-parallel extraction (mesh) is not ported yet")
+        from ..parallel import dist as pdist
+
+        dp = int(mesh.shape["data"])
+        if batch_size % dp:
+            raise ValueError(
+                f"extraction batch_size {batch_size} must divide over the "
+                f"data axis ({dp})")
+        device = pdist.init_distributed(device)
+        mesh.bind("cuda" if pdist.backend_for(torch.device(device)) == "nccl" else "cpu")
+        group = mesh.group("data")
+        rank = pdist.group_rank(group)
     device = resolve_device(device)
     cfg, dtype = cfg.resolve_compute(compute_dtype)
     recipe = get_recipe(cfg.method)
@@ -152,8 +168,12 @@ def extract_embeddings(
     generator = torch.Generator(device)
     batcher = LengthBucketBatcher(examples, batch_size, time_multiple=time_multiple)
     by_path = {e.path: e for e in examples}
-    rows: list[ExtractionRow] = []
-    for b in batcher.epoch(epoch_seed=0):
+    batches: list[list[ExtractionRow]] = []
+    for bi, b in enumerate(batcher.epoch(epoch_seed=0)):
+        if bi % dp != rank:  # another data rank's batch
+            continue
+        rows = []
+        batches.append(rows)
         with torch.inference_mode():
             x, lengths, noise = batch_inputs(cfg, b, seed, generator, gumbel_noise, device,
                                              model.gumbel_draws)
@@ -189,7 +209,23 @@ def extract_embeddings(
                 pred_AD=int(ad_pred[i]),
                 dementia_logits=dlog[i, :n],
             ))
-    return rows
+    if group is not None:
+        from ..parallel import dist as pdist
+
+        parts = pdist.all_gather_object(batches, group)  # rank r: batches r, r + dp, ...
+        batches = [[_canonical_dtypes(r) for r in parts[i % dp][i // dp]]
+                   for i in range(sum(map(len, parts)))]
+    return [r for rows in batches for r in rows]
+
+
+def _canonical_dtypes(row: ExtractionRow) -> ExtractionRow:
+    """A row that crossed ranks with numpy's own dtype objects again (an
+    unpickled array brings a dtype instance of its own, which the pickle
+    writer would not share between rows as it shares numpy's)."""
+    return dataclasses.replace(row, **{
+        f.name: v.view(np.dtype(v.dtype.str))
+        for f in dataclasses.fields(row)
+        if isinstance(v := getattr(row, f.name), np.ndarray)})
 
 
 def write_results_csv(rows: list[ExtractionRow], save_path: str) -> None:

@@ -41,9 +41,22 @@ round's global model decodes (``federated/multitask.py``). Round r+1 is
 built on the host while round r runs where no phase needs the round's
 global params and every phase is device-resident. Round checkpoints carry
 the server state (``-server``), the top-k residuals (``-topk``) and the
-privacy spend (``-dp.json``) beside the params. The client, data and model
-meshes (``mesh``), ``zero1`` and ``tp`` raise ``NotImplementedError`` until
-the parallel slice.
+privacy spend (``-dp.json``) beside the params.
+
+A ``mesh`` (``parallel/mesh.py``, one rank per device) parallelizes the
+round as the JAX engine's does: each ``client`` coordinate trains a
+contiguous block of the round's sampled clients (uneven counts split
+unevenly; the log keeps JAX's ``gspmd_client_pad_frac``), and the
+accumulators' sums are all-reduced over ``client`` before the aggregate is
+formed: DP noise is drawn once from the round seed after the reduction,
+SecAgg's pairwise streams still cancel, the stochastic rounding of
+compressed deltas draws each client's numbers where one device would, and
+top-k residuals come back by client ID. Inside a client the batch rows
+shard over ``data`` (one gradient all-reduce per step), ``zero1`` shards its
+AdamW moments over ``data`` and ``tp`` its encoder matmuls over ``model``
+(``parallel/layout.py``). Under a mesh the round data is staged, never
+resident, as in JAX; the warm-starts and evaluations run whole on every
+rank, and rank 0 logs and writes.
 """
 
 from __future__ import annotations
@@ -66,6 +79,7 @@ from ..data.tokenizer import CTCCharTokenizer
 from ..models.backbone import feat_extract_output_lengths
 from ..models.config import DACSConfig
 from ..models.recipes import get_recipe
+from ..parallel import dist as pdist
 from ..parallel.fed import (
     CompressedDeltaAccumulator,
     FedAvgAccumulator,
@@ -152,9 +166,13 @@ class FederatedConfig:
     log_file: str | None = None
     log_dir: str = "./saves/log"
     fedavg_weighted: bool = False   # reference uses an unweighted mean
-    mesh: Any = None                # client/data/model mesh: the parallel slice
-    zero1: bool = False             # the parallel slice
-    tp: bool = False                # the parallel slice
+    mesh: Any = None                # parallel.mesh.Mesh with a "client" axis
+    # ZeRO-1 inside the round: each client's AdamW moments sharded over the
+    # mesh's "data" axis (parallel/zero.py); needs a data axis >= 2
+    zero1: bool = False
+    # tensor parallelism inside each client over the mesh's "model" axis
+    # (parallel/tp.py); needs a model axis >= 2
+    tp: bool = False
     # keep client datasets resident on the device across rounds and send
     # only per-round index batches. None = auto: on under ~6 GB of padded
     # [K, n_max, t_max] audio
@@ -203,7 +221,6 @@ class FederatedConfig:
         if self.server_optimizer not in ("none", "momentum", "adam"):
             raise ValueError(f"server_optimizer must be none|momentum|adam, got "
                              f"{self.server_optimizer!r}")
-        _check_ported(self)
         if self.compress_bits is not None and not 2 <= self.compress_bits <= 8:
             raise ValueError(f"compress_bits must be in [2, 8], got {self.compress_bits}")
         if self.compress_bits is not None and self.dp_clip_norm is not None:
@@ -230,19 +247,21 @@ class FederatedConfig:
                                  "counts are private); disable fedavg_weighted")
         if self.topk_fraction is not None and not 0.0 < self.topk_fraction <= 1.0:
             raise ValueError(f"topk_fraction must be in (0, 1], got {self.topk_fraction}")
+        if self.zero1 and (self.mesh is None or int(self.mesh.shape.get("data", 1)) < 2):
+            raise ValueError(
+                "zero1 shards per-client Adam moments over the 'data' mesh "
+                "axis: set fcfg.mesh to a Mesh with a 'data' axis of size "
+                ">= 2 (e.g. ('client', 'data') = (K, N/K))")
+        if self.tp and (self.mesh is None or int(self.mesh.shape.get("model", 1)) < 2):
+            raise ValueError(
+                "tp Megatron-shards each client's encoder matmuls over the "
+                "'model' mesh axis: set fcfg.mesh to a Mesh with a 'model' "
+                "axis of size >= 2 (make_mesh(client=K, data=D, model=M))")
         if self.dp_noise_multiplier and self.dp_clip_norm is None:
             # noise std is clip * multiplier / K: without a clip norm there
             # is no DP at all
             raise ValueError("dp_noise_multiplier > 0 requires dp_clip_norm (the noise "
                              "std is clip * multiplier / K); set --dp_clip_norm")
-
-
-def _check_ported(f: FederatedConfig) -> None:
-    later = {"mesh": f.mesh is not None, "zero1": f.zero1, "tp": f.tp}
-    missing = [k for k, on in later.items() if on]
-    if missing:
-        raise NotImplementedError(
-            f"federated options not ported yet: {', '.join(missing)}")
 
 
 class ServerOptimizer:
@@ -314,8 +333,10 @@ class FederatedEngine:
             # the reference's FL pipeline exists for the DACS model only
             raise ValueError(f"the federated engine drives the DACS method only, got "
                              f"method={cfg.method!r}")
-        self.device = resolve_device(device)
+        self.device = pdist.init_distributed(resolve_device(device))
         self.cfg, self.fcfg = cfg, fcfg
+        self.layout, self.client_group = self._make_layout(cfg, fcfg)
+        self.lead = pdist.rank() == 0
         self.client_ids = sorted(client_examples.keys(), key=str)
         self.client_examples = client_examples
         self.client_unsup_examples = client_unsup_examples or {}
@@ -324,7 +345,8 @@ class FederatedEngine:
         self.tokenizer = tokenizer
         self.global_params = {k: v.detach().to(self.device, torch.float32).clone()
                               for k, v in params.items()}
-        self.logger = JsonlLogger(fcfg.log_dir, fcfg.log_file)
+        self.logger = JsonlLogger(fcfg.log_dir, fcfg.log_file if self.lead else None,
+                                  echo=self.lead)
         self._model = None     # the one model the clients train in turn
         self._mt_model = None  # with the N-best heads (num_lms > 1)
         self._pseudo_fwd = make_pseudo_forward(cfg.replace(num_lms=1))
@@ -344,12 +366,48 @@ class FederatedEngine:
         # composed across stages, checkpointed as a '-dp.json' round sidecar
         self._dp_accountant = DpAccountant(delta=fcfg.dp_delta)
 
+    def _make_layout(self, cfg: DACSConfig, f: FederatedConfig):
+        """The round's layout inside a client (data / model axes) and the
+        group of the client axis; (None, None) without a mesh."""
+        mesh = f.mesh
+        if mesh is None:
+            return None, None
+        if f.tp:
+            from ..parallel.tp import validate_tp_divisibility
+
+            validate_tp_divisibility(cfg.backbone, int(mesh.shape["model"]))
+        data_n = int(mesh.shape.get("data", 1))
+        if data_n > 1 and f.batch_size % data_n:
+            raise ValueError(
+                f"batch_size ({f.batch_size}) must be divisible by "
+                f"the data mesh axis ({data_n}) so each client's batch rows "
+                "shard evenly across its data devices")
+        if f.resident_client_data:
+            raise ValueError(
+                "resident_client_data=True is not supported with a mesh "
+                "(the staged path keeps client-axis data locality there); "
+                "leave it None/False when fcfg.mesh is set")
+        if mesh.size != pdist.world_size():
+            raise ValueError(f"mesh of {mesh.size} ranks in a world of {pdist.world_size()} "
+                             "(launch one rank per mesh device)")
+        mesh.bind("cuda" if pdist.backend_for(self.device) == "nccl" else "cpu")
+        from ..parallel.layout import Layout
+
+        layout = (Layout(mesh, cfg, zero1=f.zero1)
+                  if data_n > 1 or mesh.axis_size("model") > 1 else None)
+        return layout, (mesh.group("client") if mesh.axis_size("client") > 1 else None)
+
     def _make_model(self, num_lms: int):
         with torch.device("meta"):
             model = get_recipe(self.cfg.method).make_model(
                 self.cfg.replace(num_lms=num_lms), _DTYPES[self.fcfg.compute_dtype],
                 torch.float32, self.fcfg.remat)
-        return model.to_empty(device=self.device)
+        model = model.to_empty(device=self.device)
+        if self.layout is not None:  # shards need the whole state first
+            g = self.global_params
+            model.load_state_dict(g if num_lms == 1 else init_lm_heads_from_lm_head(g, num_lms))
+            self.layout.attach(model)
+        return model
 
     @property
     def model(self):
@@ -367,8 +425,25 @@ class FederatedEngine:
         return self._mt_model
 
     def _load_global(self):
-        self.model.load_state_dict(self.global_params, strict=True)
+        if self.layout is None:
+            self.model.load_state_dict(self.global_params, strict=True)
+        else:
+            self.layout.load_state_dict(self.model, self.global_params)
         return self.model
+
+    def _client_params(self) -> dict[str, torch.Tensor]:
+        """The trained client's whole params (collective under tp)."""
+        model = self.model
+        return model.state_dict() if self.layout is None else self.layout.state_dict(model)
+
+    def _my_clients(self, m: int) -> range:
+        """This rank's block of the round's ``m`` sampled clients."""
+        if self.client_group is None:
+            return range(m)
+        from ..parallel.mesh import block
+
+        return block(m, pdist.group_size(self.client_group),
+                     pdist.group_rank(self.client_group))
 
     # ------------------------------------------------------------------
     # data: per-client step streams
@@ -405,7 +480,7 @@ class FederatedEngine:
                                        for _, ids, _ in pseudo[cid][p][:n_lms]])
         if pseudo is not None:
             l_max = _round_up(l_max, f.label_multiple)
-        steps = max(len(bs) for bs in per_client)
+        steps = self._last_steps = max(len(bs) for bs in per_client)
         self._last_dead_step_frac = 1.0 - sum(map(len, per_client)) / (steps * len(cids))
 
         def pad_to(b):
@@ -416,7 +491,11 @@ class FederatedEngine:
             return dataclasses.replace(b, input_values=iv, labels=lab)
 
         out = []
-        for cid, batches in zip(cids, per_client):
+        mine = set(self._my_clients(len(cids)))
+        for ki, (cid, batches) in enumerate(zip(cids, per_client)):
+            if ki not in mine:  # another client rank trains it
+                out.append(None)
+                continue
             dev = [DeviceBatch.from_host(pad_to(b), self.device) for b in batches]
             while len(dev) < steps:  # pad with an all-masked batch
                 dummy = DeviceBatch(*(torch.zeros_like(x) for x in dataclasses.astuple(dev[0])))
@@ -434,6 +513,8 @@ class FederatedEngine:
 
     def _resident_enabled(self, source: dict) -> bool:
         f = self.fcfg
+        if f.mesh is not None:  # staged under a mesh, as in JAX
+            return False
         if f.resident_client_data is not None:
             return f.resident_client_data
         # auto: cap the footprint of the DENSE-PADDED [K, n_max, t_max]
@@ -590,7 +671,7 @@ class FederatedEngine:
                 data = self._client_round_batches(cids, rnd, self.client_unsup_examples,
                                                   pseudo)
                 phases.append(data)
-                specs.append(("mt", len(data[0])))
+                specs.append(("mt", self._last_steps))
             else:
                 phase, spec = self._resident_or_staged_phase(
                     stage, self.client_unsup_examples, cids, rnd)
@@ -617,7 +698,7 @@ class FederatedEngine:
                 return (*hc, data_all, rows, idx), ("res_h", idx.shape[1])
             return (data_all, rows, idx), ("res", idx.shape[1])
         data = self._client_round_batches(cids, rnd, source)
-        return data, ("sup", len(data[0]))
+        return data, ("sup", self._last_steps)
 
     def _client_seed(self, rnd: int, ki: int, phase: int) -> int:
         """Seed of the random streams of the ``ki``-th sampled client's
@@ -660,7 +741,7 @@ class FederatedEngine:
                 anchor = init_lm_heads_from_lm_head(self.global_params, n)
             tx = make_optimizer(train_model, stage, f.learning_rate, f.weight_decay,
                                 warmup_steps=f.warmup_steps, total_steps=max(steps, 1),
-                                fedprox_mu=f.fedprox_mu, prox_ref=anchor)
+                                fedprox_mu=f.fedprox_mu, prox_ref=anchor, layout=self.layout)
             state = create_train_state(train_model, tx, self._client_seed(rnd, ki, p))
             if kind == "mt":
                 step = make_multitask_train_step(self.cfg.replace(stage=stage))
@@ -708,15 +789,26 @@ class FederatedEngine:
                                        weights)
         else:
             acc = FedAvgAccumulator(keys, m, weights)
-        losses = []
-        for ki in range(m):
-            losses.append(self._local_train(stage, rnd, ki, phases, specs).mean())
-            acc.add(self.model.state_dict())
+        mine = self._my_clients(m)
+        if mine.start and f.compress_bits is not None:
+            acc.skip_draws(mine.start)  # the earlier clients' rounding draws
+        losses = torch.zeros(m, device=self.device)
+        for ki in mine:
+            losses[ki] = self._local_train(stage, rnd, ki, phases, specs).mean()
+            acc.add(self._client_params(), ki)
+        if self.client_group is not None:
+            acc.all_reduce(self.client_group, g)
+            pdist.all_reduce_(losses, self.client_group)
         new_global = graft_network(g, acc.result(), network)
         if pos is not None:
-            for i, res in zip(pos, acc.residuals):
-                for k, r in res.items():
-                    res_all[k][i] = r
+            for k in keys:
+                rows = torch.zeros((m, *g[k].shape), device=self.device)
+                for j, ki in enumerate(mine):
+                    rows[ki] = acc.residuals[j][k]
+                if self.client_group is not None:
+                    pdist.all_reduce_(rows, self.client_group)
+                for ki, i in enumerate(pos):
+                    res_all[k][i] = rows[ki]
         server = self._server_opt(stage)
         if server is not None:
             new_global = server.step(g, new_global)
@@ -766,7 +858,7 @@ class FederatedEngine:
 
     def _maybe_save_round(self, stage: int, rnd: int) -> None:
         f = self.fcfg
-        if f.round_save_dir is None or rnd % max(f.round_save_every, 1):
+        if f.round_save_dir is None or rnd % max(f.round_save_every, 1) or not self.lead:
             return
         p = save_params(Path(f.round_save_dir) / f"stage{stage}-round-{rnd}",
                         self.global_params, {"stage": stage, "round": rnd})
@@ -898,6 +990,14 @@ class FederatedEngine:
                 self._dp_accountant.step(m / k_total, f.dp_noise_multiplier)
                 row["dp_epsilon"] = round(self._dp_accountant.epsilon(), 4)
                 row["dp_delta"] = f.dp_delta
+            if f.mesh is not None:
+                # JAX's GSPMD pads an uneven client dim (those lanes train
+                # on nothing); here the block split is uneven instead, and
+                # the row keeps JAX's record of the idle share
+                c_ax = int(f.mesh.shape["client"])
+                if m % c_ax:
+                    padded = -(-m // c_ax) * c_ax
+                    row["gspmd_client_pad_frac"] = round(1.0 - m / padded, 4)
             self.logger.log(row)
             if self.eval_examples is not None:
                 ev = self.evaluate(stage)

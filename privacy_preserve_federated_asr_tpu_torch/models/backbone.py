@@ -73,12 +73,20 @@ class Linear(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        bias = None if self.bias is None else self.bias.to(dt)
-        matmul = _DENSE[self.dense_impl]
-        if matmul is None:
+        if self.dense_impl == "fp":
+            bias = None if self.bias is None else self.bias.to(dt)
             return F.linear(x.to(dt), self.weight.to(dt), bias)
-        y = matmul(x.to(dt), self.weight.to(dt))
-        return y if bias is None else y + bias
+        return self.add_bias(self.matmul(x))
+
+    def matmul(self, x: torch.Tensor) -> torch.Tensor:
+        """The product without the bias (also a row-parallel shard's partial
+        sum, parallel/tp.py)."""
+        dt = self.compute_dtype
+        matmul = _DENSE[self.dense_impl] or F.linear
+        return matmul(x.to(dt), self.weight.to(dt))
+
+    def add_bias(self, y: torch.Tensor) -> torch.Tensor:
+        return y if self.bias is None else y + self.bias.to(self.compute_dtype)
 
 
 class Conv1d(nn.Conv1d):
@@ -209,7 +217,11 @@ class PositionalConvEmbedding(nn.Module):
 class Attention(nn.Module):
     """Multi-head self-attention through ``ops.attention.multihead_attention``
     (the CUDA kernels on the card, the plain versions on the CPU); in
-    training the attention dropout runs inside the kernel from ``seed``."""
+    training the attention dropout runs inside the kernel from ``seed``.
+    ``b_offset`` places the rows in the logical batch (data and pipeline
+    parallelism): the keep hash indexes global rows. The tensor- and
+    sequence-parallel forms are subclasses (parallel/tp.py, parallel/sp.py)
+    that reuse ``project`` and ``attend``."""
 
     def __init__(self, cfg: BackboneConfig, dtype: torch.dtype, param_dtype: torch.dtype):
         super().__init__()
@@ -222,15 +234,25 @@ class Attention(nn.Module):
         self.out_proj = Linear(d, d, **kw)
 
     def forward(self, x: torch.Tensor, key_mask: torch.Tensor | None,
-                seed: int = 0) -> torch.Tensor:
+                seed: int = 0, b_offset: int = 0) -> torch.Tensor:
         b, t, _ = x.shape
-        h, d = self.cfg.num_attention_heads, self.cfg.head_dim
-        q = self.q_proj(x).view(b, t, h, d)
-        k = self.k_proj(x).view(b, t, h, d)
-        v = self.v_proj(x).view(b, t, h, d)
+        ctx = self.attend(*self.project(x), key_mask, seed, b_offset=b_offset)
+        return self.out_proj(ctx.reshape(b, t, -1))
+
+    def project(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        """q, k, v as ``[B, T, heads, head_dim]`` (the heads the projections
+        hold)."""
+        b, t, _ = x.shape
+        return tuple(p(x).view(b, t, -1, self.cfg.head_dim)
+                     for p in (self.q_proj, self.k_proj, self.v_proj))
+
+    def attend(self, q, k, v, key_mask, seed: int, **place) -> torch.Tensor:
+        """The kernel on q against k, v; ``place``: the block's offsets in
+        the logical (batch, head, row) grid, as ``multihead_attention``
+        takes them."""
         rate = self.cfg.attention_dropout if self.training else 0.0
-        ctx = multihead_attention(q, k, v, key_mask, rate, seed, hash_stride(t))
-        return self.out_proj(ctx.reshape(b, t, h * d))
+        return multihead_attention(q, k, v, key_mask, rate, seed, hash_stride(k.shape[1]),
+                                   **place)
 
 
 class FeedForward(nn.Module):
@@ -261,13 +283,13 @@ class EncoderLayer(nn.Module):
         self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
     def forward(self, x: torch.Tensor, key_mask: torch.Tensor | None,
-                seed: int = 0) -> torch.Tensor:
+                seed: int = 0, b_offset: int = 0) -> torch.Tensor:
         dt = self.dtype
         if self.cfg.do_stable_layer_norm:  # pre-norm
             x = x + self.dropout(self.attention(
-                _layer_norm(self.layer_norm, x, dt), key_mask, seed))
+                _layer_norm(self.layer_norm, x, dt), key_mask, seed, b_offset))
             return x + self.feed_forward(_layer_norm(self.final_layer_norm, x, dt))
-        x = x + self.dropout(self.attention(x, key_mask, seed))  # post-norm (data2vec)
+        x = x + self.dropout(self.attention(x, key_mask, seed, b_offset))  # post-norm
         x = _layer_norm(self.layer_norm, x, dt)
         x = x + self.feed_forward(x)
         return _layer_norm(self.final_layer_norm, x, dt)
@@ -285,9 +307,17 @@ class Encoder(nn.Module):
         # remat (the JAX ``nn.remat(EncoderLayer)``): each layer's
         # activations are recomputed in the backward pass
         self.remat = False
+        # the JAX scan_layers layout (the same math here; the stack-parallel
+        # forwards, parallel/stacked.py, require it as JAX does), and the
+        # stack-parallel replacement of the layer loop
+        self.scan_layers = False
+        self.stack_fn = None
 
     def forward(self, x: torch.Tensor, frame_mask: torch.Tensor | None = None,
-                seed_generator: torch.Generator | None = None) -> torch.Tensor:
+                seed_generator: torch.Generator | None = None,
+                b_offset: int = 0) -> torch.Tensor:
+        """``b_offset``: the first row of ``x`` in the logical batch (data
+        parallelism)."""
         if frame_mask is not None:
             x = x * frame_mask.to(self.dtype)[:, :, None]  # zero padded frames before pos conv
         x = x + self.pos_conv_embed(x)
@@ -295,30 +325,43 @@ class Encoder(nn.Module):
             x = _layer_norm(self.layer_norm, x, self.dtype)
         x = self.dropout(x)
         draw = self.training and self.cfg.attention_dropout > 0.0
-        for layer in self.layers:
-            # the seed is drawn outside the checkpoint, so the recompute's
-            # attention kernel sees it again; preserve_rng_state replays the
-            # other dropout masks
-            seed = dropout_seed(seed_generator) if draw else 0
-            if self.remat and torch.is_grad_enabled():
-                x = checkpoint(layer, x, frame_mask, seed, use_reentrant=False,
-                               preserve_rng_state=True)
-            else:
-                x = layer(x, frame_mask, seed)
+        # one seed per layer, in layer order, whatever runs the stack
+        seeds = [dropout_seed(seed_generator) if draw else 0 for _ in self.layers]
+        if self.stack_fn is not None:
+            x = self.stack_fn(self, x, frame_mask, seeds, b_offset)
+        else:
+            x = self.run_layers(self.layers, x, frame_mask, seeds, b_offset)
         if self.cfg.do_stable_layer_norm:
             x = _layer_norm(self.layer_norm, x, self.dtype)
+        return x
+
+    def run_layers(self, layers, x: torch.Tensor, key_mask: torch.Tensor | None,
+                   seeds, b_offset: int = 0) -> torch.Tensor:
+        """``layers`` in turn (each recomputed in the backward under remat:
+        the seed and row offset are arguments, so the recompute sees them
+        again, and preserve_rng_state replays the other dropout masks)."""
+        for layer, seed in zip(layers, seeds):
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(layer, x, key_mask, seed, b_offset, use_reentrant=False,
+                               preserve_rng_state=True)
+            else:
+                x = layer(x, key_mask, seed, b_offset)
         return x
 
 
 def sample_span_mask(shape: tuple[int, int], mask_prob: float, mask_length: int,
                      valid_mask: torch.Tensor | None = None,
-                     device: torch.device | str | None = None) -> torch.Tensor:
+                     device: torch.device | str | None = None,
+                     rows: tuple[int, int] | None = None) -> torch.Tensor:
     """SpecAugment span sampling as the JAX package does it: Bernoulli span
     *starts* at rate ``mask_prob / mask_length`` (expected coverage =
     mask_prob), dilated to ``mask_length`` frames by a max window. Draws
-    from the default generator of ``device``."""
+    from the default generator of ``device``. ``rows = (offset, total)``:
+    the ``shape[0]`` rows are rows ``offset...`` of a batch of ``total``;
+    the draw covers that batch and this call's rows are kept."""
     b, t = shape
-    starts = torch.rand((b, t), device=device) < mask_prob / mask_length
+    off, total = (0, b) if rows is None else rows
+    starts = torch.rand((total, t), device=device)[off:off + b] < mask_prob / mask_length
     if valid_mask is not None:
         starts = starts & valid_mask.bool()
     spans = F.max_pool1d(F.pad(starts.float()[:, None], (mask_length - 1, 0)),
@@ -345,11 +388,16 @@ class SSLBackbone(nn.Module):
     def forward(self, input_values: torch.Tensor | None,
                 frame_mask: torch.Tensor | None = None,
                 precomputed_features: torch.Tensor | None = None,
-                seed_generator: torch.Generator | None = None) -> torch.Tensor:
+                seed_generator: torch.Generator | None = None,
+                rows: tuple[int, int] | None = None) -> torch.Tensor:
         """``precomputed_features`` (the frozen conv frontend's output, which
         the stage-0 trainer caches) replaces the feature extractor.
         ``seed_generator``: the CPU generator the attention-dropout seeds come
-        from in training (default: torch's default CPU generator)."""
+        from in training (default: torch's default CPU generator).
+        ``rows = (offset, total)``: the batch is rows ``offset...`` of a
+        logical batch of ``total`` (data parallelism, parallel/layout.py):
+        the SpecAugment spans are drawn for that batch and the keep hash
+        indexes its rows."""
         cfg = self.cfg
         if precomputed_features is not None:
             feats = precomputed_features
@@ -357,17 +405,18 @@ class SSLBackbone(nn.Module):
             feats = self.feature_extractor(input_values)
         x = self.feature_projection(feats)
         if self.training and (cfg.mask_time_prob > 0 or cfg.mask_feature_prob > 0):
-            x = self._spec_augment(x, frame_mask)
-        return self.encoder(x, frame_mask, seed_generator)
+            x = self._spec_augment(x, frame_mask, rows)
+        return self.encoder(x, frame_mask, seed_generator, 0 if rows is None else rows[0])
 
-    def _spec_augment(self, x: torch.Tensor, frame_mask: torch.Tensor | None) -> torch.Tensor:
+    def _spec_augment(self, x: torch.Tensor, frame_mask: torch.Tensor | None,
+                      rows: tuple[int, int] | None = None) -> torch.Tensor:
         """Masked time spans are replaced by the learned embedding; masked
         feature spans are zeroed (HF ``_mask_hidden_states``)."""
         cfg = self.cfg
         b, t, d = x.shape
         if cfg.mask_time_prob > 0:
             tm = sample_span_mask((b, t), cfg.mask_time_prob, cfg.mask_time_length,
-                                  frame_mask, x.device)
+                                  frame_mask, x.device, rows)
             x = torch.where(tm[:, :, None], self.masked_spec_embed.to(x.dtype), x)
         if cfg.mask_feature_prob > 0:
             fm = sample_span_mask((b, d), cfg.mask_feature_prob, cfg.mask_feature_length,

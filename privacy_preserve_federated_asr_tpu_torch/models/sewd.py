@@ -294,8 +294,9 @@ class SEWDBackbone(nn.Module):
     def forward(self, input_values: torch.Tensor | None,
                 frame_mask: torch.Tensor | None = None,
                 precomputed_features: torch.Tensor | None = None,
-                seed_generator: torch.Generator | None = None) -> torch.Tensor:
-        del seed_generator
+                seed_generator: torch.Generator | None = None,
+                rows: tuple[int, int] | None = None) -> torch.Tensor:
+        del seed_generator, rows  # no SpecAugment, no kernel dropout here
         feats = (precomputed_features if precomputed_features is not None
                  else self.feature_extractor(input_values))
         x = _layer_norm(self.layer_norm, feats, self.dtype)

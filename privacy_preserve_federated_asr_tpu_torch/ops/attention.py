@@ -24,6 +24,20 @@ Attention dropout is the TPU kernel's counter-based hash of
 ``(b*H + h, row, col, seed)`` with row stride ``t_hash``: pass the padded
 length the JAX wrapper used (``T`` rounded up to its block) and the keep
 masks are bit-identical, in the forward and in the backward.
+
+The queries may be fewer than the keys (``Tq != Tk``: a sequence-parallel
+rank's rows against the gathered keys), and four offsets place a call's
+rows in the logical batch: ``b_offset`` (batch rows before this call's),
+``h_offset`` and ``h_total`` (this call's heads within the model's), and
+``q_offset`` (query rows before this call's). The hash then indexes the
+global ``((b_offset + b) * h_total + h_offset + h, q_offset + row, col)``,
+so every layout of the parallel layer draws the masks one device draws:
+GSPMD hands JAX's kernel the whole batch, the port's ranks hand theirs a
+slice. With the offsets 0 and ``Tq == Tk`` every call computes what it
+computed before they existed. JAX forces its XLA attention under tensor and
+sequence parallelism only because GSPMD cannot slice a Pallas call; here
+each rank's heads and query rows are a plain local batch for the kernels,
+which run under every layout.
 """
 
 from __future__ import annotations
@@ -70,12 +84,26 @@ def _fmix32_(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def bh_index(b: int, h: int, b_offset: int = 0, h_offset: int = 0,
+             h_total: int | None = None, device=None) -> torch.Tensor:
+    """The global (batch * heads + head) index of each of a call's ``b * h``
+    (row, head) pairs."""
+    h_total = h if h_total is None else h_total
+    rows = torch.arange(b, dtype=torch.int64, device=device)[:, None] + b_offset
+    heads = torch.arange(h, dtype=torch.int64, device=device)[None, :] + h_offset
+    return (rows * h_total + heads).reshape(-1)
+
+
 def keep_mask(seed: int, bh: int, t_q: int, t_k: int, t_hash: int,
-              rate: float, device=None) -> torch.Tensor:
-    """``[bh, t_q, t_k]`` bool keep mask of the counter-based dropout."""
-    seed_bh = _fmix32_(_as_int32((seed + torch.arange(bh, dtype=torch.int64, device=device)
-                                  * _GOLDEN) & _M32))
-    rows = torch.arange(t_q, dtype=torch.int64, device=device)[:, None]
+              rate: float, device=None, *, bh_idx: torch.Tensor | None = None,
+              q_offset: int = 0) -> torch.Tensor:
+    """``[bh, t_q, t_k]`` bool keep mask of the counter-based dropout;
+    ``bh_idx`` (default ``0..bh-1``) are the global (b*H + h) indices and
+    ``q_offset`` the global index of the first query row."""
+    if bh_idx is None:
+        bh_idx = torch.arange(bh, dtype=torch.int64, device=device)
+    seed_bh = _fmix32_(_as_int32((seed + bh_idx.to(device) * _GOLDEN) & _M32))
+    rows = torch.arange(t_q, dtype=torch.int64, device=device)[:, None] + q_offset
     cols = torch.arange(t_k, dtype=torch.int64, device=device)[None, :]
     base = _as_int32((rows * t_hash + cols) & _M32)
     h = _fmix32_(base[None] ^ seed_bh[:, None, None])
@@ -117,13 +145,16 @@ def _live_keys(key_mask: torch.Tensor) -> int:
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   key_mask: torch.Tensor, rate: float = 0.0, seed: int = 0,
-                  t_hash: int | None = None) -> torch.Tensor:
-    """Plain PyTorch version of kernel B1: q, k, v ``[B, T, H, D]``,
-    ``key_mask`` ``[B, T]`` (> 0 = valid). Returns ``[B, T, H, D]`` in q's
-    dtype; every intermediate is fp32."""
+                  t_hash: int | None = None, b_offset: int = 0, q_offset: int = 0,
+                  h_offset: int = 0, h_total: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version of kernel B1: q ``[B, Tq, H, D]``, k and v
+    ``[B, Tk, H, D]``, ``key_mask`` ``[B, Tk]`` (> 0 = valid), the offsets
+    as in the module docstring. Returns ``[B, Tq, H, D]`` in q's dtype;
+    every intermediate is fp32."""
     b, t, h, d = q.shape
+    t_k = k.shape[1]
     n = _live_keys(key_mask)
-    t_hash = t if t_hash is None else t_hash
+    t_hash = t_k if t_hash is None else t_hash
     k, v, key_mask = k[:, :n], v[:, :n], key_mask[:, :n]
     scale = 1.0 / math.sqrt(d)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
@@ -133,7 +164,9 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l = p.sum(-1, keepdim=True)  # undropped denominator
     inv_keep = 1.0
     if rate > 0.0:
-        keep = keep_mask(seed, b * h, t, n, t_hash, rate, device=q.device).view(b, h, t, n)
+        keep = keep_mask(seed, b * h, t, n, t_hash, rate, device=q.device,
+                         bh_idx=bh_index(b, h, b_offset, h_offset, h_total, q.device),
+                         q_offset=q_offset).view(b, h, t, n)
         p = torch.where(keep, p, torch.zeros((), device=p.device))
         inv_keep = 1.0 / (1.0 - rate)
     acc = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
@@ -144,15 +177,18 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       key_mask: torch.Tensor, o: torch.Tensor, do: torch.Tensor,
                       rate: float = 0.0, seed: int = 0,
-                      t_hash: int | None = None):
+                      t_hash: int | None = None, b_offset: int = 0, q_offset: int = 0,
+                      h_offset: int = 0, h_total: int | None = None):
     """Plain PyTorch version of kernel B2: the TPU kernel's recompute
     backward, its ten steps written out (not through autograd), so ``dS`` is
-    not zeroed at masked keys, exactly as on the TPU. q, k, v, the forward's
-    output ``o`` and its cotangent ``do`` are ``[B, T, H, D]``; returns
+    not zeroed at masked keys, exactly as on the TPU. q, the forward's
+    output ``o`` and its cotangent ``do`` are ``[B, Tq, H, D]``, k and v
+    ``[B, Tk, H, D]`` (offsets as :func:`attention_ref`'s); returns
     ``(dq, dk, dv)`` in q's dtype, every intermediate fp32."""
     b, t, h, d = q.shape
+    t_k = k.shape[1]
     n = _live_keys(key_mask)
-    t_hash = t if t_hash is None else t_hash
+    t_hash = t_k if t_hash is None else t_hash
     k, v, key_mask = k[:, :n], v[:, :n], key_mask[:, :n]
     scale = 1.0 / math.sqrt(d)
     qs, kf, vf, dof = q.float() * scale, k.float(), v.float(), do.float()
@@ -167,7 +203,9 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # 3-4. the forward's keep mask; A = keep * p / (1 - r)
     a, inv_keep = p, 1.0
     if rate > 0.0:
-        keep = keep_mask(seed, b * h, t, n, t_hash, rate, device=q.device).view(b, h, t, n)
+        keep = keep_mask(seed, b * h, t, n, t_hash, rate, device=q.device,
+                         bh_idx=bh_index(b, h, b_offset, h_offset, h_total, q.device),
+                         q_offset=q_offset).view(b, h, t, n)
         inv_keep = 1.0 / (1.0 - rate)
         a = torch.where(keep, p, zero) * inv_keep
     # 5. dV = A^T dO
@@ -184,7 +222,7 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qs)
     # the keys past the live ones: exactly zero gradient (p = 0 there)
-    dk, dv = (F.pad(g, (0, 0, 0, 0, 0, t - n)) for g in (dk, dv))
+    dk, dv = (F.pad(g, (0, 0, 0, 0, 0, t_k - n)) for g in (dk, dv))
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
@@ -201,14 +239,14 @@ def hash_stride(t: int) -> int:
     return -(-t // 128) * 128
 
 
-_FWD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+_FWD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                  + [ctypes.c_longlong] * 9
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_uint,
-                    ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
+                    ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
                  + [ctypes.c_longlong] * 15
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_uint,
-                    ctypes.c_float, ctypes.c_void_p])
+                    ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -245,49 +283,62 @@ def _check_inputs(name: str, q, k, v, key_mask) -> None:
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name} takes bf16 or fp32 q/k/v of one dtype, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"q, k, v must share a [B, T, H, D] shape, got "
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
+            or (k.shape[0], k.shape[2:]) != (q.shape[0], q.shape[2:]):
+        raise ValueError(f"q must be [B, Tq, H, D] and k, v [B, Tk, H, D], got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, t, h, d = q.shape
     if d != 64:
         raise ValueError(f"{name} supports head_dim 64, got {d}")
-    if key_mask.shape != (b, t) or key_mask.dtype != torch.int32 \
+    if key_mask.shape != (b, k.shape[1]) or key_mask.dtype != torch.int32 \
             or not key_mask.is_contiguous():
-        raise ValueError("key_mask must be a contiguous int32 [B, T] tensor")
+        raise ValueError("key_mask must be a contiguous int32 [B, Tk] tensor")
     _check_strided(name, q, k, v)
 
 
-def _dropout_args(rate: float, seed: int, t: int, t_hash: int | None):
+def _dropout_args(rate: float, seed: int, t_k: int, t_hash: int | None, pos):
+    """The kernels' dropout arguments, then the offsets ``pos = (b_offset,
+    q_offset, h_offset, h_total)``."""
     inv_keep = 1.0 / (1.0 - rate) if rate > 0.0 else 1.0
     seed32 = ((int(seed) + 2**31) % 2**32) - 2**31  # wrap into int32
-    return (seed32, t if t_hash is None else int(t_hash), keep_threshold(rate),
-            inv_keep)
+    return (seed32, t_k if t_hash is None else int(t_hash), keep_threshold(rate),
+            inv_keep, *(int(x) for x in pos))
+
+
+def _pos(h: int, b_offset: int, q_offset: int, h_offset: int, h_total: int | None):
+    return (b_offset, q_offset, h_offset, h if h_total is None else h_total)
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         key_mask: torch.Tensor, rate: float = 0.0,
                         seed: int = 0, t_hash: int | None = None,
-                        return_lse: bool = False):
+                        return_lse: bool = False, b_offset: int = 0,
+                        q_offset: int = 0, h_offset: int = 0,
+                        h_total: int | None = None):
     """Launch kernel B1 (``csrc/flash_fwd.cu``) on CUDA tensors.
 
-    q, k, v: ``[B, T, H, D]`` bf16 or fp32 on one CUDA device, D = 64, the D
-    axis contiguous and every other stride a multiple of 8 elements (views
-    of a projection's ``[B, T, H*D]`` output qualify). ``key_mask``: int32
-    ``[B, T]`` (> 0 = valid). Returns a new contiguous ``[B, T, H, D]``, and
-    with ``return_lse`` also each row's fp32 log-sum-exp ``[B, H, T]`` of the
+    q: ``[B, Tq, H, D]``, k and v ``[B, Tk, H, D]``, bf16 or fp32 on one CUDA
+    device, D = 64, the D axis contiguous and every other stride a multiple
+    of 8 elements (views of a projection's ``[B, T, H*D]`` output qualify).
+    ``key_mask``: int32 ``[B, Tk]`` (> 0 = valid); the offsets as in the
+    module docstring. Returns a new contiguous ``[B, Tq, H, D]``, and with
+    ``return_lse`` also each row's fp32 log-sum-exp ``[B, H, Tq]`` of the
     scaled, mask-replaced scores (what kernel B2 reads). Counts each launch
     in ``flash_attention_fwd.launches`` and, by dtype name, in
     ``flash_attention_fwd.dtype_launches``."""
     _check_inputs("flash_attention_fwd", q, k, v, key_mask)
     b, t, h, d = q.shape
+    t_k = k.shape[1]
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
            if return_lse else None)
     rc = _kernel("flash_fwd", _FWD_ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(),
-        out.data_ptr(), _DTYPE_CODE[q.dtype], b, t, h, d,
+        out.data_ptr(), _DTYPE_CODE[q.dtype], b, t, t_k, h, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        1.0 / math.sqrt(d), *_dropout_args(rate, seed, t, t_hash),
+        1.0 / math.sqrt(d),
+        *_dropout_args(rate, seed, t_k, t_hash, _pos(h, b_offset, q_offset, h_offset,
+                                                      h_total)),
         None if lse is None else lse.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
@@ -304,12 +355,14 @@ flash_attention_fwd.dtype_launches = {"float32": 0, "bfloat16": 0}
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         key_mask: torch.Tensor, o: torch.Tensor,
                         do: torch.Tensor, lse: torch.Tensor, rate: float = 0.0,
-                        seed: int = 0, t_hash: int | None = None):
+                        seed: int = 0, t_hash: int | None = None, b_offset: int = 0,
+                        q_offset: int = 0, h_offset: int = 0,
+                        h_total: int | None = None):
     """Launch kernel B2 (``csrc/flash_bwd.cu``) on CUDA tensors: the
     gradients ``(dq, dk, dv)`` of B1's output ``o`` for its cotangent
-    ``do``, each a new contiguous ``[B, T, H, D]`` in q's dtype. q, k, v,
-    key_mask, rate, seed and t_hash are the forward's; ``lse`` is the
-    forward's ``return_lse`` output. Counts each call (one per layer
+    ``do``, each a new contiguous tensor of its input's shape in q's dtype.
+    q, k, v, key_mask, rate, seed, t_hash and the offsets are the forward's;
+    ``lse`` is the forward's ``return_lse`` output. Counts each call (one per layer
     backward, three CUDA launches) in ``flash_attention_bwd.launches`` and,
     by dtype name, in ``flash_attention_bwd.dtype_launches``. Two calls on
     the same inputs give bit-equal gradients in either dtype: the bf16
@@ -318,8 +371,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sums in a fixed order."""
     _check_inputs("flash_attention_bwd", q, k, v, key_mask)
     b, t, h, d = q.shape
+    t_k = k.shape[1]
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype:
-        raise ValueError("o and do must be [B, T, H, D] like q, o in q's dtype")
+        raise ValueError("o and do must be [B, Tq, H, D] like q, o in q's dtype")
     do = do.to(q.dtype)
     if not _aligned(do):
         do = do.contiguous()
@@ -333,17 +387,20 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         # tile) that orders the key tiles' adds (csrc/flash_bwd.cu)
         dq_accum = torch.empty((b * h, t, d), dtype=torch.float32, device=q.device)
         dq_sem = torch.zeros(b * h * -(-t // 64), dtype=torch.int32, device=q.device)
-    dq, dk, dv = (torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
-                  for _ in range(3))
+    dq = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    dk, dv = (torch.empty((b, t_k, h, d), dtype=q.dtype, device=q.device)
+              for _ in range(2))
     rc = _kernel("flash_bwd", _BWD_ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(),
         o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         None if dq_accum is None else dq_accum.data_ptr(),
         None if dq_sem is None else dq_sem.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype],
-        b, t, h, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        b, t, t_k, h, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *o.stride()[:3], *do.stride()[:3],
-        1.0 / math.sqrt(d), *_dropout_args(rate, seed, t, t_hash),
+        1.0 / math.sqrt(d),
+        *_dropout_args(rate, seed, t_k, t_hash, _pos(h, b_offset, q_offset, h_offset,
+                                                      h_total)),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_bwd kernel launch failed: CUDA error {rc}")
@@ -359,38 +416,44 @@ flash_attention_bwd.dtype_launches = {"float32": 0, "bfloat16": 0}
 class FlashAttention(torch.autograd.Function):
     """The JAX wrapper's ``custom_vjp``: forward B1 (saving each row's
     LSE), backward B2; on CPU tensors ``attention_ref`` and
-    ``attention_bwd_ref``. Arguments as ``multihead_attention``'s."""
+    ``attention_bwd_ref``. Arguments as ``multihead_attention``'s, the
+    offsets as one tuple ``(b_offset, q_offset, h_offset, h_total)``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, key_mask, rate, seed, t_hash):
+    def forward(ctx, q, k, v, key_mask, rate, seed, t_hash, pos):
+        kw = dict(zip(("b_offset", "q_offset", "h_offset", "h_total"), pos))
         if q.is_cuda:
             out, lse = flash_attention_fwd(q, k, v, key_mask, rate, seed, t_hash,
-                                           return_lse=True)
+                                           return_lse=True, **kw)
         else:
-            out, lse = attention_ref(q, k, v, key_mask, rate, seed, t_hash), None
+            out, lse = attention_ref(q, k, v, key_mask, rate, seed, t_hash, **kw), None
         ctx.save_for_backward(q, k, v, key_mask, out, lse)
-        ctx.dropout = (rate, seed, t_hash)
+        ctx.dropout, ctx.kw = (rate, seed, t_hash), kw
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, key_mask, out, lse = ctx.saved_tensors
         if q.is_cuda:
-            grads = flash_attention_bwd(q, k, v, key_mask, out, do, lse, *ctx.dropout)
+            grads = flash_attention_bwd(q, k, v, key_mask, out, do, lse, *ctx.dropout,
+                                        **ctx.kw)
         else:
-            grads = attention_bwd_ref(q, k, v, key_mask, out, do, *ctx.dropout)
-        return (*grads, None, None, None, None)
+            grads = attention_bwd_ref(q, k, v, key_mask, out, do, *ctx.dropout, **ctx.kw)
+        return (*grads, None, None, None, None, None)
 
 
 def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         key_mask: torch.Tensor | None = None,
                         dropout_rate: float = 0.0, seed: int = 0,
-                        t_hash: int | None = None) -> torch.Tensor:
-    """Softmax attention over ``[B, T, H, D]`` with key masking and the
-    counter-based attention dropout: the CUDA kernels for CUDA tensors, the
-    plain versions for CPU tensors. Differentiable (``FlashAttention``) when
-    q, k or v requires grad."""
-    b, t = q.shape[:2]
+                        t_hash: int | None = None, b_offset: int = 0,
+                        q_offset: int = 0, h_offset: int = 0,
+                        h_total: int | None = None) -> torch.Tensor:
+    """Softmax attention of q ``[B, Tq, H, D]`` over k, v ``[B, Tk, H, D]``
+    with key masking and the counter-based attention dropout (offsets as in
+    the module docstring): the CUDA kernels for CUDA tensors, the plain
+    versions for CPU tensors. Differentiable (``FlashAttention``) when q, k
+    or v requires grad."""
+    b, t = k.shape[:2]
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no attention implementation for device {q.device}")
     if key_mask is None:
@@ -399,9 +462,11 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         key_mask = (key_mask > 0).to(torch.int32)
     key_mask = key_mask.contiguous()
     rate = float(dropout_rate)
+    pos = (int(b_offset), int(q_offset), int(h_offset), h_total)
+    kw = dict(zip(("b_offset", "q_offset", "h_offset", "h_total"), pos))
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return FlashAttention.apply(q, k, v, key_mask, rate, int(seed), t_hash)
+        return FlashAttention.apply(q, k, v, key_mask, rate, int(seed), t_hash, pos)
     if q.is_cuda:
-        return flash_attention_fwd(q, k, v, key_mask, rate, seed, t_hash)
-    return attention_ref(q, k, v, key_mask, rate, seed, t_hash)
+        return flash_attention_fwd(q, k, v, key_mask, rate, seed, t_hash, **kw)
+    return attention_ref(q, k, v, key_mask, rate, seed, t_hash, **kw)

@@ -108,7 +108,11 @@ class FedAvgAccumulator:
         self.sum: dict[str, torch.Tensor] = {}
         self.count = 0
 
-    def add(self, client_params: StateDict) -> None:
+    def add(self, client_params: StateDict, ki: int | None = None) -> None:
+        """Add the next client's params (or client ``ki``'s: a ``client``
+        rank adds its block of the round's clients)."""
+        if ki is not None:
+            self.count = ki
         if self.count == self.k:
             raise ValueError(f"all {self.k} clients were already added")
         if self.clip_norm is not None:
@@ -131,6 +135,12 @@ class FedAvgAccumulator:
                 self.sum[k] = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
             self.sum[k] += x
         self.count += 1
+
+    def all_reduce(self, group, like: StateDict | None = None) -> None:
+        """Sum every ``client`` rank's part over ``group``; then every
+        client counts as added. ``like`` gives the shapes of sums a rank
+        with no client lacks."""
+        _all_reduce_sums(self, group, like or self.global_params, torch.float32)
 
     def result(self) -> dict[str, torch.Tensor]:
         """The aggregate of ``keys`` (fp32): the (weighted) mean, or under
@@ -176,6 +186,16 @@ def dp_fedavg(params_list: Sequence[StateDict], global_params: StateDict,
     return acc.result()
 
 
+def _all_reduce_sums(acc, group, like: StateDict, dtype: torch.dtype) -> None:
+    from . import dist as pdist
+
+    for k in acc.keys:
+        if k not in acc.sum:
+            acc.sum[k] = torch.zeros(like[k].shape, dtype=dtype, device=like[k].device)
+    pdist.flat_all_reduce_([acc.sum[k] for k in acc.keys], group)
+    acc.count = acc.k
+
+
 def _clip_scale(sq: torch.Tensor, clip_norm: float) -> torch.Tensor:
     """A client's clip multiplier ``min(1, clip / ||delta||_2)`` from the
     squared norm ``sq`` of its whole delta (the JAX ``_l2_clip_scales``)."""
@@ -198,7 +218,12 @@ class _DeltaAccumulator:
               client_params: StateDict) -> dict[str, torch.Tensor]:
         raise NotImplementedError
 
-    def add(self, client_params: StateDict) -> None:
+    sum_dtype = torch.float32
+
+    def add(self, client_params: StateDict, ki: int | None = None) -> None:
+        """Add the next client's params (or client ``ki``'s)."""
+        if ki is not None:
+            self.count = ki
         if self.count == self.k:
             raise ValueError(f"all {self.k} clients were already added")
         g = self.global_params
@@ -212,6 +237,11 @@ class _DeltaAccumulator:
             else:
                 self.sum[k] = t
         self.count += 1
+
+    def all_reduce(self, group, like: StateDict | None = None) -> None:
+        """Sum every ``client`` rank's part over ``group`` (then every
+        client counts as added)."""
+        _all_reduce_sums(self, group, like or self.global_params, self.sum_dtype)
 
     def _mean(self) -> dict[str, torch.Tensor]:
         if self.weights is not None:
@@ -237,6 +267,15 @@ class CompressedDeltaAccumulator(_DeltaAccumulator):
             raise ValueError(f"bits must be in [2, 8], got {bits}")
         super().__init__(keys, num_clients, global_params, weights)
         self.qmax, self.generator = float(2 ** (bits - 1) - 1), generator
+
+    def skip_draws(self, n: int) -> None:
+        """Advance the rounding generator past ``n`` clients' draws (a
+        ``client`` rank whose block starts at client ``n``)."""
+        if self.generator is not None:
+            for _ in range(n):
+                for k in self.keys:
+                    torch.rand(self.global_params[k].shape, generator=self.generator,
+                               device=self.global_params[k].device)
 
     def _term(self, ki, deltas, client_params):
         out = {}
@@ -281,6 +320,7 @@ class SecAggAccumulator(_DeltaAccumulator):
             raise ValueError(f"bits={bits} leaves no headroom for {num_clients} clients "
                              f"in int32 (need K * 2^(bits-1) < 2^31)")
         super().__init__(keys, num_clients, global_params)
+        self.sum_dtype = torch.int64
         self.clip_norm, self.seed = clip_norm, seed
         self.scale = clip_norm / float(2 ** (bits - 1) - 1)
         self.payloads: list[dict[str, torch.Tensor]] | None = [] if keep_payloads else None
@@ -322,7 +362,7 @@ class TopKDeltaAccumulator(_DeltaAccumulator):
     JAX ``topk_delta_fedavg``; Lin et al. 2018): per client and entry only
     the ``ceil(fraction * n)`` largest magnitudes of ``delta + residual_k``
     are sent; the rest becomes the client's new residual
-    (:attr:`residuals`, in arrival order). ``residuals``: per client a dict
+    (:attr:`residuals`, in the order the clients were added). ``residuals``: per client a dict
     over ``keys`` (None: zeros)."""
 
     def __init__(self, keys, num_clients, global_params, fraction: float,

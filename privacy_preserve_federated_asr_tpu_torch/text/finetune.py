@@ -15,7 +15,13 @@ experiments: one trainable encoder per TEXT input (``encoder_{i}``, or one
 shared ``encoder``), pooled outputs fused by concat or the attentionFuse
 cross-attention; AUDIO inputs enter as precomputed features at the head
 (``extra``). Data parallelism (``dp > 1``, a JAX mesh in the JAX package)
-is refused by name until the parallel slice.
+runs inside a process group of ``dp`` ranks (``cli text --finetune --dp``
+starts them): each rank runs the model on its block of each batch's rows,
+the logits are gathered, the loss is one device's on every rank and the
+gradients are all-reduced before the step, so ``dp`` ranks take the step
+one device takes. Evaluation and prediction run whole on every rank. With
+dropout each rank draws its rows' masks from its own generator (the same
+seed on every rank), where one device draws them for the whole batch.
 """
 
 from __future__ import annotations
@@ -126,7 +132,7 @@ class FinetuneTrainerConfig:
     batch_size: int = 8
     early_stopping_patience: int = 3
     max_length: int = 64          # static token length
-    dp: int = 1                   # data parallelism: refused until the parallel slice
+    dp: int = 1                   # data-parallel ranks (batch rows sharded)
     seed: int = 0
 
 
@@ -143,10 +149,22 @@ class FinetuneTextTrainer:
         self.cfg = cfg
         self.tok = tokenizer
         self.tcfg = tcfg or FinetuneTrainerConfig()
+        self._group = None
         if self.tcfg.dp > 1:
-            raise NotImplementedError(
-                f"text --finetune --dp {self.tcfg.dp} (data-parallel fine-tuning over a "
-                f"mesh) is not ported yet: it comes with the parallel slice")
+            import torch.distributed as dist
+
+            from ..parallel import dist as pdist
+
+            device = pdist.init_distributed(device)
+            if pdist.world_size() < self.tcfg.dp:
+                raise ValueError(f"dp={self.tcfg.dp} needs >= that many devices, have "
+                                 f"{pdist.world_size()}")
+            if pdist.world_size() != self.tcfg.dp:
+                raise ValueError(f"dp={self.tcfg.dp} takes {self.tcfg.dp} ranks, the "
+                                 f"process group has {pdist.world_size()}")
+            if self.tcfg.batch_size % self.tcfg.dp:
+                raise ValueError("dp must divide batch_size")
+            self._group = dist.group.WORLD
         assert self.tcfg.max_length <= cfg.bert.max_position_embeddings, (
             f"max_length={self.tcfg.max_length} exceeds the encoder's "
             f"max_position_embeddings={cfg.bert.max_position_embeddings}")
@@ -200,9 +218,28 @@ class FinetuneTextTrainer:
         return out
 
     def _loss(self, ids, mask, extra, y, generator) -> torch.Tensor:
-        """The training objective (shared by fit() and loss_and_grads)."""
-        return classification_loss(self.model(ids, mask, extra, generator), y,
-                                    self.cfg.regression)
+        """The training objective (shared by fit() and loss_and_grads); under
+        ``dp`` this rank's rows go through the model and the logits are
+        gathered."""
+        g = self._group
+        if g is None:
+            logits = self.model(ids, mask, extra, generator)
+        else:
+            from ..parallel import dist as pdist
+
+            n, r, b = pdist.group_size(g), pdist.group_rank(g), ids.shape[0]
+            rows = slice(r * b // n, (r + 1) * b // n)
+            logits = pdist.gather_identical(self.model(
+                ids[rows], mask[rows], None if extra is None else extra[rows], generator), g, 0)
+        return classification_loss(logits, y, self.cfg.regression)
+
+    def _sync_grads(self) -> None:
+        """Sum the ranks' partial gradients (``dp``)."""
+        if self._group is not None:
+            from ..parallel import dist as pdist
+
+            pdist.flat_all_reduce_([p.grad for p in self.model.parameters()
+                                    if p.grad is not None], self._group)
 
     # -- fit/eval ---------------------------------------------------------
     def fit(self, texts_per_input: Sequence[Sequence[str]], labels: np.ndarray,
@@ -236,6 +273,7 @@ class FinetuneTextTrainer:
                 loss = self._loss(ids_t[idx], mask_t[idx],
                                   None if extra_t is None else extra_t[idx], y_t[idx], gen)
                 loss.backward()
+                self._sync_grads()
                 opt.step()
                 losses.append(float(loss.detach()))
             row = {"epoch": epoch, "train_loss": float(np.mean(losses)) if losses else 0.0}
@@ -295,6 +333,7 @@ class FinetuneTextTrainer:
         self.model.zero_grad(set_to_none=True)
         loss = self._loss(*self._tensors(ids, mask, y, extra), gen)
         loss.backward()
+        self._sync_grads()
         grads = {k: (torch.zeros_like(p) if p.grad is None else p.grad).cpu().numpy()
                  for k, p in self.model.named_parameters()}
         self.model.zero_grad(set_to_none=True)

@@ -150,15 +150,15 @@ def main() -> None:
         if source == "flash_fwd":
             fn.argtypes = port._FWD_ARGTYPES
             args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), res[0].data_ptr(),
-                    0, BATCH, T, H, 64, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                    0.125, *port._dropout_args(0.0, 0, T, None), None, stream)
+                    0, BATCH, T, T, H, 64, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                    0.125, *port._dropout_args(0.0, 0, T, None, (0, 0, 0, H)), None, stream)
         else:
             fn.argtypes = port._BWD_ARGTYPES
             args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), o.data_ptr(),
                     do.data_ptr(), lse.data_ptr(), delta.data_ptr(), None, None,
-                    *(r.data_ptr() for r in res), 0, BATCH, T, H, 64,
+                    *(r.data_ptr() for r in res), 0, BATCH, T, T, H, 64,
                     *(x.stride()[j] for x in (q, k, v, o, do) for j in range(3)),
-                    0.125, *port._dropout_args(0.1, 5, T, th), stream)
+                    0.125, *port._dropout_args(0.1, 5, T, th, (0, 0, 0, H)), stream)
 
         def call():
             if fn(*args) != 0:

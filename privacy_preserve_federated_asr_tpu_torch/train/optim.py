@@ -18,7 +18,12 @@ leaves — on ``torch.optim.AdamW``:
     values when the optimizer is built (or the ``prox_ref`` given);
   * gradient accumulation (``grad_accum = k``, optax ``MultiSteps`` with
     ``use_grad_mean=False``): micro-gradients are summed, and the clip and
-    AdamW run once per k micro-steps on the sum.
+    AdamW run once per k micro-steps on the sum;
+  * a parallel ``layout`` (``parallel/layout.py``): the gradients are
+    summed over the ranks that hold parts of them, the clip sees the norm of
+    the whole gradient, and under ZeRO-1 (``parallel/zero.py``) AdamW runs
+    on this rank's shards, whose updates are gathered into the parameters;
+    ``state_dict`` holds the whole moments in every layout.
 
 The defaults are the reference's: AdamW, max_grad_norm 1.0, weight decay
 0.005, warmup 1000, stage LR 1e-5 / 1e-4 / 1e-3 (federated/src/update.py).
@@ -85,38 +90,75 @@ class Optimizer:
     def __init__(self, model: nn.Module, lr: Callable[[int], float],
                  weight_decay: float, max_grad_norm: float, fedprox_mu: float = 0.0,
                  prox_ref: Mapping[str, torch.Tensor] | None = None,
-                 grad_accum: int = 1):
+                 grad_accum: int = 1, layout=None):
         if grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
         skip = no_decay_names(model)
         named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
         if not named:
             raise ValueError("no trainable parameters")
+        self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
+        self.layout = layout
+        self.zero = layout.make_zero1(named) if layout is not None else None
+        # what AdamW updates: the parameters, or under ZeRO-1 this rank's
+        # shards of them (views: the update lands in the parameter)
+        self.master = (self.params if self.zero is None else
+                       [nn.Parameter(self.zero.shard(n, p.detach())) for n, p in named])
         self.fedprox_mu = fedprox_mu
-        # the FedProx anchor: trainable parameters only
-        self.prox_ref = ([(p.detach() if prox_ref is None else prox_ref[n])
-                          .to(p.device, torch.float32, copy=True) for n, p in named]
-                         if fedprox_mu else None)
+        # the FedProx anchor: trainable parameters only (their local part)
+        self.prox_ref = ([self._local(n, (p.detach() if prox_ref is None else prox_ref[n])
+                                      ).to(p.device, torch.float32, copy=True)
+                          for n, p in named] if fedprox_mu else None)
         self.grad_accum = grad_accum
         self.mini_step = 0    # micro-steps into the current accumulation
         self.acc = None       # summed micro-gradients (grad_accum > 1)
-        groups = [{"params": [p for n, p in named if n not in skip],
+        by_name = dict(zip(self.names, self.master))
+        groups = [{"params": [by_name[n] for n, _ in named if n not in skip],
                    "weight_decay": weight_decay},
-                  {"params": [p for n, p in named if n in skip], "weight_decay": 0.0}]
+                  {"params": [by_name[n] for n, _ in named if n in skip], "weight_decay": 0.0}]
         # torch's defaults are optax's: b1 0.9, b2 0.999, eps 1e-8
+        # (the fused kernel takes dense tensors: a shard along a later dim is
+        # strided, and then the foreach path runs)
         self.adamw = torch.optim.AdamW([g for g in groups if g["params"]], lr=1.0,
-                                       fused=self.params[0].is_cuda)
+                                       fused=self.params[0].is_cuda and all(
+                                           m.is_contiguous() for m in self.master))
         # base lr 1.0: the lambda gives the absolute learning rate
         self.schedule = torch.optim.lr_scheduler.LambdaLR(self.adamw, lr)
         self.max_grad_norm = max_grad_norm
+
+    def _norm(self, grads) -> torch.Tensor:
+        if self.layout is None:
+            return global_norm(grads)
+        return self.layout.grad_norm(self.names, grads, self.zero)
+
+    def _full(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """A tensor of the master's layout as the whole tensor."""
+        if self.zero is not None:
+            t = self.zero.gather(name, t)
+        return t if self.layout is None else self.layout.full(name, t)
+
+    def _local(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """A whole tensor in the master's layout."""
+        if self.layout is not None:
+            t = self.layout.local(name, t)
+        return t if self.zero is None else self.zero.shard(name, t)
 
     def step(self) -> torch.Tensor:
         for p in self.params:  # an unused trainable param: zero grad, as optax
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
-        norm = global_norm(grads)
+        if self.layout is not None:
+            self.layout.reduce_grads(self.names, grads)
+        if self.zero is not None:
+            grads = self.zero.scatter_grads(self.names, grads)
+            self.adamw.zero_grad(set_to_none=True)
+            for p in self.params:
+                p.grad = None
+            for m, g in zip(self.master, grads):
+                m.grad = g
+        norm = self._norm(grads)
         if self.grad_accum > 1:
             if self.acc is None:
                 self.acc = [g.clone() for g in grads]
@@ -124,16 +166,18 @@ class Optimizer:
                 torch._foreach_add_(self.acc, grads)
             self.mini_step += 1
             self.adamw.zero_grad(set_to_none=True)
+            for p in self.params:
+                p.grad = None
             if self.mini_step < self.grad_accum:
                 return norm
-            for p, a in zip(self.params, self.acc):
-                p.grad = a
+            for m, a in zip(self.master, self.acc):
+                m.grad = a
             grads, self.acc, self.mini_step = self.acc, None, 0
         if self.fedprox_mu:
             torch._foreach_add_(grads, torch._foreach_sub(
-                [p.detach() for p in self.params], self.prox_ref), alpha=self.fedprox_mu)
+                [m.detach() for m in self.master], self.prox_ref), alpha=self.fedprox_mu)
         # the clip sees what it is given: the summed, proximal gradient
-        clip_norm = (global_norm(grads) if self.fedprox_mu or self.grad_accum > 1
+        clip_norm = (self._norm(grads) if self.fedprox_mu or self.grad_accum > 1
                      else norm)
         scale = torch.where(clip_norm < self.max_grad_norm, torch.ones_like(clip_norm),
                             self.max_grad_norm / clip_norm)
@@ -141,25 +185,42 @@ class Optimizer:
         self.adamw.step()
         self.schedule.step()
         self.adamw.zero_grad(set_to_none=True)
+        if self.zero is not None:
+            self.zero.gather_into(self.names, self.params)
         return norm
 
     def state_dict(self) -> dict:
         """AdamW's moments, the schedule and, under accumulation, the summed
         micro-gradients and their count (a resume mid-accumulation is
-        exact, as MultiSteps' ``acc_grads`` in the JAX state)."""
-        sd = {"adamw": self.adamw.state_dict(), "schedule": self.schedule.state_dict()}
+        exact, as MultiSteps' ``acc_grads`` in the JAX state). Under a
+        layout the moments and sums are the whole tensors (collective)."""
+        adamw = self.adamw.state_dict()
+        if self.layout is not None:  # (new dicts: the packed state is the live one)
+            adamw["state"] = {i: {**st, **{k: self._full(self.names[i], st[k])
+                                           for k in ("exp_avg", "exp_avg_sq")}}
+                              for i, st in adamw["state"].items()}
+        sd = {"adamw": adamw, "schedule": self.schedule.state_dict()}
         if self.grad_accum > 1:
-            sd["accum"] = {"mini_step": self.mini_step, "acc": self.acc}
+            acc = (self.acc if self.acc is None or self.layout is None else
+                   [self._full(n, a) for n, a in zip(self.names, self.acc)])
+            sd["accum"] = {"mini_step": self.mini_step, "acc": acc}
         return sd
 
     def load_state_dict(self, sd: dict) -> None:
-        self.adamw.load_state_dict(sd["adamw"])
+        adamw = sd["adamw"]
+        if self.layout is not None:
+            adamw = {**adamw, "state": {
+                i: {**st, **{k: self._local(self.names[int(i)], st[k]).clone()
+                             for k in ("exp_avg", "exp_avg_sq")}}
+                for i, st in adamw["state"].items()}}
+        self.adamw.load_state_dict(adamw)
         self.schedule.load_state_dict(sd["schedule"])
         if self.grad_accum > 1:
             accum = sd.get("accum") or {"mini_step": 0, "acc": None}
             self.mini_step = int(accum["mini_step"])
             self.acc = (None if accum["acc"] is None else
-                        [a.to(p.device, p.dtype) for a, p in zip(accum["acc"], self.params)])
+                        [self._local(n, a).to(m.device, m.dtype).clone()
+                         for n, a, m in zip(self.names, accum["acc"], self.master)])
 
 
 def make_optimizer(model: nn.Module, stage: int,
@@ -169,7 +230,7 @@ def make_optimizer(model: nn.Module, stage: int,
                    trainable_pred: Callable[[tuple[str, ...]], bool] | None = None,
                    fedprox_mu: float = 0.0,
                    prox_ref: Mapping[str, torch.Tensor] | None = None,
-                   grad_accum: int = 1) -> Optimizer:
+                   grad_accum: int = 1, layout=None) -> Optimizer:
     """AdamW with stage freezing, decay masking and global-norm clipping.
 
     ``learning_rate``: None -> the stage's warmup/decay schedule, a float ->
@@ -177,7 +238,8 @@ def make_optimizer(model: nn.Module, stage: int,
     the update count. ``trainable_pred`` overrides the DACS stage predicate.
     ``fedprox_mu > 0`` adds the FedProx proximal term, anchored on
     ``prox_ref`` (a state dict) or on the params as they are now.
-    ``grad_accum > 1`` sums that many micro-gradients per update.
+    ``grad_accum > 1`` sums that many micro-gradients per update;
+    ``layout`` is the model's parallel layout (``parallel/layout.py``).
     Sets ``requires_grad`` on every parameter of ``model``."""
     from ..models.recipes import stage_trainable_predicate
 
@@ -189,4 +251,4 @@ def make_optimizer(model: nn.Module, stage: int,
         learning_rate = lambda count: constant  # noqa: E731
     apply_trainable(model, trainable_pred or stage_trainable_predicate(stage))
     return Optimizer(model, learning_rate, weight_decay, max_grad_norm, fedprox_mu,
-                     prox_ref, grad_accum)
+                     prox_ref, grad_accum, layout)

@@ -28,9 +28,18 @@ nothing here: in JAX it changes the compile and the parameter layout, not
 the math, and the weight bridge reads and writes that layout
 (``models/port.py``). ``cfg.backbone.dense_impl="int8_train"`` (``cli train
 --int8``) trains with W8A8 matmuls and SwitchBack gradients
-(``ops/quant.py``); the inference-only ``"int8"`` is refused. Data, tensor, pipeline and sequence parallelism
-(``dp``, ``tp``, ``pp``, ``sp``) and ``zero1`` raise ``NotImplementedError``
-until the parallel slice.
+(``ops/quant.py``); the inference-only ``"int8"`` is refused.
+
+Data, tensor, pipeline and sequence parallelism (``dp``, ``tp``, ``pp``,
+``sp``) and ``zero1`` run one rank per device (``parallel/``): the Trainer
+is built on every rank of a process group of ``dp * tp * pp * sp`` ranks
+(``cli train`` starts them), with JAX's validations and messages. Every
+rank reads the same batches; the layout (``parallel/layout.py``) shards
+their rows over ``data``, the encoder's matmuls over ``model``, its layers
+over ``pipe`` or its frames over ``seq``. The caches of frozen forwards are
+single-device paths, as in JAX. Rank 0 logs and writes checkpoints and the
+final export, each the vanilla full state (a ZeRO-1 or tensor-parallel run
+resumes at any layout); evaluation gives one device's metrics.
 """
 
 from __future__ import annotations
@@ -50,6 +59,7 @@ from ..data.tokenizer import CTCCharTokenizer
 from ..models.backbone import feat_extract_output_lengths
 from ..models.config import DACSConfig
 from ..models.recipes import get_recipe, validate_stage
+from ..parallel import dist as pdist
 from ..serving.engine import resolve_device
 from .checkpoint import STATE_FILE, CheckpointManager, load_state_dict
 from .logging import JsonlLogger, StepTimer, record_result
@@ -116,14 +126,88 @@ class TrainerConfig:
     resume_from: str | None = None  # checkpoint dir (or "auto" = latest in save_dir)
 
 
-def _check_ported(t: TrainerConfig) -> None:
-    later = {"dp": t.dp != 1, "tp": t.tp != 1, "pp": t.pp != 1, "sp": t.sp != 1,
-             "zero1": t.zero1}
-    missing = [k for k, on in later.items() if on]
-    if missing:
-        raise NotImplementedError(f"Trainer options not ported yet: {', '.join(missing)}")
+def validate_layout(cfg: DACSConfig, t: TrainerConfig) -> int:
+    """JAX's checks of a parallel configuration, with its messages; returns
+    the number of ranks it takes."""
+    if t.tp > 1:
+        from ..parallel.tp import validate_tp_divisibility
+
+        validate_tp_divisibility(cfg.backbone, t.tp)
+        if cfg.backbone.model_type == "sewd":
+            raise ValueError("tp > 1 shards the SSL encoders' attention and FFN blocks; "
+                             "the SEW-D encoder has none of them in the port")
+    if t.pp > 1:
+        from ..parallel.pp import validate_pp
+
+        if cfg.method != "dacs":
+            raise ValueError("pp > 1 is wired for the DACS model only "
+                             f"(method={cfg.method!r})")
+        if not t.scan_layers:
+            raise ValueError("pp > 1 requires scan_layers=True (the stacked [L, ...] param "
+                             "layout the pipeline shards)")
+        if t.tp > 1:
+            raise ValueError("tp x pp is not supported (Megatron sharding inside the manual "
+                             "pipe stage is a separate story); compose pp with dp")
+        mb = t.pp_microbatches or t.pp
+        validate_pp(cfg.backbone, t.pp, t.batch_size, mb)
+        validate_pp(cfg.backbone, t.pp, t.eval_batch_size, mb)
+        if t.dp > 1 and (t.batch_size // mb) % t.dp:
+            raise ValueError(
+                f"dp x pp: each microbatch ({t.batch_size}/{mb} rows) "
+                f"must divide by dp={t.dp} so its rows shard evenly")
+    if t.sp > 1:
+        if cfg.method != "dacs":
+            raise ValueError("sp > 1 is wired for the DACS model only "
+                             f"(method={cfg.method!r})")
+        if not t.scan_layers:
+            raise ValueError("sp > 1 requires scan_layers=True (the stacked [L, ...] param "
+                             "layout the sequence-parallel stack scans)")
+        if t.tp > 1 or t.pp > 1:
+            raise ValueError(f"sp composes with dp only (got tp={t.tp}, pp={t.pp})")
+    if t.zero1 and (t.dp < 2 or t.tp > 1 or t.pp > 1 or t.sp > 1):
+        raise ValueError(
+            "zero1 shards optimizer state over the 'data' axis: it "
+            f"requires dp >= 2 and tp == pp == sp == 1 (got dp="
+            f"{t.dp}, tp={t.tp}, pp={t.pp}, sp={t.sp})")
     if t.grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {t.grad_accum}")
+    if t.pp == 1 and (t.dp > 1 or t.tp > 1 or t.sp > 1) and (
+            t.batch_size % t.dp or t.eval_batch_size % t.dp):
+        raise ValueError(
+            f"batch sizes ({t.batch_size}/{t.eval_batch_size}) "
+            f"must be divisible by dp={t.dp}")
+    return t.dp * t.tp * t.pp * t.sp
+
+
+def layout_name(t: TrainerConfig) -> str:
+    """How JAX's messages name a layout: dp and its second axis."""
+    second = "pp" if t.pp > 1 else "sp" if t.sp > 1 else "tp"
+    return f"dp={t.dp} x {second}={getattr(t, second)}"
+
+
+def check_devices(t: TrainerConfig, have: int) -> None:
+    """JAX's refusal of more ranks than devices."""
+    n = t.dp * t.tp * t.pp * t.sp
+    if n > have:
+        raise ValueError(f"{layout_name(t)} needs {n} devices, have {have}")
+
+
+def _make_layout(cfg: DACSConfig, t: TrainerConfig, device: torch.device):
+    """The rank's layout over a mesh of every rank, or None on one device."""
+    n = validate_layout(cfg, t)
+    if n == 1:
+        return None
+    check_devices(t, pdist.world_size())
+    if pdist.world_size() != n:
+        raise ValueError(f"{layout_name(t)} takes {n} ranks, the process group has "
+                         f"{pdist.world_size()}")
+    from ..parallel.layout import Layout
+    from ..parallel.mesh import Mesh
+
+    second = "pipe" if t.pp > 1 else "seq" if t.sp > 1 else "model"
+    mesh = Mesh(np.arange(n).reshape(t.dp, n // t.dp), ("data", second))
+    mesh.bind("cuda" if pdist.backend_for(device) == "nccl" else "cpu")
+    return Layout(mesh, cfg, zero1=t.zero1, num_microbatches=t.pp_microbatches or t.pp)
 
 
 class Trainer:
@@ -135,7 +219,6 @@ class Trainer:
                  eval_examples: Sequence[AsrExample] | None,
                  tokenizer: CTCCharTokenizer, tcfg: TrainerConfig = TrainerConfig(),
                  device: str | torch.device = "cuda"):
-        _check_ported(tcfg)
         validate_stage(cfg)
         if cfg.backbone.dense_impl not in ("fp", "int8_train") \
                 or tcfg.compute_dtype not in _DTYPES:
@@ -146,7 +229,9 @@ class Trainer:
                 f"dense_impl={cfg.backbone.dense_impl!r} / compute_dtype="
                 f"{tcfg.compute_dtype!r}: training requires dense_impl "
                 "'fp' or 'int8_train' with compute_dtype 'float32'/'bfloat16'")
-        self.device = resolve_device(device)
+        self.device = pdist.init_distributed(resolve_device(device))
+        self.layout = _make_layout(cfg, tcfg, self.device)
+        self.lead = pdist.rank() == 0  # the rank that logs and writes
         self.cfg, self.tcfg, self.tokenizer = cfg, tcfg, tokenizer
         self.recipe = get_recipe(cfg.method)
         with torch.device("meta"):
@@ -154,9 +239,16 @@ class Trainer:
                                            tcfg.remat)
         model = model.to_empty(device=self.device)
         model.load_state_dict(state_dict, strict=True)
-        self.logger = JsonlLogger(tcfg.log_dir, tcfg.log_file)
+        model.backbone.encoder.scan_layers = tcfg.scan_layers
+        self.logger = JsonlLogger(tcfg.log_dir, tcfg.log_file if self.lead else None,
+                                  echo=self.lead)
         self.ckpt = (CheckpointManager(tcfg.save_dir, tcfg.save_total_limit)
                      if tcfg.save_dir else None)
+        resumed = self._read_resume(tcfg.resume_from) if tcfg.resume_from else None
+        if resumed is not None:
+            model.load_state_dict(resumed["model"])
+        if self.layout is not None:
+            self.layout.attach(model)
         self.train_batcher = LengthBucketBatcher(
             train_examples, tcfg.batch_size, time_multiple=tcfg.time_multiple,
             label_multiple=tcfg.label_multiple, seed=tcfg.seed,
@@ -172,7 +264,7 @@ class Trainer:
         tx = make_optimizer(model, cfg.stage, tcfg.learning_rate, tcfg.weight_decay,
                             tcfg.max_grad_norm, tcfg.warmup_steps, total_steps,
                             trainable_pred=self.recipe.trainable(cfg.stage),
-                            grad_accum=tcfg.grad_accum)
+                            grad_accum=tcfg.grad_accum, layout=self.layout)
         if tcfg.grad_accum > 1:
             # micro-gradients are SUMMED: the CTC objective is a sum over
             # rows, so k micro-batches of B rows equal one batch of k x B.
@@ -187,8 +279,8 @@ class Trainer:
                     "micro-gradients never fire an optimizer update and are "
                     "dropped at the end of train()", stacklevel=2)
         self.state = create_train_state(model, tx, tcfg.seed)
-        if tcfg.resume_from:
-            self._resume(tcfg.resume_from)
+        if resumed is not None:
+            self._apply_resume(resumed, tcfg.resume_from)
         self._train_step = make_train_step(cfg)
         self._eval_step = make_eval_step(cfg)
         self._eval_cache = None  # eval batches on the device (the eval set is static)
@@ -199,9 +291,11 @@ class Trainer:
         if (tcfg.cache_encoder or tcfg.cache_frontend) and not self.recipe.supports_cache:
             raise ValueError("frozen-forward caching is wired for the DACS model only "
                              f"(method={cfg.method!r})")
+        # the caches are single-device paths (JAX's rule)
+        single_device = self.layout is None and self.recipe.supports_cache
         self._cache_encoder = (
-            not self.recipe.backbone_trains(cfg.stage) and self.recipe.supports_cache
-            if tcfg.cache_encoder is None else tcfg.cache_encoder)
+            not self.recipe.backbone_trains(cfg.stage) and single_device
+            if tcfg.cache_encoder is None else tcfg.cache_encoder and single_device)
         self._hidden = None       # train-set encoder-output cache
         self._hidden_eval = None  # [(host Batch, HiddenBatch)] for evaluate()
         if self._cache_encoder:
@@ -220,8 +314,8 @@ class Trainer:
                 f"(feat_extract_norm='layer'); {cfg.backbone.model_type!r} uses "
                 "GroupNorm over the time axis, whose output depends on batch padding")
         self._cache_frontend = (
-            cfg.stage == 0 and self.recipe.supports_cache and frontend_cacheable
-            if tcfg.cache_frontend is None else tcfg.cache_frontend)
+            cfg.stage == 0 and single_device and frontend_cacheable
+            if tcfg.cache_frontend is None else tcfg.cache_frontend and single_device)
         if self._cache_encoder:
             self._cache_frontend = False  # the deeper cache subsumes it
         self._features = None  # train-set conv-frontend cache
@@ -312,32 +406,36 @@ class Trainer:
     # ---- checkpoints ----
 
     def _state_tree(self) -> dict:
+        """The full train state, the vanilla tensors in any layout
+        (collective)."""
         st = self.state
-        return {"step": st.step, "model": st.model.state_dict(),
-                "optimizer": st.tx.state_dict(), "rng": st.rng_state()}
+        model = (st.model.state_dict() if self.layout is None
+                 else self.layout.state_dict(st.model))
+        return {"step": st.step, "model": model, "optimizer": st.tx.state_dict(),
+                "rng": st.rng_state()}
 
-    def _resume(self, where: str) -> None:
-        """Resume the full train state (params, AdamW moments and schedule,
-        the partial gradient sum under ``grad_accum``, step, random streams)
-        from a port checkpoint, or the params alone from a final export."""
+    def _read_resume(self, where: str) -> dict | None:
+        """The checkpoint tree to resume from: a port checkpoint, or the
+        params alone from a final export (None: nothing saved yet)."""
         if where == "auto":
             assert self.ckpt is not None, "resume_from='auto' needs save_dir"
             step = self.ckpt.latest_step()
-            if step is None:
-                return
-            tree = self.ckpt.restore(step)
-        elif (Path(where) / STATE_FILE).exists():
-            tree = torch.load(Path(where) / STATE_FILE, map_location="cpu",
-                              weights_only=True)
-        else:
-            sd = load_state_dict(where)
-            if sd is None:
-                raise FileNotFoundError(f"no port checkpoint or export at {where}")
-            print(f"[resume] params-only export at {where}: optimizer state, step "
-                  "count and random streams start fresh")
-            tree = {"model": sd}
+            return None if step is None else self.ckpt.restore(step)
+        if (Path(where) / STATE_FILE).exists():
+            return torch.load(Path(where) / STATE_FILE, map_location="cpu", weights_only=True)
+        sd = load_state_dict(where)
+        if sd is None:
+            raise FileNotFoundError(f"no port checkpoint or export at {where}")
+        print(f"[resume] params-only export at {where}: optimizer state, step "
+              "count and random streams start fresh")
+        return {"model": sd}
+
+    def _apply_resume(self, tree: dict, where: str) -> None:
+        """The optimizer state (AdamW moments and schedule, the partial
+        gradient sum under ``grad_accum``), step and random streams of a
+        full checkpoint; the params are loaded before the layout shards
+        them."""
         st = self.state
-        st.model.load_state_dict(tree["model"])
         if "optimizer" in tree:
             st.tx.load_state_dict(tree["optimizer"])
             st.step = int(tree["step"])
@@ -428,14 +526,21 @@ class Trainer:
                     ev["epoch"] = epoch + 1
                     self.logger.log(ev)
                 if self.ckpt is not None and step % t.save_steps == 0:
-                    self.ckpt.save(self._state_tree(), step,
-                                   metadata={"stage": self.cfg.stage})
+                    tree = self._state_tree()
+                    if self.lead:
+                        self.ckpt.save(tree, step, metadata={"stage": self.cfg.stage})
         summary = timer.summary()
         summary["step"] = step
         self.logger.log(summary)
         if self.ckpt is not None:
-            self.ckpt.save_final(self.state.model.state_dict(),
-                                 metadata={"stage": self.cfg.stage})
-        if t.save_dir is not None:
+            sd = self.full_state_dict()
+            if self.lead:
+                self.ckpt.save_final(sd, metadata={"stage": self.cfg.stage})
+        if t.save_dir is not None and self.lead:
             record_result(self.logger.history, t.save_dir)
         return self.state
+
+    def full_state_dict(self) -> dict[str, torch.Tensor]:
+        """The model's vanilla state dict in any layout (collective)."""
+        model = self.state.model
+        return model.state_dict() if self.layout is None else self.layout.state_dict(model)

@@ -9,7 +9,7 @@
     the JAX package's.
 
 The JAX module's ``enable_tpu_fast_rng`` (switch JAX's PRNG to the TPU's
-hardware RBG) has no meaning in torch and is not ported.
+hardware RBG) has no meaning in torch and has no counterpart here.
 """
 
 from __future__ import annotations

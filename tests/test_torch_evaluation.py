@@ -475,26 +475,33 @@ TINY_CPU = ["--model_type", "tiny", "--device", "cpu"]
 
 
 @pytest.mark.parametrize("call", [
-    dict(mesh=object()),
+    dict(mesh=(1, 2), batch_size=3),
     ["text", "--finetune", "--dp", "2", "--train_pkl", "a.pkl", "--test_pkl", "b.pkl",
      "--device", "cpu"],
     dict(sp=2),
     ["extract", "--dp", "2", *TINY_CPU],
     ["federated", "--fl_zero1", *TINY_CPU],
-    dict(tp=2), ["federated", "--client_mesh", "2", *TINY_CPU],
-    ["federated", "--data_mesh", "2", *TINY_CPU]])
+    dict(tp=2, pp=2, scan_layers=True), ["federated", "--client_mesh", "2", *TINY_CPU],
+    dict(dp=1, zero1=True)])
 def test_options_not_ported_raise(call):
-    """Options of the parallel slice raise by name, before any data is read:
-    data-parallel extraction and text fine-tuning, tensor and sequence
-    parallelism in the Trainer, ZeRO-1 and the meshes of the federated
-    engine."""
+    """The parallel options run (tests/test_torch_parallel.py); invalid
+    layouts raise JAX's ValueError before any data is read: a batch that
+    does not divide over extraction's data axis, sp without scan_layers,
+    tp x pp, zero1 with dp=1 and --fl_zero1 without a data axis; and, in one
+    process, data-parallel extraction and text fine-tuning and the client
+    mesh need devices this process does not have."""
+    from privacy_preserve_federated_asr_tpu_torch.parallel import Mesh
     from privacy_preserve_federated_asr_tpu_torch.train import Trainer, TrainerConfig
 
     cfg = DACSConfig(backbone=BackboneConfig.tiny_for_tests(), stage=2)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    match = ("must divide over the data axis|needs (>= that many|2) devices, have 1|"
+             "requires scan_layers|tp x pp is not supported|zero1 shards|'data' mesh axis")
+    with pytest.raises(ValueError, match=match):
         if isinstance(call, list):
             cli.main(call)
-        elif "tp" in call or "sp" in call:
-            Trainer(cfg, {}, [], None, TOK, TrainerConfig(**call), device="cpu")
+        elif "mesh" in call:
+            mesh = Mesh(np.arange(2).reshape(call["mesh"]), ("client", "data"))
+            ev.extract_embeddings(cfg, {}, [], TOK, device="cpu",
+                                  **{**call, "mesh": mesh})
         else:
-            ev.extract_embeddings(cfg, {}, [], TOK, device="cpu", **call)
+            Trainer(cfg, {}, [], None, TOK, TrainerConfig(**call), device="cpu")

@@ -156,10 +156,16 @@ ROUND = dict(batch_size=4)
 
 
 @pytest.fixture(scope="module", params=[0, 1])
-def jax_round(request, jax_init):
+def jax_round(request):
     """One JAX engine round at stage 0 (full forwards) or 1 (cached encoder)."""
-    stage = request.param
-    return stage, _run_jax(_jax_engine(jax_init, stage, **ROUND), stage)
+    return request.param, _jax_round(request.param)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_round(stage):
+    """The round of ``jax_round``, once per process (test_torch_parallel.py
+    holds the port's meshes to it too)."""
+    return _run_jax(_jax_engine(_jax_init(), stage, **ROUND), stage)
 
 
 def _leaves(tree, path=()):
@@ -641,14 +647,24 @@ def test_default_device_without_gpu_raises(monkeypatch):
     dict(mesh=(2, 1, 1)), dict(zero1=True), dict(tp=True), dict(mesh=(1, 2, 1), remat=True),
     dict(zero1=True, fedprox_mu=0.01), dict(tp=True, server_optimizer="adam"),
     ["--client_mesh", "2"], ["--data_mesh", "2"], ["--model_mesh", "2"],
-    ["--fl_zero1"], ["--num_lms", "2", "--num_slices", "2"]])
+    ["--fl_zero1"], ["--client_mesh", "2", "--num_lms", "2", "--num_slices", "2"]])
 def test_options_not_ported_raise(option):
-    """The meshes, zero1 and tp stay refused by name (the parallel slice),
-    alone, beside options that run (remat, FedProx, FedOpt), and from the CLI."""
-    with pytest.raises(NotImplementedError, match="not ported yet: (mesh|zero1|tp)"):
+    """The meshes, zero1 and tp run one rank per device
+    (tests/test_torch_parallel.py). In one process each is refused with JAX's
+    ValueError, alone, beside options that run (remat, FedProx, FedOpt) and
+    from the CLI: zero1 without a data axis, tp without a model axis, and a
+    mesh of more devices (or slices) than the one this process has."""
+    from privacy_preserve_federated_asr_tpu_torch.parallel import make_mesh
+
+    match = ("needs 2 devices, have 1|do not split into 2 slices|zero1 shards per-client "
+             "Adam moments over the 'data' mesh axis|tp Megatron-shards each client's")
+    with pytest.raises(ValueError, match=match):
         if isinstance(option, list):
             cli.main(CLI + option)
         else:
+            if "mesh" in option:
+                option = {**option, "mesh": make_mesh(*option["mesh"][:2],
+                                                      model=option["mesh"][2])}
             FederatedConfig(**option)
 
 

@@ -223,8 +223,9 @@ def test_finetune_step_and_gradients():
     3 frozen extra features at dropout 0, the port's init carried to JAX
     (its ``port_hf_bert`` for the towers): ``loss_and_grads``, the loss and
     every gradient within 1e-5 (the fit's AdamW and schedule are held by
-    the TextTrainer test and ``cli text --finetune``); ``dp=2`` refused by
-    name."""
+    the TextTrainer test and ``cli text --finetune``); ``dp=2`` in one
+    process refused with JAX's message (on two ranks it takes this step:
+    tests/test_torch_parallel.py)."""
     cfg = jft.FinetuneConfig(bert=_bert_cfg(), num_text_inputs=2, extra_dim=3,
                              fusion="cross_attention", align_dim=8)
     tcfg = dict(max_length=12, seed=1)
@@ -247,7 +248,9 @@ def test_finetune_step_and_gradients():
     for k, g in got_grads.items():
         np.testing.assert_allclose(g, want_grads[k].numpy(), atol=ATOL, err_msg=k)
     assert pt.encoder_param_norm_delta(sd) == 0.0
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    # dp=2 runs on two ranks (tests/test_torch_parallel.py holds it to this
+    # step); in one process it needs the devices it does not have, as in JAX
+    with pytest.raises(ValueError, match="dp=2 needs >= that many devices, have 1"):
         pft.FinetuneTextTrainer(pt.cfg, pt.tok, pft.FinetuneTrainerConfig(dp=2), device="cpu")
 
 

@@ -385,12 +385,23 @@ def test_trainer_full_forward_recipes(method, stage):
                                     dict(tp=2, remat=True), dict(dp=2, grad_accum=2),
                                     dict(sp=2, scan_layers=True), dict(zero1=True, prefetch=2)])
 def test_options_not_ported_raise(option):
-    """The parallel options stay refused by name, alone or beside the
-    options that run (scan_layers, remat, grad_accum, prefetch)."""
+    """The parallel options run one rank per device (tests/test_torch_parallel.py);
+    in one process each is refused with JAX's message, alone or beside the
+    options that run (scan_layers, remat, grad_accum, prefetch): a layout
+    JAX refuses (pp/sp without scan_layers, zero1 without dp >= 2), or a
+    valid one that needs more devices than the one this process has."""
     cfg = DACSConfig(backbone=BackboneConfig.tiny_for_tests(), stage=0)
-    refused = next(k for k in ("dp", "tp", "pp", "sp", "zero1") if k in option)
-    with pytest.raises(NotImplementedError, match=f"not ported yet: {refused}"):
-        Trainer(cfg, {}, [], None, CTCCharTokenizer(), TrainerConfig(**option), device="cpu")
+    t = TrainerConfig(**option)
+    if t.zero1:
+        match = "zero1 shards optimizer state over the 'data' axis: it requires dp >= 2"
+    elif (t.pp > 1 or t.sp > 1) and not t.scan_layers:
+        match = f"{'pp' if t.pp > 1 else 'sp'} > 1 requires scan_layers=True"
+    else:
+        second = "tp" if t.pp == t.sp == 1 else "pp" if t.pp > 1 else "sp"
+        n = t.dp * t.tp * t.pp * t.sp
+        match = f"dp={t.dp} x {second}={getattr(t, second)} needs {n} devices, have 1"
+    with pytest.raises(ValueError, match=match):
+        Trainer(cfg, {}, [], None, CTCCharTokenizer(), t, device="cpu")
 
 
 def _write_corpus(root, n_train=4, n_test=2):

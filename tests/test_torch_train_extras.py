@@ -8,6 +8,7 @@ dropouts 0 where JAX is compared; every tolerance is stated at its
 assert."""
 
 import dataclasses
+import functools
 import threading
 
 import numpy as np
@@ -39,6 +40,7 @@ from test_torch_federated import (  # noqa: F401
     _assert_params_match,
     _cfg,
     _examples,
+    _jax_init,
     _jax_tok,
     _leaves,
     jax_init,
@@ -52,9 +54,31 @@ def _uniform(n, seed, **kw):
             for e in _examples(n, seed, **kw)]
 
 
-TCFG = dict(num_epochs=1, batch_size=2, learning_rate=LR, time_multiple=3200,
+TCFG = dict(num_epochs=1, batch_size=4, learning_rate=LR, time_multiple=3200,
             logging_steps=1, log_dir=".", scan_layers=True, remat=True, grad_accum=2,
             prefetch=2, cache_frontend=False)
+N_TRAIN = 15  # 4 micro-batches of 4, the last padded with a weight-0 row
+
+
+@functools.lru_cache(maxsize=None)
+def jax_trainer_run():
+    """The JAX Trainer's run of ``TCFG`` on ``_uniform(N_TRAIN, 2)`` from
+    the shared JAX init: its step count, final params (the scan layout) and
+    log rows, once per process (test_torch_parallel.py holds the port's
+    parallel layouts to it too)."""
+    import jax
+    from privacy_preserve_federated_asr_tpu.data.dataset import AsrExample as JEx
+    from privacy_preserve_federated_asr_tpu.train.trainer import (
+        Trainer as JTrainer,
+        TrainerConfig as JTrainerConfig,
+    )
+
+    jcfg, params = _jax_init()
+    jtr = JTrainer(jcfg, params, _uniform(N_TRAIN, 2, cls=JEx), None, _jax_tok(),
+                   JTrainerConfig(**TCFG))
+    state = jtr.train()
+    return (int(state.step), jax.device_get(state.params),
+            [r for r in jtr.logger.history if "loss" in r])
 
 
 @pytest.fixture
@@ -67,31 +91,22 @@ def no_tensorboard(monkeypatch):
 
 
 def test_trainer_matches_jax_scan_remat_accum_prefetch(jax_init, tmp_path, no_tensorboard):
-    """Stage 0 from waveforms (the prefetched path), 4 micro-batches of 2 =
-    2 AdamW updates, the JAX Trainer with ``scan_layers`` (its params
-    stacked, read back through the bridge), ``remat``, ``grad_accum`` 2 and
-    ``prefetch`` 2 against the port's with the same flags: the trainable
-    params by ``_assert_params_match``'s rule (99.5% of elements within 1e-2
-    lr), the frozen ones bit-equal; the micro-step losses rtol 1e-4. Then a
-    resume from the checkpoint after micro-step 3 (mid-accumulation, the
-    partial sum in it) ends bit-equal to the run that did not stop."""
-    import jax
-    from privacy_preserve_federated_asr_tpu.data.dataset import AsrExample as JEx
-    from privacy_preserve_federated_asr_tpu.train.trainer import (
-        Trainer as JTrainer,
-        TrainerConfig as JTrainerConfig,
-    )
-
-    jcfg, params = jax_init
-    jtr = JTrainer(jcfg, params, _uniform(8, 2, cls=JEx), None, _jax_tok(),
-                   JTrainerConfig(**TCFG))
-    jstate = jtr.train()
-    assert int(jstate.step) == 4
-    want = jax.device_get(jstate.params)
+    """Stage 0 from waveforms (the prefetched path), 4 micro-batches of 4
+    (the last padded with a weight-0 row) = 2 AdamW updates, the JAX Trainer
+    with ``scan_layers`` (its params stacked, read back through the bridge),
+    ``remat``, ``grad_accum`` 2 and ``prefetch`` 2 against the port's with
+    the same flags: the trainable params by ``_assert_params_match``'s rule
+    (99.5% of elements within 1e-2 lr), the frozen ones bit-equal; the
+    micro-step losses rtol 1e-4. Then a resume from the checkpoint after
+    micro-step 3 (mid-accumulation, the partial sum in it) ends bit-equal to
+    the run that did not stop."""
+    _, params = jax_init
+    step, want, jrows = jax_trainer_run()
+    assert step == 4
     assert "layers_scan" in want["backbone"]["encoder"]
 
     cfg = _cfg()
-    tr = Trainer(cfg, state_dict_from_flax(params, cfg), _uniform(8, 2), None, TOK,
+    tr = Trainer(cfg, state_dict_from_flax(params, cfg), _uniform(N_TRAIN, 2), None, TOK,
                  TrainerConfig(**TCFG, save_dir=str(tmp_path / "m"), save_steps=3),
                  device="cpu")
     assert tr.state.model.backbone.encoder.remat
@@ -101,11 +116,11 @@ def test_trainer_matches_jax_scan_remat_accum_prefetch(jax_init, tmp_path, no_te
     scan_got = flax_from_state_dict(got, scan_layers=True)
     assert sorted(p for p, _ in _leaves(scan_got)) == sorted(p for p, _ in _leaves(want))
     _assert_params_match(got, flax_from_port_layout(want), ("backbone", "lm_head"))
-    jl = [r["loss"] for r in jtr.logger.history if "loss" in r]
+    jl = [r["loss"] for r in jrows]
     pl = [r["loss"] for r in tr.logger.history if "loss" in r]
     np.testing.assert_allclose(pl, jl, rtol=1e-4)
 
-    resumed = Trainer(cfg, state_dict_from_flax(params, cfg), _uniform(8, 2), None, TOK,
+    resumed = Trainer(cfg, state_dict_from_flax(params, cfg), _uniform(N_TRAIN, 2), None, TOK,
                       TrainerConfig(**TCFG, resume_from=str(tmp_path / "m/checkpoint-3")),
                       device="cpu")
     assert resumed.state.step == 3 and resumed.state.tx.mini_step == 1

@@ -277,14 +277,17 @@ def _json_out(main, args) -> dict:
     return json.loads(out.getvalue())
 
 
-def test_cli_teacher_whisper_matches_jax(tmp_path, monkeypatch):
+def test_cli_teacher_whisper_matches_jax(tmp_path, monkeypatch, teachers):
     """``cli teacher --whisper_hf <dir>`` (HF_CFG as config.json, the
     weights above as pytorch_model.bin, the tokenizer files above) on 2
     WAVs of 0.5 and 1.5 windows, with the CLI's defaults (timestamps and the
     seek, the six-temperature fallback, which the random model never
     passes, conditioning): the JAX CLI (transformers' tokenizer) writes the
     same JSON and CSV. Temperatures above 0 sample in each package from its
-    own generator, so the run holds the fallback at temperature 0."""
+    own generator, so the run holds the fallback at temperature 0. The JAX
+    CLI's teacher runs the decode programs the module's JAX teachers traced
+    (the same config, dtype and timestamp settings: the programs take the
+    params as an argument)."""
     pytest.importorskip("transformers")
     from privacy_preserve_federated_asr_tpu import cli as jax_cli
     from privacy_preserve_federated_asr_tpu.data import teacher as jt
@@ -309,6 +312,15 @@ def test_cli_teacher_whisper_matches_jax(tmp_path, monkeypatch):
     for mod in (jt, pt):   # the CLI's defaults, every temperature at 0
         monkeypatch.setattr(mod.WhisperTeacher.__init__, "__defaults__", tuple(
             zero if isinstance(v, tuple) else v for v in mod.WhisperTeacher.__init__.__defaults__))
+    jax_init = jt.WhisperTeacher.__init__
+
+    def shared_programs(self, cfg, *a, **kw):
+        jax_init(self, cfg, *a, **kw)
+        own = teachers[self.timestamps][0]
+        assert (cfg, self.max_initial_timestamp) == (own.cfg, own.max_initial_timestamp)
+        self._run, self._run_cond = own._run, own._run_cond
+
+    monkeypatch.setattr(jt.WhisperTeacher, "__init__", shared_programs)
     args = ["teacher", "--model_type", "tiny", "--audio_dir", "clips", "--train_csv", "u.csv",
             "--spk2label", "spk.npy", "--dataset_cache", "cache", "--eval_batch_size", "2",
             "--whisper_hf", str(d)]
