@@ -19,6 +19,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import span
+
 LOG_EPSILON = -1e5
 
 
@@ -128,19 +130,21 @@ class _CTCNLL(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        emit, alphas, log_z, onehot, valid_s, can_skip, final_ind, len_f = ctx.saved_tensors
-        neg = LOG_EPSILON
-        betas = _betas(emit, valid_s, can_skip, final_ind, len_f)
-        # posterior; gamma <= 0 mathematically, clamped before exp so an
-        # infeasible row (log_z ~ neg) cannot overflow
-        gamma = alphas + betas - log_z[None, :, None]
-        dnll = -torch.exp(gamma.clamp(2.0 * neg, 0.0))
-        feasible = (log_z > 0.5 * neg).float()[None, :, None]
-        t_max = emit.shape[1]
-        tm = (torch.arange(t_max, device=emit.device)[:, None] < len_f[None, :]).float()
-        dnll = dnll * feasible * tm[:, :, None]
-        dlp = torch.einsum("tbs,bsv->btv", dnll, onehot) * g[:, None, None]
-        return dlp, None, None, None, None, None
+        with span("dacs.ctc.backward"):
+            emit, alphas, log_z, onehot, valid_s, can_skip, final_ind, len_f = \
+                ctx.saved_tensors
+            neg = LOG_EPSILON
+            betas = _betas(emit, valid_s, can_skip, final_ind, len_f)
+            # posterior; gamma <= 0 mathematically, clamped before exp so an
+            # infeasible row (log_z ~ neg) cannot overflow
+            gamma = alphas + betas - log_z[None, :, None]
+            dnll = -torch.exp(gamma.clamp(2.0 * neg, 0.0))
+            feasible = (log_z > 0.5 * neg).float()[None, :, None]
+            t_max = emit.shape[1]
+            tm = (torch.arange(t_max, device=emit.device)[:, None] < len_f[None, :]).float()
+            dnll = dnll * feasible * tm[:, :, None]
+            dlp = torch.einsum("tbs,bsv->btv", dnll, onehot) * g[:, None, None]
+            return dlp, None, None, None, None, None
 
 
 def ctc_loss(log_probs: torch.Tensor, labels: torch.Tensor,
@@ -152,15 +156,16 @@ def ctc_loss(log_probs: torch.Tensor, labels: torch.Tensor,
     label length (clamped to 1) before averaging, like torch;
     ``zero_infinity`` zeros the loss of impossible alignments (target longer
     than the input), otherwise they are ``inf``."""
-    structure = _ctc_structure(labels, label_lengths, blank_id, log_probs.shape[-1])
-    nll = _CTCNLL.apply(log_probs, *structure, input_lengths.float())
-    infeasible = nll > 0.5 * -LOG_EPSILON  # impossible alignments sit at ~|LOG_EPSILON|
-    fill = 0.0 if zero_infinity else float("inf")
-    nll = torch.where(infeasible, torch.full_like(nll, fill), nll)
-    if reduction == "none":
-        return nll
-    if reduction == "sum":
-        return nll.sum()
-    if reduction == "mean":
-        return (nll / label_lengths.clamp_min(1).to(nll.dtype)).mean()
-    raise ValueError(f"unknown reduction: {reduction!r}")
+    with span("dacs.ctc.forward"):
+        structure = _ctc_structure(labels, label_lengths, blank_id, log_probs.shape[-1])
+        nll = _CTCNLL.apply(log_probs, *structure, input_lengths.float())
+        infeasible = nll > 0.5 * -LOG_EPSILON  # impossible alignments sit at ~|LOG_EPSILON|
+        fill = 0.0 if zero_infinity else float("inf")
+        nll = torch.where(infeasible, torch.full_like(nll, fill), nll)
+        if reduction == "none":
+            return nll
+        if reduction == "sum":
+            return nll.sum()
+        if reduction == "mean":
+            return (nll / label_lengths.clamp_min(1).to(nll.dtype)).mean()
+        raise ValueError(f"unknown reduction: {reduction!r}")

@@ -89,7 +89,9 @@ def _pyval(v):
 
 class StepTimer:
     """Wall-clock per-step timing for throughput reporting (the reference
-    relies on HF's train_runtime/train_samples_per_second summary rows)."""
+    relies on HF's train_runtime/train_samples_per_second summary rows).
+    The caller synchronises the device before :meth:`summary`, so that it
+    times finished work and not the enqueue."""
 
     def __init__(self):
         self.t0 = time.perf_counter()

@@ -3,7 +3,9 @@
 Each ``make_*`` returns a step function over a :class:`DACSTrainState` (the
 JAX steps are pure functions of (state, batch); here the state is updated in
 place) that returns the JAX step's metrics dict, ``grad_norm`` included, as
-device scalars: nothing in a step waits for the card.
+device scalars: nothing in a step waits for the card. Each train step
+opens the spans ``dacs.train.step``, ``.forward``, ``.loss``,
+``.backward`` and ``.optim`` (``utils/profiling.py``).
 
 Stage routing is the recipe's: the loss, the trainable parameters (set on
 the model by ``make_optimizer``) and the modes, ``model.train()`` with the
@@ -13,6 +15,7 @@ reference's ``.eval()`` on frozen modules).
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Callable
 
@@ -24,6 +27,7 @@ from ..models.config import DACSConfig
 from ..models.dacs import DACSModel
 from ..models.recipes import Recipe, get_recipe
 from ..ops.decode import ad_vote, greedy_ids
+from ..utils.profiling import span
 from .train_state import DACSTrainState
 
 
@@ -65,9 +69,17 @@ def set_train_modes(model: DACSModel, recipe: Recipe, stage: int) -> None:
         model.backbone.eval()
 
 
+def _step_span(open_span: bool):
+    """The step's ``dacs.train.step`` span, or none where the caller opens
+    it (around its cache gather)."""
+    return span("dacs.train.step") if open_span else contextlib.nullcontext()
+
+
 def _apply_update(state: DACSTrainState, loss: torch.Tensor, metrics: dict) -> dict:
-    loss.backward()
-    grad_norm = state.tx.step()
+    with span("dacs.train.backward"):
+        loss.backward()
+    with span("dacs.train.optim"):
+        grad_norm = state.tx.step()
     state.step += 1
     metrics = {k: v.detach() for k, v in metrics.items()}
     metrics["grad_norm"] = grad_norm
@@ -82,14 +94,17 @@ def make_train_step(cfg: DACSConfig, aux_metrics: bool = False,
     need_masks = aux_metrics or recipe.uses_masks(cfg.stage)
 
     def train_step(state: DACSTrainState, batch: DeviceBatch) -> dict:
-        model = state.model
-        set_train_modes(model, recipe, cfg.stage)
-        out = model(batch.input_values, batch.input_lengths, generator=state.gumbel,
-                    seed_generator=state.seeds, need_masks=need_masks)
-        loss, metrics = recipe.loss(out, batch.labels, batch.label_lengths,
-                                    batch.dementia_labels, cfg, model,
-                                    batch.sample_mask, aux_metrics)
-        return _apply_update(state, loss, metrics)
+        with span("dacs.train.step"):
+            model = state.model
+            set_train_modes(model, recipe, cfg.stage)
+            with span("dacs.train.forward"):
+                out = model(batch.input_values, batch.input_lengths, generator=state.gumbel,
+                            seed_generator=state.seeds, need_masks=need_masks)
+            with span("dacs.train.loss"):
+                loss, metrics = recipe.loss(out, batch.labels, batch.label_lengths,
+                                            batch.dementia_labels, cfg, model,
+                                            batch.sample_mask, aux_metrics)
+            return _apply_update(state, loss, metrics)
 
     return train_step
 
@@ -177,27 +192,31 @@ def gather_features(feats, fl, labels, label_lengths, dementia_labels,
 
 
 def make_feature_train_step(cfg: DACSConfig, aux_metrics: bool = False,
-                            recipe: Recipe | None = None
+                            recipe: Recipe | None = None, step_span: bool = True
                             ) -> Callable[[DACSTrainState, FeatureBatch], dict]:
     """Stage-0 train step over cached conv-frontend outputs
     (``DACSModel.apply_from_features``). Everything stochastic (feat-proj
     dropout, SpecAugment, encoder dropouts, final dropout, Gumbel) sits
-    after the cache point and stays live."""
+    after the cache point and stays live. ``step_span=False``: the caller
+    opens ``dacs.train.step`` itself, around its gather and this step."""
     recipe = recipe or get_recipe(cfg.method)
     need_masks = aux_metrics or recipe.uses_masks(cfg.stage)
 
     def train_step(state: DACSTrainState, batch: FeatureBatch) -> dict:
-        model = state.model
-        set_train_modes(model, recipe, cfg.stage)
-        frame_mask = _frame_mask(batch.frame_lengths, batch.features.shape[1])
-        out = model.apply_from_features(batch.features, frame_mask, batch.frame_lengths,
-                                        generator=state.gumbel,
-                                        seed_generator=state.seeds,
-                                        need_masks=need_masks)
-        loss, metrics = recipe.loss(out, batch.labels, batch.label_lengths,
-                                    batch.dementia_labels, cfg, model,
-                                    batch.sample_mask, aux_metrics)
-        return _apply_update(state, loss, metrics)
+        with _step_span(step_span):
+            model = state.model
+            set_train_modes(model, recipe, cfg.stage)
+            frame_mask = _frame_mask(batch.frame_lengths, batch.features.shape[1])
+            with span("dacs.train.forward"):
+                out = model.apply_from_features(batch.features, frame_mask,
+                                                batch.frame_lengths, generator=state.gumbel,
+                                                seed_generator=state.seeds,
+                                                need_masks=need_masks)
+            with span("dacs.train.loss"):
+                loss, metrics = recipe.loss(out, batch.labels, batch.label_lengths,
+                                            batch.dementia_labels, cfg, model,
+                                            batch.sample_mask, aux_metrics)
+            return _apply_update(state, loss, metrics)
 
     return train_step
 
@@ -208,7 +227,7 @@ def _frame_mask(frame_lengths: torch.Tensor, t: int) -> torch.Tensor:
 
 
 def make_hidden_train_step(cfg: DACSConfig, aux_metrics: bool = False,
-                           recipe: Recipe | None = None
+                           recipe: Recipe | None = None, step_span: bool = True
                            ) -> Callable[[DACSTrainState, HiddenBatch], dict]:
     """Train step over cached encoder outputs (``DACSModel.apply_heads``).
 
@@ -216,22 +235,25 @@ def make_hidden_train_step(cfg: DACSConfig, aux_metrics: bool = False,
     stage-1/2 semantics: the reference freezes the encoder and calls
     ``.eval()`` on it), so ``backbone(x)`` is a constant per utterance. The
     final dropout and the Gumbel noise stay live per step (they sit after
-    the cache point)."""
+    the cache point). ``step_span`` as in :func:`make_feature_train_step`."""
     recipe = recipe or get_recipe(cfg.method)
     assert not recipe.backbone_trains(cfg.stage), \
         "cached-encoder training needs a frozen backbone"
     need_masks = aux_metrics or recipe.uses_masks(cfg.stage)
 
     def train_step(state: DACSTrainState, batch: HiddenBatch) -> dict:
-        model = state.model
-        set_train_modes(model, recipe, cfg.stage)
-        fm = _frame_mask(batch.frame_lengths, batch.hidden_states.shape[1])
-        out = model.apply_heads(batch.hidden_states, fm, batch.frame_lengths,
-                                generator=state.gumbel, need_masks=need_masks)
-        loss, metrics = recipe.loss(out, batch.labels, batch.label_lengths,
-                                    batch.dementia_labels, cfg, model,
-                                    batch.sample_mask, aux_metrics)
-        return _apply_update(state, loss, metrics)
+        with _step_span(step_span):
+            model = state.model
+            set_train_modes(model, recipe, cfg.stage)
+            fm = _frame_mask(batch.frame_lengths, batch.hidden_states.shape[1])
+            with span("dacs.train.forward"):
+                out = model.apply_heads(batch.hidden_states, fm, batch.frame_lengths,
+                                        generator=state.gumbel, need_masks=need_masks)
+            with span("dacs.train.loss"):
+                loss, metrics = recipe.loss(out, batch.labels, batch.label_lengths,
+                                            batch.dementia_labels, cfg, model,
+                                            batch.sample_mask, aux_metrics)
+            return _apply_update(state, loss, metrics)
 
     return train_step
 
@@ -253,14 +275,18 @@ def make_multitask_train_step(cfg: DACSConfig, aux_metrics: bool = False
 
     def train_step(state: DACSTrainState, batch: DeviceBatch,
                    labels_stack: torch.Tensor, label_lengths_stack: torch.Tensor) -> dict:
-        model = state.model
-        set_train_modes(model, recipe, cfg.stage)
-        out = model(batch.input_values, batch.input_lengths, generator=state.gumbel,
-                    seed_generator=state.seeds, need_masks=need_masks)
-        loss, metrics = multitask_loss(out, labels_stack, label_lengths_stack,
-                                       batch.dementia_labels, cfg, model.similar_fc.weight,
-                                       batch.sample_mask, aux_metrics)
-        return _apply_update(state, loss, metrics)
+        with span("dacs.train.step"):
+            model = state.model
+            set_train_modes(model, recipe, cfg.stage)
+            with span("dacs.train.forward"):
+                out = model(batch.input_values, batch.input_lengths, generator=state.gumbel,
+                            seed_generator=state.seeds, need_masks=need_masks)
+            with span("dacs.train.loss"):
+                loss, metrics = multitask_loss(out, labels_stack, label_lengths_stack,
+                                               batch.dementia_labels, cfg,
+                                               model.similar_fc.weight, batch.sample_mask,
+                                               aux_metrics)
+            return _apply_update(state, loss, metrics)
 
     return train_step
 

@@ -61,6 +61,7 @@ from ..models.config import DACSConfig
 from ..models.recipes import get_recipe, validate_stage
 from ..parallel import dist as pdist
 from ..serving.engine import resolve_device
+from ..utils.profiling import span
 from .checkpoint import STATE_FILE, CheckpointManager, load_state_dict
 from .logging import JsonlLogger, StepTimer, record_result
 from .metrics import wer
@@ -299,9 +300,15 @@ class Trainer:
         self._hidden = None       # train-set encoder-output cache
         self._hidden_eval = None  # [(host Batch, HiddenBatch)] for evaluate()
         if self._cache_encoder:
-            hstep = make_hidden_train_step(cfg)
-            self._hidden_step = lambda state, h, fl, lab, ll, dem, idx: hstep(
-                state, gather_hidden(h, fl, lab, ll, dem, idx))
+            hstep = make_hidden_train_step(cfg, step_span=False)
+
+            def hidden_step(state, h, fl, lab, ll, dem, idx):
+                with span("dacs.train.step"):
+                    with span("dacs.train.gather"):
+                        hb = gather_hidden(h, fl, lab, ll, dem, idx)
+                    return hstep(state, hb)
+
+            self._hidden_step = hidden_step
             self._hidden_eval_step = make_hidden_eval_step(cfg)
             self._encoder_fwd = backbone_forward_fn(self.state.model)
         # the frontend cache's "same value at any batch padding" invariant
@@ -320,14 +327,16 @@ class Trainer:
             self._cache_frontend = False  # the deeper cache subsumes it
         self._features = None  # train-set conv-frontend cache
         if self._cache_frontend:
-            fstep = make_feature_train_step(cfg)
+            fstep = make_feature_train_step(cfg, step_span=False)
 
             def feature_step(state, f, fl, lab, ll, dem, idx, t_b: int):
-                fb = gather_features(f, fl, lab, ll, dem, idx)
-                # crop the rows to the batch's bucket length: the encoder
-                # runs at the full-forward shapes
-                fb.features = fb.features[:, :t_b]
-                return fstep(state, fb)
+                with span("dacs.train.step"):
+                    with span("dacs.train.gather"):
+                        fb = gather_features(f, fl, lab, ll, dem, idx)
+                        # crop the rows to the batch's bucket length: the
+                        # encoder runs at the full-forward shapes
+                        fb.features = fb.features[:, :t_b]
+                    return fstep(state, fb)
 
             self._feature_step = feature_step
 
@@ -529,6 +538,9 @@ class Trainer:
                     tree = self._state_tree()
                     if self.lead:
                         self.ckpt.save(tree, step, metadata={"stage": self.cfg.stage})
+        if self.device.type == "cuda":
+            # the summary times finished work, not the enqueue
+            torch.cuda.synchronize(self.device)
         summary = timer.summary()
         summary["step"] = step
         self.logger.log(summary)

@@ -1,8 +1,9 @@
 """Host utilities of the port: the native-library bootstrap
-(``utils/native.py``), profiling (``utils/profiling.py``) and the
-experiment harnesses (``utils/experiments.py``, imported from there: it
-pulls in the Trainer)."""
+(``utils/native.py``), named spans for the profiler
+(``utils/profiling.py``) and the experiment harnesses
+(``utils/experiments.py``, imported from there: it pulls in the
+Trainer)."""
 
-from .profiling import StepProfiler, trace_profile
+from .profiling import span
 
-__all__ = ["StepProfiler", "trace_profile"]
+__all__ = ["span"]

@@ -1,12 +1,26 @@
-"""Tracing / profiling utilities (the port's ``utils/profiling.py``).
+"""Named spans of the port's hot paths (the port's ``utils/profiling.py``).
 
-  * ``trace_profile`` — context manager around ``torch.profiler`` (host and,
-    where there is a card, CUDA activity) that writes a Chrome trace
-    (``trace.json``, loadable in Perfetto or chrome://tracing) into
-    ``log_dir``,
-  * ``StepProfiler`` — host-side per-step wall-clock histogram with
-    percentile summary (catches stragglers that averages hide); a copy of
-    the JAX package's.
+``span(name)`` opens a ``torch.profiler.record_function`` range while a
+profiler records, and otherwise returns one shared no-op context: the
+guard costs well under a microsecond where an unguarded range costs
+microseconds even with no profiler. The ranges are the profiler's own
+events, so they sit on the device trace's clock beside the kernels they
+launch; whoever runs ``torch.profiler`` around ``cli train`` sees them.
+Nothing is written anywhere else.
+
+The spans of one train step (``train/trainer.py``, ``train/steps.py``,
+``ops/ctc.py``):
+
+  * ``dacs.train.step``: the whole step, the cache gather included,
+  * ``dacs.train.gather``: the row gather (and crop) from the trainer's
+    cache of frozen forwards,
+  * ``dacs.train.forward``: the encoder and heads forward,
+  * ``dacs.train.loss``: the objectives,
+  * ``dacs.ctc.forward``: ``ctc_loss``, the alpha recursion included,
+  * ``dacs.train.backward``: ``loss.backward()``,
+  * ``dacs.ctc.backward``: the CTC beta recursion and posterior, on
+    autograd's thread,
+  * ``dacs.train.optim``: gradient norm, clipping, AdamW and the schedule.
 
 The JAX module's ``enable_tpu_fast_rng`` (switch JAX's PRNG to the TPU's
 hardware RBG) has no meaning in torch and has no counterpart here.
@@ -15,49 +29,19 @@ hardware RBG) has no meaning in torch and has no counterpart here.
 from __future__ import annotations
 
 import contextlib
-import os
-import time
 
-import numpy as np
+import torch
+import torch.autograd.profiler
 
-
-@contextlib.contextmanager
-def trace_profile(log_dir: str = "./saves/profile"):
-    """Profile the ``with`` body; on exit ``<log_dir>/trace.json`` holds its
-    Chrome trace. Yields the ``torch.profiler.profile`` object."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+_OFF = contextlib.nullcontext()
 
 
-class StepProfiler:
-    def __init__(self):
-        self.times: list[float] = []
-        self._t0: float | None = None
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.times.append(time.perf_counter() - self._t0)
-        return False
-
-    def summary(self) -> dict[str, float]:
-        if not self.times:
-            return {}
-        t = np.asarray(self.times)
-        return {
-            "steps": len(t),
-            "mean_ms": float(t.mean() * 1e3),
-            "p50_ms": float(np.percentile(t, 50) * 1e3),
-            "p90_ms": float(np.percentile(t, 90) * 1e3),
-            "max_ms": float(t.max() * 1e3),
-        }
+def span(name: str):
+    """A ``record_function`` range named ``name`` while a profiler
+    records; else the shared no-op context. The guard reads the profiler's
+    process-wide Python flag: ``torch.autograd._profiler_enabled()`` reads
+    the calling thread's state, which a profiler of all threads
+    (``profile_all_threads``) leaves unset."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _OFF

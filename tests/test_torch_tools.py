@@ -3,8 +3,8 @@ the native audio and beam-search shims (utils/native.py,
 data/native_audio.py, ops/beam.py) and the corpus loader on top of them,
 ``model.safetensors`` in ``cli.load_weights``, models/export.py and
 ``cli export-hf``, ``cli transcribe`` greedy and with beam search and a
-shallow-fusion LM, utils/profiling.py, utils/experiments.py and
-``cli sweep asr``. Heavy JAX-package modules are imported inside the tests
+shallow-fusion LM, utils/experiments.py and ``cli sweep asr``
+(utils/profiling.py's spans: test_torch_tracing.py). Heavy JAX-package modules are imported inside the tests
 that use them."""
 
 import contextlib
@@ -32,7 +32,6 @@ from privacy_preserve_federated_asr_tpu_torch.models import (
 from privacy_preserve_federated_asr_tpu_torch.models.export import export_for_ctc_state_dict
 from privacy_preserve_federated_asr_tpu_torch.models.port import read_safetensors
 from privacy_preserve_federated_asr_tpu_torch.ops import beam
-from privacy_preserve_federated_asr_tpu_torch.utils import StepProfiler, trace_profile
 from privacy_preserve_federated_asr_tpu_torch.utils import experiments
 from test_torch_backbone import TINY, one_torch_thread, random_flax_params  # noqa: F401
 
@@ -373,25 +372,8 @@ def test_cli_transcribe_matches_jax(tmp_path, monkeypatch, jax_init_by_shapes, n
 
 
 # ---------------------------------------------------------------------------
-# utils/profiling.py, utils/experiments.py, cli sweep asr
+# utils/experiments.py, cli sweep asr
 # ---------------------------------------------------------------------------
-
-def test_step_profiler_and_trace_profile(tmp_path):
-    """``StepProfiler.summary`` equals the JAX one on injected step times;
-    ``trace_profile`` writes a Chrome trace of the body on the CPU."""
-    from privacy_preserve_federated_asr_tpu.utils.profiling import StepProfiler as JaxProfiler
-
-    ours, theirs = StepProfiler(), JaxProfiler()
-    assert ours.summary() == theirs.summary() == {}
-    with ours:
-        pass
-    ours.times = theirs.times = [0.012, 0.010, 0.031, 0.011, 0.0105]
-    assert ours.summary() == theirs.summary()
-    with trace_profile(str(tmp_path / "prof")):
-        torch.ones(64, 64) @ torch.ones(64, 64)
-    trace = json.loads((tmp_path / "prof/trace.json").read_text())
-    assert any("mm" in e.get("name", "") for e in trace["traceEvents"])
-
 
 def test_exp_details_matches_jax(capsys):
     from privacy_preserve_federated_asr_tpu.models import (
