@@ -21,7 +21,8 @@ non-zero exit:
 1. header: the card (nvidia-smi), torch and CUDA versions, and the nvcc
    builds of the kernels in csrc/ (one nvcc process per source, together);
    nvcc's register and spill lines of each fp32 kernel (3xTF32 on the
-   tensor cores), and the run fails if any of them spills;
+   tensor cores), and the run fails if any of them spills; those of the
+   CTC kernels are reported;
 2. kernel B1 (csrc/flash_fwd.cu) against ``attention_ref`` at the serving
    shapes (B=8, H=16, D=64; T=249 and T=1499, and the ragged T=1, 63, 65,
    129; bf16 and fp32; mixed key lengths and one row with every key masked;
@@ -56,7 +57,14 @@ non-zero exit:
    and their times beside SDPA's on the same (Tq, Tk); and B1 and B2 on a
    tensor-parallel rank's heads (B=16, T=249, heads 8..15 of 16:
    ``h_offset`` 8, ``h_total`` 16) at dropout 0.1 against their plain
-   versions, B1 against the same heads of the 16-head call;
+   versions, B1 against the same heads of the 16-head call; then the CTC
+   kernels (csrc/ctc.cu: the alphas, and the betas with the posterior
+   gradient) bit-equal to the loops they replace run on the card's tensors,
+   and across two calls, at the (B, T, L) of the benchmark's training cell
+   (64, 249, 64), of phase 6 and the federated batches, and at labels of
+   300 to 3000 (2 to 16 extended states per thread), each with its time,
+   the loop's and the bound (bytes at HBM rate, or one row's chain of
+   frames: the kernel at B=1, measured);
 6. training at full width: ``cli train`` (``cli.main``) of data2vec-audio-
    large DACS stage 0 in bf16, batch 16, on synthetic 4-5 s WAVs for 12
    steps and one evaluation: 24 B1 and 24 B2 calls per step, the frozen
@@ -233,7 +241,15 @@ non-zero exit:
    round), ``cli extract --dp 2`` (pickles and Result.csv byte-equal to
    phase 10's), ``cli text --finetune --dp 2`` at BERT-base, then 4 ranks:
    ``cli federated -fl_st 1 --client_mesh 2 --data_mesh 2 --fl_zero1``;
-37. one JSON line listing each kernel (launches on the main paths, in all
+37. the CTC kernels' launches of every phase that drives a main path, held
+   to one alpha per CTC term a forward computes and one beta per term the
+   backward reaches: the steps each phase trains on the card by their
+   recipe and stage (none at stage 1, two terms at stage 2, ``num_lms``
+   sets in the N-best steps), each evaluation's terms counted as it runs,
+   and 0 on the paths that compute no loss (each rank of phase 34 held to
+   its steps and its eval batch, those of 35-36 to nonzero launches); then
+   one JSON line listing each kernel (B1, B2
+   and the two CTC kernels: launches on the main paths, in all
    and by dtype: each phase that drives a main path sets the wrappers'
    counts to 0 just before and reads them just after, the fp32 card-vs-CPU
    and exactness phases 4, 7, 9, 11, 18, 20, 22, 24, 26 and 28 included; error
@@ -328,26 +344,120 @@ def card_line() -> str:
 # just after (tally); launches made to compare a kernel with its plain
 # version are never tallied.
 COUNTS: dict[str, dict[str, dict[str, int]]] = {}
+# The CTC kernels' launches each phase's main path must make, (alpha, beta):
+# one alpha per CTC term a forward computes, one beta per term the backward
+# reaches. A phase that trains on the card adds its steps (ctc_steps); the
+# card's evaluations are counted as they run (count_evaluations) and added by
+# tally. check_ctc_counts holds every tallied phase to it, 0 where nothing
+# was added.
+CTC_WANT: dict[str, list[int]] = {}
+EVAL_CTC = [0]  # alpha launches of the card's evaluations since reset_counts
+# CTC terms per eval batch: the recipe's loss with all its metrics
+# (aux_metrics), whatever the stage
+EVAL_TERMS = {"dacs": 3, "toggle_more": 3, "grl": 1, "single_toggle": 1, "fsm": 2}
 
 
 def _wrappers():
     from privacy_preserve_federated_asr_tpu_torch.ops.attention import (
         flash_attention_bwd, flash_attention_fwd)
+    from privacy_preserve_federated_asr_tpu_torch.ops.ctc import ctc_alpha_cuda, ctc_beta_cuda
 
-    return {"flash_fwd": flash_attention_fwd, "flash_bwd": flash_attention_bwd}
+    return {"flash_fwd": flash_attention_fwd, "flash_bwd": flash_attention_bwd,
+            "ctc_alpha": ctc_alpha_cuda, "ctc_beta": ctc_beta_cuda}
+
+
+def _by_dtype(fn) -> dict[str, int]:
+    """A wrapper's launches by dtype; the CTC kernels take fp32 alone and
+    count launches only."""
+    if hasattr(fn, "dtype_launches"):
+        return dict(fn.dtype_launches)
+    return {"float32": fn.launches}
 
 
 def reset_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
-        fn.dtype_launches.update(dict.fromkeys(fn.dtype_launches, 0))
+        if hasattr(fn, "dtype_launches"):
+            fn.dtype_launches.update(dict.fromkeys(fn.dtype_launches, 0))
+    EVAL_CTC[0] = 0
 
 
 def tally(phase: str) -> None:
     for name, fn in _wrappers().items():
         counts = COUNTS.setdefault(phase, {}).setdefault(name, {})
-        for dt, n in fn.dtype_launches.items():
+        for dt, n in _by_dtype(fn).items():
             counts[dt] = counts.get(dt, 0) + n
+    CTC_WANT.setdefault(phase, [0, 0])[0] += EVAL_CTC[0]
+
+
+def ctc_terms(method: str, stage: int, num_lms: int = 1) -> tuple[int, int]:
+    """(alpha, beta) launches of one training step of ``method`` at
+    ``stage``: the CTC terms its loss computes (models/objectives.py,
+    models/variants.py, federated/multitask.py with ``num_lms`` heads) and
+    those of them in the final loss; the others are metrics only."""
+    if method in ("dacs", "toggle_more"):
+        n = (1 if stage == 0 else 0 if stage == 1 else 2) * num_lms
+        return n, n
+    if method == "grl":
+        return 1, 1
+    if method == "single_toggle":  # stage 1 trains the AD head on the CTC-free term
+        return 1, int(stage != 1)
+    if method == "fsm":  # both streams' CTC computed; stage 3's final has neither
+        return 2, int(stage != 3)
+    raise ValueError(method)
+
+
+def ctc_steps(phase: str, steps: int, method: str = "dacs", stage: int = 0,
+              num_lms: int = 1) -> None:
+    """Add ``steps`` training steps of ``method`` at ``stage`` to the CTC
+    launches ``phase`` must make."""
+    alpha, beta = ctc_terms(method, stage, num_lms)
+    want = CTC_WANT.setdefault(phase, [0, 0])
+    want[0] += steps * alpha
+    want[1] += steps * beta
+
+
+def count_evaluations() -> None:
+    """Count, in ``EVAL_CTC``, the CTC terms of each ``Trainer.evaluate``
+    on the card: ``EVAL_TERMS`` of its recipe per eval batch."""
+    from privacy_preserve_federated_asr_tpu_torch.train.trainer import Trainer
+
+    real = Trainer.evaluate
+
+    def evaluate(self):
+        if self.eval_batcher is not None and torch.device(self.device).type == "cuda":
+            EVAL_CTC[0] += EVAL_TERMS[self.recipe.name] * len(self.eval_batcher)
+        return real(self)
+
+    Trainer.evaluate = evaluate
+
+
+# the phases whose ranks run in their own processes (34-36): their CTC
+# launches are held to be nonzero here (phase 34 holds each rank of cli
+# train to its steps and its eval batch)
+RANK_PHASES = ("cli train dp=", "cli train pp=", "cli train sp=", "cli train tp=",
+               "cli federated --client_mesh", "parallel, card vs one rank")
+
+
+def check_ctc_counts() -> None:
+    """Every tallied phase's CTC launches against ``CTC_WANT`` (0 where the
+    phase added nothing); all the differences are listed before the run
+    fails."""
+    bad, shown = [], []
+    for phase, c in COUNTS.items():
+        got = [sum(c.get(k, {}).values()) for k in ("ctc_alpha", "ctc_beta")]
+        if phase.startswith(RANK_PHASES):
+            assert all(got), (phase, got)
+            shown.append(f"{phase} {tuple(got)} (ranks)")
+            continue
+        want = CTC_WANT.get(phase, [0, 0])
+        if got != want:
+            bad.append((phase, got, want))
+        elif any(got):
+            shown.append(f"{phase} {tuple(got)}")
+    bad += [(p, None, w) for p, w in CTC_WANT.items() if p not in COUNTS and any(w)]
+    log("[ctc] launches (alpha, beta) by phase, as expected: " + "; ".join(shown))
+    assert not bad, f"CTC launches (phase, got, want): {bad}"
 
 
 # ---------------------------------------------------------------------------
@@ -384,6 +494,14 @@ def header() -> None:
     assert set(seen) == set(FP32_KERNELS), seen
     assert all(v == (0, 0) for v in seen.values()), f"an fp32 kernel spills: {seen}"
     log(f"[build] fp32 kernels {', '.join(FP32_KERNELS)}: 0 bytes of spill stores and loads")
+    # the CTC kernels' registers and spills by states per thread, reported
+    kernel = None
+    for line in cuda_build.build_logs["ctc"].splitlines():
+        if "Function properties for" in line:
+            m = re.search(r"(ctc_(?:alpha|beta)_kernel)ILi(\d+)E", line)
+            kernel = m and f"{m[1]}<{m[2]}>"
+        elif kernel and ("spill" in line or "registers" in line):
+            log(f"[build]   {kernel}: {line.strip()}")
 
 
 # ---------------------------------------------------------------------------
@@ -1028,6 +1146,91 @@ def check_head_offset_kernels() -> float:
     return worst
 
 
+# (B, T, L) of the CTC kernels' checks: the benchmark's training cell, phase
+# 6's batch, the federated and variant batches (labels padded to 32), then
+# labels wide enough for 2, 4, 8 and 16 extended states per thread
+CTC_SHAPES = ((64, 249, 64), (16, 249, 32), (8, 249, 32), (4, 749, 300), (4, 751, 700),
+              (4, 1601, 1500), (4, 3195, 3000))
+
+
+def _ctc_case(b: int, t: int, l: int, seed: int) -> tuple:
+    """The kernels' inputs at (B, T, L) as ``_CTCNLL`` builds them: seeded
+    log-probs over 32 symbols, frame lengths from 3/4 T to T, label lengths
+    from L/2 to L (some rows infeasible at the wide shapes) and a
+    batch-padding row (lengths 0). Returns (emit, valid_s, can_skip,
+    final_ind, len_f)."""
+    from privacy_preserve_federated_asr_tpu_torch.ops import ctc
+
+    g = torch.Generator("cuda").manual_seed(seed)
+    lp = (0.5 * torch.randn((b, t, 32), generator=g, device="cuda")).log_softmax(-1)
+    labels = torch.randint(1, 32, (b, l), generator=g, device="cuda")
+    il = torch.randint(3 * t // 4, t + 1, (b,), generator=g, device="cuda")
+    ll = torch.randint(l // 2, l + 1, (b,), generator=g, device="cuda")
+    il[-1] = ll[-1] = 0
+    labels[torch.arange(l, device="cuda")[None] >= ll[:, None]] = -100
+    onehot, valid_s, can_skip, final_ind = ctc._ctc_structure(labels, ll, 0, 32)
+    return (torch.einsum("btv,bsv->bts", lp, onehot), valid_s, can_skip, final_ind,
+            il.float())
+
+
+def check_ctc_kernels() -> dict:
+    """The CTC kernels (csrc/ctc.cu) against the loops they replace
+    (``ops/ctc.py::_alphas``, ``_dnll``) run on the card's tensors, at
+    ``CTC_SHAPES``: the same bits, and two calls the same bits. Times: the
+    kernel alone, the loop, and the bound, the larger of the bytes at HBM
+    rate and one row's chain of frames: the kernel at B=1 on the longest row
+    (measured; every row is one CTA, so B rows take at least one row's
+    time)."""
+    from privacy_preserve_federated_asr_tpu_torch.ops import ctc
+
+    out = {"times": {}, "max_abs_err": 0.0}
+    for i, (b, t, l) in enumerate(CTC_SHAPES):
+        emit, valid_s, can_skip, final_ind, len_f = _ctc_case(b, t, l, 700 + i)
+        rows = (valid_s, can_skip, final_ind, len_f)
+        alphas = ctc.ctc_alpha_cuda(emit, valid_s, can_skip, len_f)
+        log_z = ctc._log_z(alphas, final_ind)
+        dnll = ctc.ctc_beta_cuda(emit, alphas, log_z, *rows)
+        got = {"alpha": (alphas, ctc.ctc_alpha_cuda(emit, valid_s, can_skip, len_f),
+                         ctc._alphas(emit, valid_s, can_skip, len_f)),
+               "beta": (dnll, ctc.ctc_beta_cuda(emit, alphas, log_z, *rows),
+                        ctc._dnll(emit, alphas, log_z, *rows))}
+        for name, (x, again, ref) in got.items():
+            err = (x - ref).abs().max().item()
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            assert torch.equal(x.view(torch.int32), again.view(torch.int32)), (name, b, t, l)
+            assert torch.equal(x.view(torch.int32), ref.contiguous().view(torch.int32)), (
+                name, b, t, l, err)
+        # one row, the longest, its tensors made contiguous before the timing
+        r = int(len_f.argmax())
+        one = [x[r:r + 1].contiguous() for x in (emit, valid_s, can_skip, final_ind, len_f)]
+        one_a, one_lz = alphas[:, r:r + 1].contiguous(), log_z[r:r + 1].contiguous()
+        s = 2 * l + 1
+        calls = {
+            "alpha": (lambda: ctc.ctc_alpha_cuda(emit, valid_s, can_skip, len_f),
+                      lambda: ctc._alphas(emit, valid_s, can_skip, len_f),
+                      lambda: ctc.ctc_alpha_cuda(one[0], one[1], one[2], one[4]),
+                      8.0 * b * t * s),  # reads emit, writes the alphas
+            "beta": (lambda: ctc.ctc_beta_cuda(emit, alphas, log_z, *rows),
+                     lambda: ctc._dnll(emit, alphas, log_z, *rows),
+                     lambda: ctc.ctc_beta_cuda(one[0], one_a, one_lz, *one[1:]),
+                     12.0 * b * t * s)}  # reads emit and the alphas, writes dnll
+        times = {}
+        for name, (kernel, plain, row, nbytes) in calls.items():
+            row_ms, bytes_ms = cuda_ms(row, 20), nbytes / PEAK_BYTES * 1e3
+            times[name] = {"ms": cuda_ms(kernel, 20), "plain_ms": cuda_ms(plain, 1, 1, 3),
+                           "bound_ms": max(row_ms, bytes_ms),
+                           "bound_by": "one row's frames (B=1, measured)"
+                           if row_ms >= bytes_ms else "HBM bytes",
+                           "library_ms": None, "bytes_ms": bytes_ms, "row_ms": row_ms}
+        out["times"][(b, t, l)] = times
+        log(f"[ctc-kernel] B={b} T={t} L={l} (S={s}): alpha and dnll bit-equal to the loops "
+            f"on the card and across two calls; " + "; ".join(
+                f"{n} {v['ms']:.4f} ms, loop {v['plain_ms']:.3f} ms, bound {v['bound_ms']:.4f} "
+                f"ms ({v['bound_by']}; bytes {v['bytes_ms']:.4f} ms)" for n, v in times.items())
+            + f"  [{card_line()}]")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # 6. training at full width through cli train
 # ---------------------------------------------------------------------------
@@ -1118,6 +1321,7 @@ def train_full_width() -> dict:
         finally:
             os.chdir(cwd)
     steps, n_eval = tr.state.step, len(tr.eval_batcher)
+    ctc_steps("cli train", steps)
     ev = json.loads(out.getvalue().strip().splitlines()[-1])
     log(f"[train] cli train: {steps} steps + evaluate() in {wall:.1f} s (model init, "
         f"frontend cache and data load included); eval {ev}")
@@ -1169,8 +1373,8 @@ def train_full_width() -> dict:
             f"{1 - prof['device_ms'] / prof['wall_ms']:.1%}); B1 {prof['b1_ms']:.2f} ms = "
             f"{prof['b1_ms'] / prof['device_ms']:.1%}, B2 {prof['b2_ms']:.2f} ms = "
             f"{prof['b2_ms'] / prof['device_ms']:.1%} of device time  [{card_line()}]")
-    # two parts of the step alone, host clock: the CTC loss (Python loops
-    # over the frames) and the optimizer (clip + fused AdamW)
+    # two parts of the step alone, host clock: the CTC loss (the two
+    # kernels of csrc/ctc.cu) and the optimizer (clip + fused AdamW)
     from privacy_preserve_federated_asr_tpu_torch.ops.ctc import ctc_loss
 
     g = torch.Generator("cuda").manual_seed(5)
@@ -1256,8 +1460,10 @@ def train_step_vs_cpu(dense_impl: str = "fp", rtols: tuple = (1e-4, 1e-3),
     m_gpu, p_gpu = run("cuda", feats["cpu"], fl["cpu"])
     m_cpu, p_cpu = run("cpu", feats["cpu"], fl["cpu"])
     m_own, _ = run("cuda", feats["cuda"], fl["cuda"])
-    tally("training step, card vs CPU" if dense_impl == "fp"
-          else f"{dense_impl} training step, card vs CPU")
+    phase = ("training step, card vs CPU" if dense_impl == "fp"
+             else f"{dense_impl} training step, card vs CPU")
+    tally(phase)
+    ctc_steps(phase, 2 * n_steps)  # m_gpu and m_own
     log(f"[{tag}] frontend card vs CPU max|err|/max|ref| {fe_err:.2e}; per step "
         f"(loss, grad norm) card {[(m['loss'], m['grad_norm']) for m in m_gpu]}, CPU "
         f"{[(m['loss'], m['grad_norm']) for m in m_cpu]}, card on its own frontend "
@@ -1394,6 +1600,7 @@ def federated_full_width(root: Path) -> dict:
         rows = s["rows"]
         ws = sum(r["warm_start_steps"] for r in rows if "warm_start_steps" in r)
         local = sum(r["local_steps"] for r in rows if "local_steps" in r)
+        ctc_steps("cli federated", int(ws + local), stage=stage)
         cache_fwd = sum(r["hidden_cache_forwards"] for r in rows
                         if "hidden_cache_forwards" in r)
         n_evals = sum("eval_loss" in r for r in rows)
@@ -2074,6 +2281,7 @@ def sweep_asr_phase(root: Path) -> dict:
     assert len(inits) == 2 and all(torch.equal(v, inits[1][k]) for k, v in inits[0].items())
     steps = sum(len(t.train_batcher) for t in trainers)
     evals = sum(len(t.eval_batcher) for t in trainers)
+    ctc_steps("cli sweep asr", steps)
     assert (b1, b2) == (LAYERS * (steps + evals), LAYERS * steps), (b1, b2, steps, evals)
     with open(root / "sweep/asr.csv", newline="") as f:
         assert [float(r["learning_rate"]) for r in csv.DictReader(f)] == [1e-5, 1e-4]
@@ -2137,6 +2345,7 @@ def train_accum_remat_full_width(root: Path, phase6: dict) -> dict:
     b1, b2 = flash_attention_fwd.launches, flash_attention_bwd.launches
     tally("cli train --grad_accum --remat")
     micro, n_eval, tx = tr.state.step, len(tr.eval_batcher), tr.state.tx
+    ctc_steps("cli train --grad_accum --remat", micro)  # remat recomputes no loss
     ev = _last_json(out)
     # a constant lr of 1e-5: every trainable tensor moves in 4 updates (the
     # default warmup would start them at 0 and 1e-8)
@@ -2280,6 +2489,7 @@ def accum_remat_vs_cpu() -> None:
     m_plain, p_plain = run("cuda", cfg, 1, parts=((0, 2),))
     m_remat, p_remat = run("cuda", cfg, 1, remat=True, parts=((0, 2),))
     tally("grad_accum and remat, card vs CPU")
+    ctc_steps("grad_accum and remat, card vs CPU", 7)  # the card's 7 micro-steps above
     bit = m_plain == m_remat and all(torch.equal(p_remat[k], v) for k, v in p_plain.items())
     worst, frac = _close_params(p_remat, p_plain, lr)
     log(f"[accum-e2e] on the card, attention dropout {TRAIN_RATE}: a remat step against a "
@@ -2393,6 +2603,9 @@ def federated_options_full_width(root: Path) -> dict:
         assert rnd["phase"] == ("mt+res" if stage == 0 else "mt+res_h"), rnd
         ws = sum(r["warm_start_steps"] for r in rows if "warm_start_steps" in r)
         n_evals = sum("eval_loss" in r for r in rows)
+        ctc_steps("cli federated, engine options", int(ws) + m * sup_steps, stage=stage)
+        ctc_steps("cli federated, engine options", m * mt_steps, stage=stage,
+                  num_lms=eng.cfg.num_lms)  # the N-best heads, one CTC term set each
         assert pseudo[stage] == want_pseudo, (stage, pseudo[stage], want_pseudo)
         if stage == 0:
             want = (LAYERS * (ws + m * (mt_steps + sup_steps) + n_evals * n_eval) + want_pseudo,
@@ -2659,6 +2872,7 @@ def int8_full_width(root: Path, phase6: dict, greedy: list) -> dict:
     b1, b2 = flash_attention_fwd.launches, flash_attention_bwd.launches
     tally("cli train --int8")
     steps, n_eval = tr.state.step, len(tr.eval_batcher)
+    ctc_steps("cli train --int8", steps)
     ev = _last_json(out)
     assert tr.cfg.backbone.dense_impl == "int8_train" and steps == INT8_STEPS, steps
     assert b1 == LAYERS * (steps + n_eval) and b2 == LAYERS * steps, (b1, b2, steps, n_eval)
@@ -3204,6 +3418,7 @@ def _train_checked(data: Path, args: list[str], tag: str, b1_per_forward: int,
     b1, b2 = flash_attention_fwd.launches, flash_attention_bwd.launches
     tally(tag)
     steps, n_eval = tr.state.step, len(tr.eval_batcher)
+    ctc_steps(tag, steps, tr.recipe.name, tr.cfg.stage)
     ev = _last_json(out)
     assert steps == VAR_STEPS and all(np.isfinite(v) for v in ev.values()), (steps, ev)
     want = (b1_per_forward * (steps + n_eval), b2_per_step * steps)
@@ -3492,6 +3707,10 @@ def variants_vs_cpu() -> dict:
     finally:
         variants.sample_gumbel = real_sample
     tally("variants, card vs CPU")
+    # a train step of each on the card, and FSM's zero-gradient check (one
+    # forward, its loss and backward)
+    for method, stage in (("single_toggle", 2), ("fsm", 1), ("fsm", 1)):
+        ctc_steps("variants, card vs CPU", 1, method, stage)
     return band_counts
 
 
@@ -3672,6 +3891,7 @@ def sewd_vs_cpu() -> None:
 
     assert flash_attention_fwd.launches == 0 and flash_attention_bwd.launches == 0
     tally("sewd, card vs CPU")
+    ctc_steps("sewd, card vs CPU", 1)  # _step_vs_cpu's step on the card
 
 
 # ---------------------------------------------------------------------------
@@ -3737,6 +3957,7 @@ def teacher_phase(root: Path) -> dict:
     assert len(rnd["phase"].split("+")) == 2, rnd  # the unlabeled phase, then the labeled
     ws = sum(r["warm_start_steps"] for r in rows if "warm_start_steps" in r)
     local = sum(r["local_steps"] for r in rows if "local_steps" in r)
+    ctc_steps("cli federated -sl 0.5, teacher CSV", int(ws + local))
     n_evals = sum("eval_loss" in r for r in rows) + 1  # the CLI's final evaluation
     n_eval = -(-FL_TEST // FL_BATCH)
     want = (TEACHER_LAYERS * (ws + local + n_evals * n_eval), TEACHER_LAYERS * (ws + local))
@@ -4364,7 +4585,7 @@ PORT_CLI = "privacy_preserve_federated_asr_tpu_torch.cli"  # what each rank impo
 
 
 def _rank_counts() -> dict:
-    return {name: dict(fn.dtype_launches) for name, fn in _wrappers().items()}
+    return {name: _by_dtype(fn) for name, fn in _wrappers().items()}
 
 
 def _rank_info() -> str:
@@ -4574,6 +4795,12 @@ def parallel_phases(root: Path, training: dict, text: dict) -> dict:
             b1, b2 = _tally_ranks(f"cli train {name}", res)
             per = [(r["counts"]["flash_fwd"], r["counts"]["flash_bwd"]) for r in res]
             assert all(sum(f.values()) and sum(g.values()) for f, g in per), (name, per)
+            # each rank: its share of each step's loss, and the 3 terms of the
+            # eval batch of PAR_TEST clips
+            per_ctc = [tuple(sum(r["counts"][k].values()) for k in ("ctc_alpha", "ctc_beta"))
+                       for r in res]
+            assert per_ctc == [(r["steps"] + EVAL_TERMS["dacs"], r["steps"]) for r in res], (
+                name, per_ctc)
             assert all(r["steps"] == PAR_TRAIN // b for r in res), [r["steps"] for r in res]
             assert all(np.isfinite(r["loss"]) for r in res), res
             ev = res[0]["eval"]
@@ -4588,7 +4815,8 @@ def parallel_phases(root: Path, training: dict, text: dict) -> dict:
                 f"{training['step_s'] * 1e3:.1f} ms); per rank peak "
                 f"{', '.join(f'{r['peak_gib']:.2f}' for r in res)} GiB, AdamW moments "
                 f"{', '.join(f'{r['moments_gib']:.2f}' for r in res)} GiB; B1/B2 per rank "
-                f"{[(sum(f.values()), sum(g.values())) for f, g in per]}; eval {ev}  "
+                f"{[(sum(f.values()), sum(g.values())) for f, g in per]}, CTC alpha/beta per "
+                f"rank {per_ctc}; eval {ev}  "
                 f"[{card_line()}]")
         # 35. equality with one rank on the card (phase 7's 4-layer fp32 model)
         t0 = time.perf_counter()
@@ -4677,10 +4905,12 @@ def main(argv=None) -> None:
     sys.path.insert(0, ROOT)
     import privacy_preserve_federated_asr_tpu_torch  # noqa: F401  (fails alone)
 
+    count_evaluations()
     header()
     kern = check_kernel()
     bwd = check_bwd_kernel()
     sp_kern = check_offset_kernels()
+    ctc_kern = check_ctc_kernels()
     if args.kernels_only:
         log(f"[done] phases 1, 2 and 5 passed  [{card_line()}]")
         return
@@ -4720,7 +4950,9 @@ def main(argv=None) -> None:
     tools_b1 = (sum(transcribe["launches"].values()) + sum(export["launches"].values())
                 + sweep["b1"])
     by_dtype = {name: {dt: sum(c.get(name, {}).get(dt, 0) for c in COUNTS.values())
-                       for dt in ("bfloat16", "float32")} for name in ("flash_fwd", "flash_bwd")}
+                       for dt in ("bfloat16", "float32")}
+                for name in ("flash_fwd", "flash_bwd", "ctc_alpha", "ctc_beta")}
+    check_ctc_counts()
     # the tallies hold the counts that each phase asserted, and the card's
     # launches of the fp32 card-vs-CPU phases besides
     e2e = ("serving, card vs CPU", "training step, card vs CPU",
@@ -4745,6 +4977,7 @@ def main(argv=None) -> None:
         == main_b2, (COUNTS, main_b2)
     t = kern["times"][(TS[-1], "bfloat16")]
     tb = bwd["times"][(*BWD_SHAPES[0], "bfloat16")]
+    tc = ctc_kern["times"][CTC_SHAPES[0]]  # the benchmark's training cell
     line = {"kernels": [{
         "name": "flash_fwd",
         "route": "cuda",
@@ -4778,12 +5011,26 @@ def main(argv=None) -> None:
         + [_shape_times(sp_kern["times"][(bb, tq, tk, dt)]["bwd"], B=bb, Tq=tq, Tk=tk,
                         q_offset=tq, dtype=dt, rate=TRAIN_RATE)
            for dt in ("bfloat16", "float32") for bb, tq, tk in SP_SHAPES],
-    }]}
-    for name in ("flash_fwd", "flash_bwd"):
+    }] + [{
+        "name": f"ctc_{k}",
+        "route": "cuda",
+        "source": "privacy_preserve_federated_asr_tpu_torch/csrc/ctc.cu",
+        "replaces": f"privacy_preserve_federated_asr_tpu/ops/ctc.py:{line} (a lax.scan)",
+        "launches": sum(by_dtype[f"ctc_{k}"].values()),
+        "launches_by_dtype": by_dtype[f"ctc_{k}"],
+        "max_abs_err": ctc_kern["max_abs_err"],
+        **{n: tc[k][n] for n in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "times": [_shape_times(ctc_kern["times"][shape][k], B=shape[0], T=shape[1],
+                               L=shape[2], dtype="float32") for shape in CTC_SHAPES],
+    } for k, line in (("alpha", 140), ("beta", 181))]}
+    for name in ("flash_fwd", "flash_bwd", "ctc_alpha", "ctc_beta"):
         log(f"[kernels] {name} launches by dtype {by_dtype[name]}; by phase "
-            + "; ".join(f"{p} {c[name]}" for p, c in COUNTS.items() if any(c[name].values())))
+            + "; ".join(f"{p} {c[name]}" for p, c in COUNTS.items()
+                        if any(c.get(name, {}).values())))
     log(f"[kernels] times: flash_fwd at B={B} T={TS[-1]} bf16, flash_bwd at "
-        f"B={BWD_SHAPES[0][0]} T={BWD_SHAPES[0][1]} bf16 rate {TRAIN_RATE}; each kernel's "
+        f"B={BWD_SHAPES[0][0]} T={BWD_SHAPES[0][1]} bf16 rate {TRAIN_RATE}, ctc_alpha and "
+        f"ctc_beta at B, T, L = {CTC_SHAPES[0]} fp32 (ctc_beta: the betas and dnll); each "
+        f"kernel's "
         f"\"times\" at every main-path shape in both dtypes (per stage (B1, B2) in cli "
         f"federated: {federated['stages']}); fp32 bounds are 3xTF32 on the tensor cores")
     log(f"[variants] step ms {variants['step_ms']}, idle share {variants['idle']}; FSM / "

@@ -48,6 +48,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from . import cuda_build
+
 NEG_INF = -1e30
 
 # murmur3 fmix32 constants and the per-(b*h) seed stride, as uint32
@@ -250,16 +252,6 @@ _BWD_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _kernel(name: str, argtypes):
-    from .cuda_build import load
-
-    fn = getattr(load(name), name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def _aligned(x: torch.Tensor) -> bool:
     """D axis contiguous, other strides whole 16-byte vectors, aligned data."""
     align = 16 // x.element_size()  # elements per 16-byte vector load
@@ -332,7 +324,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    rc = _kernel("flash_fwd", _FWD_ARGTYPES)(
+    rc = cuda_build.symbol("flash_fwd", "flash_fwd", _FWD_ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(),
         out.data_ptr(), _DTYPE_CODE[q.dtype], b, t, t_k, h, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
@@ -390,7 +382,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     dk, dv = (torch.empty((b, t_k, h, d), dtype=q.dtype, device=q.device)
               for _ in range(2))
-    rc = _kernel("flash_bwd", _BWD_ARGTYPES)(
+    rc = cuda_build.symbol("flash_bwd", "flash_bwd", _BWD_ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(),
         o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         None if dq_accum is None else dq_accum.data_ptr(),

@@ -1,11 +1,22 @@
 """CTC loss with the JAX package's semantics (the port's ``ops/ctc.py``).
 
 A log-space alpha recursion over the extended label sequence (blanks
-interleaved), looped over time in Python, with the analytic backward of the
-JAX fast path (``ops/ctc.py:118-235`` there): the beta recursion and the path
-posterior, in a ``torch.autograd.Function``. ``-inf`` is replaced by the
+interleaved), with the analytic backward of the JAX fast path
+(``ops/ctc.py:118-235`` there): the beta recursion and the path posterior, in
+a ``torch.autograd.Function``. ``-inf`` is replaced by the
 ``LOG_EPSILON = -1e5`` sentinel so gradients stay finite; labels arrive
 padded ``[B, L]`` (padding < 0, like HF's -100).
+
+The recursions run
+
+  * on CUDA tensors as two hand-written kernels (``csrc/ctc.cu``):
+    ``ctc_alpha_cuda`` in the forward and ``ctc_beta_cuda`` (the betas and
+    the posterior) in the backward, each walking all the frames in one
+    launch, with the lengths read on the device (no host sync),
+  * on CPU tensors as Python loops over the frames (``_alphas``, ``_dnll``),
+
+and nothing else: there is no fallback from one to the other. Both do the
+same fp32 arithmetic in the same order.
 
 ``torch.nn.functional.ctc_loss`` is not used: the JAX loss has its own
 behaviour on the batch-padding rows the trainer builds (``frame_lengths`` 0,
@@ -16,10 +27,13 @@ zero gradient. The port keeps both.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
 from ..utils.profiling import span
+from . import cuda_build
 
 LOG_EPSILON = -1e5
 
@@ -46,13 +60,10 @@ def _ctc_structure(labels: torch.Tensor, label_lengths: torch.Tensor,
 
 
 def _frames_run(len_f: torch.Tensor, t_max: int) -> int:
-    """Frames the recursions step through. On the CPU they stop after the
-    longest row (at least frame 0): past it no row is active, so the alphas
-    only repeat and the betas hold the sentinel, written without the loop;
-    the values are those of the full loop. On the card the loop runs all
-    ``t_max`` frames, so that reading the lengths costs no device sync."""
-    if len_f.device.type != "cpu":
-        return t_max
+    """Frames the CPU loops step through: up to the longest row (at least
+    frame 0). Past it no row is active, so the alphas only repeat and the
+    betas hold the sentinel, written without the loop; the values are those
+    of the full loop."""
     return min(max(int(len_f.max()), 1), t_max) if len_f.numel() else t_max
 
 
@@ -112,18 +123,112 @@ def _betas(emit, valid_s, can_skip, final_ind, len_f):
     return betas
 
 
+def _dnll(emit, alphas, log_z, valid_s, can_skip, final_ind, len_f):
+    """The posterior gradient of each row's NLL, [T, B, S]: the betas, then
+    ``-exp(alpha + beta - log_z)`` at feasible rows' frames ``t < len``."""
+    neg = LOG_EPSILON
+    betas = _betas(emit, valid_s, can_skip, final_ind, len_f)
+    # posterior; gamma <= 0 mathematically, clamped before exp so an
+    # infeasible row (log_z ~ neg) cannot overflow
+    gamma = alphas + betas - log_z[None, :, None]
+    dnll = -torch.exp(gamma.clamp(2.0 * neg, 0.0))
+    feasible = (log_z > 0.5 * neg).float()[None, :, None]
+    t_max = emit.shape[1]
+    tm = (torch.arange(t_max, device=emit.device)[:, None] < len_f[None, :]).float()
+    return dnll * feasible * tm[:, :, None]
+
+
+MAX_STATES = 8192  # csrc/ctc.cu: 512 threads of at most 16 states each (L <= 4095)
+_ALPHA_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_BETA_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+def _cuda_args(name: str, emit: torch.Tensor, *xs):
+    """``emit`` [B, T, S] and the tensors of ``xs``, each given with its
+    layout (``"bs"`` [B, S], ``"b"`` [B], ``"tbs"`` [T, B, S]), checked and
+    made contiguous for the kernels."""
+    b, t, s = emit.shape
+    dims = {"b": b, "t": t, "s": s}
+    tensors = [emit, *(x for x, _ in xs)]
+    if any(x.dtype != torch.float32 for x in tensors):
+        raise TypeError(f"{name} takes fp32 tensors")
+    if b < 1 or t < 1 or s > MAX_STATES:
+        raise ValueError(f"{name} takes B >= 1 rows, T >= 1 frames and at most "
+                         f"{MAX_STATES} extended states (labels up to "
+                         f"{MAX_STATES // 2 - 1}), got B={b}, T={t}, S={s}")
+    for x, layout in xs:
+        if tuple(x.shape) != tuple(dims[d] for d in layout):
+            raise ValueError(f"{name}: a [{', '.join(layout.upper())}] input has shape "
+                             f"{tuple(x.shape)} for emit {tuple(emit.shape)}")
+    if not emit.is_cuda or any(x.device != emit.device for x in tensors):
+        raise ValueError(f"{name} needs all its tensors on one CUDA device")
+    return [x.contiguous() for x in tensors]
+
+
+def ctc_alpha_cuda(emit, valid_s, can_skip, len_f):
+    """Launch ``csrc/ctc.cu``'s alpha kernel: the alphas [T, B, S] of
+    ``_alphas``, one CTA per row walking all T frames. Counts each launch in
+    ``ctc_alpha_cuda.launches``."""
+    emit, valid_s, can_skip, len_f = _cuda_args(
+        "ctc_alpha_cuda", emit, (valid_s, "bs"), (can_skip, "bs"), (len_f, "b"))
+    b, t_max, s_max = emit.shape
+    alphas = torch.empty((t_max, b, s_max), device=emit.device)
+    rc = cuda_build.symbol("ctc", "ctc_alpha", _ALPHA_ARGTYPES)(
+        emit.data_ptr(), valid_s.data_ptr(), can_skip.data_ptr(), len_f.data_ptr(),
+        alphas.data_ptr(), b, t_max, s_max,
+        torch.cuda.current_stream(emit.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ctc_alpha kernel launch failed: CUDA error {rc}")
+    ctc_alpha_cuda.launches += 1
+    return alphas
+
+
+ctc_alpha_cuda.launches = 0
+
+
+def ctc_beta_cuda(emit, alphas, log_z, valid_s, can_skip, final_ind, len_f):
+    """Launch ``csrc/ctc.cu``'s beta kernel: ``_dnll``'s posterior gradient
+    [T, B, S], the betas kept in the CTA and never stored. Reads the stream
+    at call time (the backward runs on autograd's device thread). Counts each
+    launch in ``ctc_beta_cuda.launches``."""
+    emit, alphas, log_z, valid_s, can_skip, final_ind, len_f = _cuda_args(
+        "ctc_beta_cuda", emit, (alphas, "tbs"), (log_z, "b"), (valid_s, "bs"),
+        (can_skip, "bs"), (final_ind, "bs"), (len_f, "b"))
+    b, t_max, s_max = emit.shape
+    dnll = torch.empty((t_max, b, s_max), device=emit.device)
+    rc = cuda_build.symbol("ctc", "ctc_beta", _BETA_ARGTYPES)(
+        emit.data_ptr(), alphas.data_ptr(), log_z.data_ptr(), valid_s.data_ptr(),
+        can_skip.data_ptr(), final_ind.data_ptr(), len_f.data_ptr(), dnll.data_ptr(),
+        b, t_max, s_max, torch.cuda.current_stream(emit.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ctc_beta kernel launch failed: CUDA error {rc}")
+    ctc_beta_cuda.launches += 1
+    return dnll
+
+
+ctc_beta_cuda.launches = 0
+
+
+def _log_z(alphas, final_ind):
+    """Each row's log-likelihood: the logsumexp of the last frame's alphas
+    over its final states."""
+    neg = LOG_EPSILON
+    masked_final = torch.where(final_ind > 0, alphas[-1], torch.full_like(alphas[-1], neg))
+    m = masked_final.amax(1).clamp_min(neg)
+    return m + torch.log((torch.exp(masked_final - m[:, None]) * final_ind).sum(1))
+
+
 class _CTCNLL(torch.autograd.Function):
-    """Per-sample CTC negative log-likelihood with the posterior gradient."""
+    """Per-sample CTC negative log-likelihood with the posterior gradient:
+    the kernels on CUDA tensors, the loops on CPU tensors."""
 
     @staticmethod
     def forward(ctx, log_probs, onehot, valid_s, can_skip, final_ind, len_f):
         lp = log_probs.float()
         emit = torch.einsum("btv,bsv->bts", lp, onehot)
-        alphas = _alphas(emit, valid_s, can_skip, len_f)
-        neg = LOG_EPSILON
-        masked_final = torch.where(final_ind > 0, alphas[-1], torch.full_like(alphas[-1], neg))
-        m = masked_final.amax(1).clamp_min(neg)
-        log_z = m + torch.log((torch.exp(masked_final - m[:, None]) * final_ind).sum(1))
+        alphas = (ctc_alpha_cuda if emit.is_cuda else _alphas)(emit, valid_s, can_skip,
+                                                               len_f)
+        log_z = _log_z(alphas, final_ind)
         ctx.save_for_backward(emit, alphas, log_z, onehot, valid_s, can_skip,
                               final_ind, len_f)
         return -log_z
@@ -133,16 +238,8 @@ class _CTCNLL(torch.autograd.Function):
         with span("dacs.ctc.backward"):
             emit, alphas, log_z, onehot, valid_s, can_skip, final_ind, len_f = \
                 ctx.saved_tensors
-            neg = LOG_EPSILON
-            betas = _betas(emit, valid_s, can_skip, final_ind, len_f)
-            # posterior; gamma <= 0 mathematically, clamped before exp so an
-            # infeasible row (log_z ~ neg) cannot overflow
-            gamma = alphas + betas - log_z[None, :, None]
-            dnll = -torch.exp(gamma.clamp(2.0 * neg, 0.0))
-            feasible = (log_z > 0.5 * neg).float()[None, :, None]
-            t_max = emit.shape[1]
-            tm = (torch.arange(t_max, device=emit.device)[:, None] < len_f[None, :]).float()
-            dnll = dnll * feasible * tm[:, :, None]
+            dnll = (ctc_beta_cuda if emit.is_cuda else _dnll)(
+                emit, alphas, log_z, valid_s, can_skip, final_ind, len_f)
             dlp = torch.einsum("tbs,bsv->btv", dnll, onehot) * g[:, None, None]
             return dlp, None, None, None, None, None
 

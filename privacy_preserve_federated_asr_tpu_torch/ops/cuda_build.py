@@ -53,7 +53,7 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-SOURCES = ("flash_fwd", "flash_bwd")  # every csrc/*.cu of the port
+SOURCES = ("flash_fwd", "flash_bwd", "ctc")  # every csrc/*.cu of the port
 
 
 def _build(names) -> None:
@@ -94,3 +94,13 @@ def load(name: str) -> ctypes.CDLL:
             if name not in build_logs and log.exists():
                 build_logs[name] = log.read_text()
         return _libs[name]
+
+
+def symbol(lib: str, name: str, argtypes) -> ctypes._CFuncPtr:
+    """The C function ``name`` of ``csrc/<lib>.cu``'s library, its argument
+    types set and its return type ``int`` (a cudaError_t)."""
+    fn = getattr(load(lib), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
