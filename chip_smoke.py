@@ -241,6 +241,17 @@ non-zero exit:
    round), ``cli extract --dp 2`` (pickles and Result.csv byte-equal to
    phase 10's), ``cli text --finetune --dp 2`` at BERT-base, then 4 ranks:
    ``cli federated -fl_st 1 --client_mesh 2 --data_mesh 2 --fl_zero1``;
+38. (run after 36, so that 37 tallies it) XLS-R 2B, 48 x 1920 with 16 heads
+   of 120: B1 (bf16 with and without dropout and LSE, fp32) and B2 (bf16,
+   dropout 0.1, called twice and held bit-equal) at head dim 120 on q/k/v
+   views of one projection at B=8, T=749 and 1499 against the plain
+   versions on mixed key lengths, then timed on full rows beside the same
+   calls at head dim 64, each with its bound from
+   ``portbench/lib/counting.py``; ``cli train --model_type xlsr-2b -st 0``
+   (bf16, B=8 of 4-5 s, 3 steps and the evaluation) and ``cli extract
+   --model_type xlsr-2b -st 2`` (fp32) of its final model, their B1 / B2
+   launches held per head dim (all at 120) and the train's peak memory
+   printed; ``--xlsr-only`` runs phases 1 and 38;
 37. the CTC kernels' launches of every phase that drives a main path, held
    to one alpha per CTC term a forward computes and one beta per term the
    backward reaches: the steps each phase trains on the card by their
@@ -464,7 +475,18 @@ def check_ctc_counts() -> None:
 # 1. header and build
 # ---------------------------------------------------------------------------
 
-FP32_KERNELS = ("flash_fwd_f32_kernel", "flash_bwd_dkdv_f32_kernel", "flash_bwd_dq_f32_kernel")
+FP32_KERNELS = ("flash_fwd_f32_kernel<64>", "flash_fwd_f32_kernel<120>",
+                "flash_bwd_dkdv_f32_kernel", "flash_bwd_dq_f32_kernel")
+# the bf16 kernels at each head dim, whose registers and spills are reported
+BF16_KERNELS = ("flash_fwd_bf16_kernel<64>", "flash_fwd_bf16_kernel<120>",
+                "flash_bwd_bf16_kernel<64>", "flash_bwd_bf16_kernel<120>")
+
+
+def _kernel_of(line: str) -> str:
+    """The kernel a ptxas "Function properties for" line names, with its
+    head dim where it is a template (``flash_fwd_bf16_kernel<120>``)."""
+    m = re.search(r"(flash_(?:fwd|bwd)_(?:bf16|f32|dkdv_f32|dq_f32)_kernel)(?:ILi(\d+)E)?", line)
+    return "" if m is None else m[1] + (f"<{m[2]}>" if m[2] else "")
 
 
 def header() -> None:
@@ -479,17 +501,19 @@ def header() -> None:
     log(f"[build] {', '.join(cuda_build.SOURCES)}: nvcc (concurrent) and load in "
         f"{time.perf_counter() - t0:.1f} s")
     # nvcc's -Xptxas -v report of each fp32 kernel (3xTF32 on the tensor
-    # cores): its registers, and its spills, which must be 0
+    # cores): its registers, and its spills, which must be 0; and those of
+    # the bf16 kernels at each head dim, reported
     seen = {}
     for name in cuda_build.SOURCES:
         kernel = None
         for line in cuda_build.build_logs[name].splitlines():
             if "Function properties for" in line:
-                kernel = next((k for k in FP32_KERNELS if k in line), None)
+                kernel = _kernel_of(line)
+                kernel = kernel if kernel in FP32_KERNELS + BF16_KERNELS else None
             elif kernel and ("spill" in line or "registers" in line):
                 log(f"[build]   {kernel}: {line.strip()}")
                 m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-                if m:
+                if m and kernel in FP32_KERNELS:
                     seen[kernel] = (int(m[1]), int(m[2]))
     assert set(seen) == set(FP32_KERNELS), seen
     assert all(v == (0, 0) for v in seen.values()), f"an fp32 kernel spills: {seen}"
@@ -4889,6 +4913,178 @@ def parallel_phases(root: Path, training: dict, text: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 38. XLS-R 2B: the kernels at head dim 120, cli train and cli extract
+# ---------------------------------------------------------------------------
+
+XLSR_SHAPES = ((8, 749), (8, 1499))   # (B, T): the 15 s and 30 s buckets
+XLSR_LAYERS, XLSR_BATCH, XLSR_STEPS = 48, 8, 3
+
+
+def _xlsr_inputs(b: int, t: int, d: int, dtype: torch.dtype, seed: int):
+    """q, k, v as views of one seeded [b, t, 3*H*d] projection (as the
+    encoder hands them over) and a seeded cotangent."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    qkv = torch.randn((b, t, 3 * H * d), generator=g, device="cuda").to(dtype)
+    q, k, v = (qkv[..., i * H * d:(i + 1) * H * d].view(b, t, H, d) for i in range(3))
+    return q, k, v, torch.randn((b, t, H, d), generator=g, device="cuda").to(dtype)
+
+
+def xlsr_kernels() -> dict:
+    """B1 (bf16, without and with dropout and LSE; fp32) and B2 (bf16,
+    dropout 0.1) at head dim 120 on q, k, v views of one projection at the
+    XLS-R cell's 15 s bucket and a 30 s one: against the plain versions on
+    mixed key lengths (one row with no key), then timed on full rows beside
+    the same calls at head dim 64, each with its bound from
+    ``portbench/lib/counting.py``."""
+    from portbench.lib.counting import attention_call
+    from privacy_preserve_federated_asr_tpu_torch.ops.attention import (
+        attention_bwd_ref, attention_ref, flash_attention_bwd, flash_attention_fwd, hash_stride)
+
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for b, t in XLSR_SHAPES:
+        mask = _mask(_lengths(b, t), t)
+        has_key = mask.sum(1) > 0
+        th = hash_stride(t)
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, g = _xlsr_inputs(b, t, 120, dtype, t)
+            got = flash_attention_fwd(q, k, v, mask, TRAIN_RATE, TRAIN_SEED, th).float()
+            ref = attention_ref(q, k, v, mask, TRAIN_RATE, TRAIN_SEED, th).float()
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got[has_key], ref[has_key], **TOL[dtype])
+            err = (got[has_key] - ref[has_key]).abs().max().item()
+            worst["fwd"] = max(worst["fwd"], err)
+            msg = f"B1 max|err| {err:.3e}"
+            if dtype == torch.bfloat16:
+                o, lse = flash_attention_fwd(q, k, v, mask, TRAIN_RATE, TRAIN_SEED, th,
+                                             return_lse=True)
+                cot = g * mask[:, :, None, None].to(dtype)
+                grads = flash_attention_bwd(q, k, v, mask, o, cot, lse, TRAIN_RATE,
+                                            TRAIN_SEED, th)
+                again = flash_attention_bwd(q, k, v, mask, o, cot, lse, TRAIN_RATE,
+                                            TRAIN_SEED, th)
+                want = attention_bwd_ref(q, k, v, mask, o, cot, TRAIN_RATE, TRAIN_SEED, th)
+                torch.cuda.synchronize()
+                rel = []
+                for a, a2, w in zip(grads, again, want):
+                    assert torch.equal(a, a2), "B2 at head dim 120 not bit-equal across calls"
+                    a, w = a.float(), w.float()
+                    assert torch.isfinite(a).all()
+                    rel.append(float((a - w).abs().max() / w.abs().max()))
+                assert max(rel) <= BWD_TOL[dtype], rel
+                worst["bwd"] = max(worst["bwd"], max(rel))
+                msg += (f"; B2 max|err|/max|ref| dq {rel[0]:.2e} dk {rel[1]:.2e} dv "
+                        f"{rel[2]:.2e}, two calls bit-equal")
+                del o, lse, grads, again, want
+            log(f"[xlsr-kernel] D=120 B={b} T={t} {str(dtype)[6:]}, dropout {TRAIN_RATE}, "
+                f"q/k/v views of one projection (strides {q.stride()}): {msg}")
+            del q, k, v, g, got, ref
+            torch.cuda.empty_cache()
+
+    times = {}
+    for d in (64, 120):
+        for b, t in XLSR_SHAPES:
+            full = _mask([t] * b)
+            th = hash_stride(t)
+            for dtype in (torch.bfloat16, torch.float32):
+                q, k, v, g = _xlsr_inputs(b, t, d, dtype, 1)
+                dt = str(dtype)[6:]
+                rows = {"B1": cuda_ms(lambda: flash_attention_fwd(q, k, v, full), 20)}
+                if dtype == torch.bfloat16:
+                    rows["B1 train"] = cuda_ms(lambda: flash_attention_fwd(
+                        q, k, v, full, TRAIN_RATE, TRAIN_SEED, th, return_lse=True), 20)
+                    o, lse = flash_attention_fwd(q, k, v, full, TRAIN_RATE, TRAIN_SEED, th,
+                                                 return_lse=True)
+                    rows["B2"] = cuda_ms(lambda: flash_attention_bwd(
+                        q, k, v, full, o, g, lse, TRAIN_RATE, TRAIN_SEED, th), 10)
+                for name, ms in rows.items():
+                    work = attention_call([t] * b, None, H, d, backward=name == "B2", dtype=dt)
+                    bound = work.least_s * 1e3
+                    times[(name, d, b, t, dt)] = {"ms": ms, "bound_ms": bound}
+                    log(f"[xlsr-kernel-time] {name} D={d} B={b} T={t} {dt}"
+                        f"{', dropout 0.1' if name != 'B1' else ''}: kernel {ms:.4f} ms, bound "
+                        f"{bound:.4f} ms ({100 * bound / ms:.1f}% of it)  [{card_line()}]")
+                del q, k, v, g
+                torch.cuda.empty_cache()
+    return {"worst": worst, "times": times}
+
+
+def xlsr_full_width() -> dict:
+    """Phase 38: the kernels at head dim 120 (``xlsr_kernels``), then ``cli
+    train --model_type xlsr-2b -st 0`` (bf16, 48 x 1920, B=8 of 4-5 s, a
+    few steps and the evaluation) and ``cli extract --model_type xlsr-2b
+    -st 2`` of its final model at fp32, each held to its B1 / B2 launches,
+    all at head dim 120."""
+    from privacy_preserve_federated_asr_tpu_torch import cli
+    from privacy_preserve_federated_asr_tpu_torch.evaluation import read_records
+    from privacy_preserve_federated_asr_tpu_torch.ops.attention import (
+        flash_attention_bwd, flash_attention_fwd)
+
+    kern = xlsr_kernels()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        _write_corpus(root / "data", XLSR_BATCH * XLSR_STEPS, XLSR_BATCH)
+        args = ["train", "--model_type", "xlsr-2b", "-st", "0", "--compute_dtype", "bfloat16",
+                "--train_batch_size", str(XLSR_BATCH), "--eval_batch_size", str(XLSR_BATCH),
+                "--epochs", "1", "--seed", "0", "--audio_dir", "data/clips",
+                "--train_csv", "data/train.csv", "--test_csv", "data/test.csv",
+                "--spk2label", "data/spk2label.npy", "--dataset_cache", "cache",
+                "-model_out", "out", "--device", "cuda"]
+        reset_counts()
+        for fn in (flash_attention_fwd, flash_attention_bwd):
+            fn.head_dim_launches.update(dict.fromkeys(fn.head_dim_launches, 0))
+        torch.cuda.reset_peak_memory_stats()
+        tr, text, wall = _run_cli(root, args)
+        b1, b2 = flash_attention_fwd.launches, flash_attention_bwd.launches
+        by_d = (dict(flash_attention_fwd.head_dim_launches),
+                dict(flash_attention_bwd.head_dim_launches))
+        tally("cli train xlsr-2b")
+        steps, n_eval = tr.state.step, len(tr.eval_batcher)
+        ctc_steps("cli train xlsr-2b", steps)
+        ev = json.loads(text.strip().splitlines()[-1])
+        peak = torch.cuda.max_memory_allocated()
+        n_trained = sum(p.numel() for p in tr.state.tx.params)
+        assert steps == XLSR_STEPS and all(np.isfinite(v) for v in ev.values()), (steps, ev)
+        assert b1 == XLSR_LAYERS * (steps + n_eval) and b2 == XLSR_LAYERS * steps, (b1, b2)
+        assert by_d == ({64: 0, 120: b1}, {64: 0, 120: b2}), by_d
+        assert all(torch.isfinite(p).all() for p in tr.state.tx.params)
+        log(f"[xlsr] cli train --model_type xlsr-2b -st 0 (48 x 1920, 16 heads of 120, "
+            f"{n_trained / 1e9:.3f}B trained, bf16, B={XLSR_BATCH} of 4-5 s): {steps} steps + "
+            f"evaluate() in {wall:.1f} s (init, frontend cache and data included); eval {ev}; "
+            f"B1 {b1} = 48 x ({steps} + {n_eval}), B2 {b2} = 48 x {steps}, by head dim "
+            f"{by_d}; peak memory {peak} B  [{card_line()}]")
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        reset_counts()
+        for fn in (flash_attention_fwd, flash_attention_bwd):
+            fn.head_dim_launches.update(dict.fromkeys(fn.head_dim_launches, 0))
+        _, _, wall = _run_cli(root, [
+            "extract", "--model_type", "xlsr-2b", "-st", "2", "-model_in", "out/final",
+            "--audio_dir", "data/clips", "--train_csv", "data/train.csv",
+            "--test_csv", "data/test.csv", "--spk2label", "data/spk2label.npy",
+            "--dataset_cache", "cache", "--eval_batch_size", str(XLSR_BATCH),
+            "--device", "cuda", "--csv_out_dir", "res"])
+        e1 = flash_attention_fwd.launches
+        e_by = (dict(flash_attention_fwd.dtype_launches),
+                dict(flash_attention_fwd.head_dim_launches))
+        tally("cli extract xlsr-2b")
+        n_batches = 1 + XLSR_STEPS
+        assert e1 == XLSR_LAYERS * n_batches and e_by[0]["float32"] == e1 \
+            and e_by[1][120] == e1, (e1, e_by)
+        rows = (read_records(str(root / "res/extract.pkl"))
+                + read_records(str(root / "res/extract_train.pkl")))
+        assert len(rows) == XLSR_BATCH * (XLSR_STEPS + 1), len(rows)
+        for r in rows:
+            assert r["hidden_states"].shape[-1] == 1920 and np.isfinite(r["hidden_states"]).all()
+        log(f"[xlsr] cli extract --model_type xlsr-2b -st 2 (fp32, the train's final "
+            f"model): {len(rows)} rows [1, T, 1920] in {wall:.1f} s of host time, all "
+            f"finite; B1 {e1} = 48 x {n_batches} batches, fp32 at head dim 120")
+    torch.cuda.empty_cache()
+    return {"b1": b1 + e1, "b2": b2, **kern}
+
+
 def _shape_times(row: dict, **shape) -> dict:
     return {**shape, **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                             "library_ms")}}
@@ -4899,6 +5095,9 @@ def main(argv=None) -> None:
     ap.add_argument("--kernels-only", action="store_true",
                     help="phases 1, 2 and 5 only: build the kernels and hold them "
                          "against their plain versions")
+    ap.add_argument("--xlsr-only", action="store_true",
+                    help="phases 1 and 38 only: build the kernels, then XLS-R 2B (the "
+                         "kernels at head dim 120, cli train and cli extract)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -4907,6 +5106,11 @@ def main(argv=None) -> None:
 
     count_evaluations()
     header()
+    if args.xlsr_only:
+        xlsr_full_width()
+        check_ctc_counts()
+        log(f"[done] phases 1 and 38 passed  [{card_line()}]")
+        return
     kern = check_kernel()
     bwd = check_bwd_kernel()
     sp_kern = check_offset_kernels()
@@ -4947,6 +5151,7 @@ def main(argv=None) -> None:
         text = text_full_width(root)
         whisper_text_vs_cpu()
         par = parallel_phases(root, training, text)
+    xlsr = xlsr_full_width()
     tools_b1 = (sum(transcribe["launches"].values()) + sum(export["launches"].values())
                 + sweep["b1"])
     by_dtype = {name: {dt: sum(c.get(name, {}).get(dt, 0) for c in COUNTS.values())
@@ -4963,9 +5168,11 @@ def main(argv=None) -> None:
            "sewd, card vs CPU", "parallel, card vs one rank")
     main_b1 = (serving["launches"] + training["b1"] + federated["b1"]
                + sum(chain["launches"].values()) + tools_b1 + accum["b1"] + fl_opts["b1"]
-               + int8["b1"] + streaming["b1"] + variants["b1"] + teacher["b1"] + par["b1"])
+               + int8["b1"] + streaming["b1"] + variants["b1"] + teacher["b1"] + par["b1"]
+               + xlsr["b1"])
     main_b2 = (training["b2"] + federated["b2"] + sweep["b2"] + accum["b2"]
-               + fl_opts["b2"] + int8["b2"] + variants["b2"] + teacher["b2"] + par["b2"])
+               + fl_opts["b2"] + int8["b2"] + variants["b2"] + teacher["b2"] + par["b2"]
+               + xlsr["b2"])
     # the SEW-D, Whisper and text paths launch neither kernel (their counts
     # were asserted 0)
     assert not any(sum(c[k].values()) for p, c in COUNTS.items()

@@ -52,7 +52,9 @@
 ``--method`` is any of the five method families (``dacs``, ``toggle_more``,
 ``grl``, ``single_toggle``, ``fsm``; ``federated`` takes ``dacs`` only) and
 ``--model_type sewd`` selects the SEW-D backbone (``export-hf`` has no ForCTC
-layout for it and raises). ``--model_in`` takes a port checkpoint (a
+layout for it and raises); ``--model_type xlsr-2b`` selects XLS-R 2B
+(``facebook/wav2vec2-xls-r-2b``: 48 pre-LN blocks at 1920, 16 heads of
+120, the attention kernels' second head dim). ``--model_in`` takes a port checkpoint (a
 ``final/`` export or a ``checkpoint-<step>/`` directory of ``train``), or a
 ForCTC torch state dict as the JAX package's and the port's ``cli
 export-hf`` write it (or an HF encoder/ForCTC ``pytorch_model.bin`` or
@@ -117,6 +119,7 @@ BACKBONES = {
     "data2vec-base": "data2vec_audio_base",
     "wav2vec2": "wav2vec2_large_960h_lv60",
     "wav2vec2-base": "wav2vec2_base_960h",
+    "xlsr-2b": "wav2vec2_xls_r_2b",
     "hubert": "hubert_large_ls960",
     "sewd": "sew_d_mid",
     "unispeech": "unispeech_sat_large",

@@ -96,6 +96,18 @@
 // holds it besides: in each tile the split pass, the products and the
 // element-wise work run in turn in both warpgroups between two block
 // barriers.
+//
+// Head dim 120 (XLS-R 2B), bf16 only: the one-pass kernel is a template on
+// D; its K, V, q and dO tiles hold 128 columns in two 64-column blocks (the
+// last 8 zero-filled on load, never stored), S^T and dP^T step k through
+// both, dK and dV double to two blocks each with one product per block, and
+// each warpgroup's dQ share is one 64-column block (m64n64). Shared memory
+// then holds two dQ shares in flight instead of four (210 KB). The doubled
+// accumulators leave the element-wise pass short of registers, so it reads
+// each query's LSE where it is used (kept for the tile at D = 64); ptxas
+// fits the kernel in 168 registers without spilling (chip_smoke.py phase
+// 1 reports it). The fp32 path stays at D = 64: fp32 B2 at 120 is refused
+// (ops/attention.py).
 
 #include "flash_common.cuh"
 
@@ -129,7 +141,7 @@ __device__ __forceinline__ float ex2(float x) {
 // 1. delta = rowsum(dO * O) * f, fp32 [B, H, T]
 // ---------------------------------------------------------------------------
 
-template <typename T_>
+template <typename T_, int D>
 __global__ void __launch_bounds__(256)
 flash_bwd_delta_kernel(const T_* __restrict__ o, const T_* __restrict__ dout,
                        float* __restrict__ delta, int T, int H, long long rows,
@@ -145,6 +157,8 @@ flash_bwd_delta_kernel(const T_* __restrict__ o, const T_* __restrict__ dout,
   float acc = to_f32(orow[lane]) * to_f32(drow[lane]) +
               to_f32(orow[lane + 32]) * to_f32(drow[lane + 32]);
 #pragma unroll
+  for (int c = lane + 64; c < D; c += 32) acc += to_f32(orow[c]) * to_f32(drow[c]);
+#pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) delta[row] = acc * f;
 }
@@ -159,15 +173,26 @@ constexpr int kHandoff = kCompute + 32;         // threads of the dQ hand-off ba
 constexpr int kBK = 128;                        // keys per block (64 per warpgroup)
 constexpr int kBQ = 64;                         // queries per tile
 constexpr int kStages = 2;                      // q-side ring depth
-constexpr int kDqBufs = 4;                      // dQ shares in flight to the writer
-constexpr int kKeyBytes = kBK * kRowBytes;      // 16 KB
-constexpr int kQBytes = kBQ * kRowBytes;        // 8 KB
-constexpr int kSmemBytes =                      // + slack to align the tiles to 1 KB
-    1024 + 3 * kKeyBytes + kStages * (2 * kQBytes + 2 * kBQ * 4) +
-    kDqBufs * kBQ * kD * 4;
+constexpr int kDsBytes = kBK * kBQ * 2;         // dS^T, [keys][queries] bf16: 16 KB
+
+// The bf16 kernel's sizes at head dim D: K, V, q and dO tiles of DP columns
+// (DP / 64 column blocks). At D = 120 the tiles and dQ shares double, so two
+// dQ shares are in flight to the writer instead of four (shared memory).
+template <int D>
+struct BwdBf16 {
+  static constexpr int kDP = padded_dim(D);
+  static constexpr int kNB = kDP / kAtom;             // column blocks
+  static constexpr int kDqBufs = kNB == 1 ? 4 : 2;    // dQ shares in flight to the writer
+  static constexpr int kDqCols = kDP / 2;             // a warpgroup's columns of a dQ share
+  static constexpr int kKeyBytes = kBK * kDP * 2;     // 16 KB at D = 64
+  static constexpr int kQBytes = kBQ * kDP * 2;       // 8 KB at D = 64
+  static constexpr int kSmemBytes =                   // + slack to align the tiles to 1 KB
+      1024 + 2 * kKeyBytes + kDsBytes + kStages * (2 * kQBytes + 2 * kBQ * 4) +
+      kDqBufs * kBQ * kDP * 4;
+};
 // named barriers: the compute warps among themselves, and per dQ buffer
 // "full" (compute -> writer) and "empty" (writer -> compute)
-constexpr int kBarCompute = 1, kBarFull = 2, kBarEmpty = kBarFull + kDqBufs;
+constexpr int kBarCompute = 1, kBarFull = 2;
 
 __device__ __forceinline__ void bar_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
@@ -201,24 +226,26 @@ __device__ __forceinline__ void bulk_to_global(float* dst, const float* src, int
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-// 3. dq = dq_accum * scale, [B*H, T, 64] fp32 -> [B, T, H, 64] bf16, 8 a thread
+// 3. dq = dq_accum * scale, [B*H, T, DP] fp32 -> [B, T, H, D] bf16, 8 a thread
+template <int D>
 __global__ void __launch_bounds__(256)
 flash_bwd_dq_convert_kernel(const float* __restrict__ acc, __nv_bfloat16* __restrict__ dq,
                             int T, int H, long long n8, float scale) {
+  constexpr int kDP = padded_dim(D);
   const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
   if (i >= n8) return;
-  const long long row = i >> 3;  // (b*H + h) * T + t
-  const int c = (int)(i & 7) * 8;
+  const long long row = i / (D / 8);  // (b*H + h) * T + t
+  const int c = (int)(i % (D / 8)) * 8;
   const long long bh = row / T;
   const int t = (int)(row - bh * T);
-  const float4 x = __ldg(reinterpret_cast<const float4*>(acc + row * kD + c));
-  const float4 y = __ldg(reinterpret_cast<const float4*>(acc + row * kD + c + 4));
+  const float4 x = __ldg(reinterpret_cast<const float4*>(acc + row * kDP + c));
+  const float4 y = __ldg(reinterpret_cast<const float4*>(acc + row * kDP + c + 4));
   const uint4 out = make_uint4(pack_bf16(x.x * scale, x.y * scale),
                                pack_bf16(x.z * scale, x.w * scale),
                                pack_bf16(y.x * scale, y.y * scale),
                                pack_bf16(y.z * scale, y.w * scale));
   const long long b = bh / H, h = bh - b * H;
-  *reinterpret_cast<uint4*>(dq + ((b * T + t) * H + h) * kD + c) = out;
+  *reinterpret_cast<uint4*>(dq + ((b * T + t) * H + h) * D + c) = out;
 }
 
 __device__ __forceinline__ int ld_acquire(const int* p) {
@@ -227,23 +254,30 @@ __device__ __forceinline__ int ld_acquire(const int* p) {
   return v;
 }
 
-// rows (g, g+8) of a 16-row accumulator tile, times f, -> bf16 rows of a
-// contiguous [B, T, H, D] output
-__device__ __forceinline__ void store_rows(__nv_bfloat16* out, const float (&acc)[kD / 8][4],
+// rows (g, g+8) of a 16-row accumulator tile of NB column blocks, times f,
+// -> bf16 rows of a contiguous [B, T, H, D] output (the columns past D are
+// not stored)
+template <int D, int NB>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* out, const float (&acc)[NB][8][4],
                                            const int (&rows)[2], int b, int h,
                                            int T, int H, float f, int t4) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (rows[r] >= T) continue;
-    __nv_bfloat16* orow = out + ((long long)b * T + rows[r]) * ((long long)H * kD) +
-                          (long long)h * kD;
+    __nv_bfloat16* orow = out + ((long long)b * T + rows[r]) * ((long long)H * D) +
+                          (long long)h * D;
 #pragma unroll
-    for (int dn = 0; dn < kD / 8; ++dn)
-      *reinterpret_cast<uint32_t*>(orow + dn * 8 + t4 * 2) =
-          pack_bf16(acc[dn][2 * r] * f, acc[dn][2 * r + 1] * f);
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int dn = 0; dn < 8; ++dn) {
+        if (nb * kAtom + dn * 8 >= D) continue;
+        *reinterpret_cast<uint32_t*>(orow + nb * kAtom + dn * 8 + t4 * 2) =
+            pack_bf16(acc[nb][dn][2 * r] * f, acc[nb][dn][2 * r + 1] * f);
+      }
   }
 }
 
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
@@ -258,16 +292,21 @@ flash_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                       Strides qs, Strides ks, Strides vs, Strides ds,
                       float scale, uint32_t seed, uint32_t t_hash,
                       uint32_t threshold, float inv_keep, HashPos pos) {
+  using C = BwdBf16<D>;
+  constexpr int kDP = C::kDP, kNB = C::kNB, kDqBufs = C::kDqBufs, kDqCols = C::kDqCols;
+  constexpr int kKeyBytes = C::kKeyBytes, kQBytes = C::kQBytes;
+  constexpr int kBarEmpty = kBarFull + kDqBufs;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t sK = smem_u32(smem);
   const uint32_t sV = sK + kKeyBytes;
   const uint32_t sdS = sV + kKeyBytes;       // dS^T [key][query], bf16
-  const uint32_t sQD = sdS + kKeyBytes;      // stage s: q at + 2s tiles, dO after it
+  const uint32_t sQD = sdS + kDsBytes;       // stage s: q at + 2s tiles, dO after it
   uint8_t* dS_ptr = smem + 2 * kKeyBytes;
-  float* lse_s = reinterpret_cast<float*>(smem + 3 * kKeyBytes + kStages * 2 * kQBytes);
+  float* lse_s = reinterpret_cast<float*>(smem + 2 * kKeyBytes + kDsBytes +
+                                          kStages * 2 * kQBytes);
   float* delta_s = lse_s + kStages * kBQ;
-  float* dq_s = delta_s + kStages * kBQ;     // kDqBufs x [kBQ][kD] fp32
+  float* dq_s = delta_s + kStages * kBQ;     // kDqBufs x [kBQ][kDP] fp32
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -312,8 +351,8 @@ flash_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
           while (ld_acquire(sem) < rank) {
           }
         fence_proxy_async_global();
-        bulk_to_global(dq_accum + ((long long)bh * T + q0) * kD, dq_s + buf * kBQ * kD,
-                       min(kBQ, T - q0) * kD * 4, rank > 0);
+        bulk_to_global(dq_accum + ((long long)bh * T + q0) * kDP, dq_s + buf * kBQ * kDP,
+                       min(kBQ, T - q0) * kDP * 4, rank > 0);
         if (rank < n_kt - 1) {
           fence_proxy_async_global();
           __threadfence();
@@ -330,15 +369,15 @@ flash_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
   auto load_q = [&](int it) {
     const int st = it % kStages, q0 = q_tile(it) * kBQ;
-    load_tile_async<kBQ, kCompute>(sQD + 2 * st * kQBytes, qb, qs.t, q0, T, tid);
-    load_tile_async<kBQ, kCompute>(sQD + (2 * st + 1) * kQBytes, db, ds.t, q0, T, tid);
+    load_tile_async<kBQ, kCompute, D>(sQD + 2 * st * kQBytes, qb, qs.t, q0, T, tid);
+    load_tile_async<kBQ, kCompute, D>(sQD + (2 * st + 1) * kQBytes, db, ds.t, q0, T, tid);
     load_vec_async<kBQ>(lse_s + st * kBQ, lse_b, q0, T, tid);
     load_vec_async<kBQ>(delta_s + st * kBQ, delta_b, q0, T, tid - kBQ);
     cp_async_commit();
   };
 
-  load_tile_async<kBK, kCompute>(sK, kb, ks.t, k0, Tk, tid);
-  load_tile_async<kBK, kCompute>(sV, vb, vs.t, k0, Tk, tid);
+  load_tile_async<kBK, kCompute, D>(sK, kb, ks.t, k0, Tk, tid);
+  load_tile_async<kBK, kCompute, D>(sV, vb, vs.t, k0, Tk, tid);
   load_q(0);
 
   // this thread's keys: rows g and g+8 of its warp's 16 in the warpgroup's 64
@@ -353,14 +392,16 @@ flash_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   float p_masked[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) p_masked[r] = kcode[r] == 0 && nk.none ? 1.f / (float)Tk : 0.f;
-  const uint64_t k_desc = gmma_desc(sK + 64 * wg * kRowBytes);  // this warpgroup's keys
-  const uint64_t v_desc = gmma_desc(sV + 64 * wg * kRowBytes);
+  // this warpgroup's keys in column block 0; block cb lies cb * kBK rows on
+  const uint32_t k_at = sK + 64 * wg * kRowBytes, v_at = sV + 64 * wg * kRowBytes;
 
-  float dka[kD / 8][4], dva[kD / 8][4];
+  float dka[kNB][8][4], dva[kNB][8][4];  // columns 64 nb + 8 dn + ...
 #pragma unroll
-  for (int i = 0; i < kD / 8; ++i)
+  for (int nb = 0; nb < kNB; ++nb)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) dka[i][j] = dva[i][j] = 0.f;
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dka[nb][i][j] = dva[nb][i][j] = 0.f;
 
   for (int it = 0; it < n_qt; ++it) {
     cp_async_wait<0>();
@@ -374,35 +415,46 @@ flash_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
     // S^T = K q^T and dP^T = V dO^T: 64 keys x 64 queries per warpgroup,
     // both operands K-major in shared memory, k stepping 16 columns (32 B)
+    // through each column block in turn
     float stt[8][4], dpt[8][4];
     wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc)
-      wgmma_ss_n64<0, 0>(stt, k_desc + 2 * kc, gmma_desc(sQ) + 2 * kc, kc);
+    for (int kc = 0; kc < 4 * kNB; ++kc)
+      wgmma_ss_n64<0, 0>(stt, gmma_desc(k_at + (kc >> 2) * kBK * kRowBytes) + 2 * (kc & 3),
+                         gmma_desc(sQ + (kc >> 2) * kBQ * kRowBytes) + 2 * (kc & 3), kc);
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc)
-      wgmma_ss_n64<0, 0>(dpt, v_desc + 2 * kc, gmma_desc(sD) + 2 * kc, kc);
+    for (int kc = 0; kc < 4 * kNB; ++kc)
+      wgmma_ss_n64<0, 0>(dpt, gmma_desc(v_at + (kc >> 2) * kBK * kRowBytes) + 2 * (kc & 3),
+                         gmma_desc(sD + (kc >> 2) * kBQ * kRowBytes) + 2 * (kc & 3), kc);
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(stt);
     fence_acc(dpt);
 
-    float nlse2[8][2];  // -lse * log2(e) of this thread's query columns
+    // -lse * log2(e) of this thread's query column qc (p = 0 past T): kept
+    // for the tile at D = 64, read again where used at D = 120, whose
+    // accumulators leave no registers for it
+    auto neg_lse2 = [&](int qc) {
+      return q0 + qc < T ? -nk.lse(ls[qc]) * 1.4426950408889634f : -CUDART_INF_F;
+    };
+    float nlse2[kNB == 1 ? 8 : 1][2];
+    if constexpr (kNB == 1) {
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+      for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int qc = nt * 8 + t4 * 2 + c;
-        nlse2[nt][c] = q0 + qc < T ? -nk.lse(ls[qc]) * 1.4426950408889634f
-                                   : -CUDART_INF_F;  // p = 0 past T
-      }
+        for (int c = 0; c < 2; ++c) nlse2[nt][c] = neg_lse2(nt * 8 + t4 * 2 + c);
+    }
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int r = j >> 1, qc = nt * 8 + t4 * 2 + (j & 1);
-        const float p = kcode[r] > 0 ? ex2(fmaf(stt[nt][j], scale2, nlse2[nt][j & 1]))
-                                     : p_masked[r];
+        float nl;
+        if constexpr (kNB == 1)
+          nl = nlse2[nt][j & 1];
+        else
+          nl = neg_lse2(qc);
+        const float p = kcode[r] > 0 ? ex2(fmaf(stt[nt][j], scale2, nl)) : p_masked[r];
         float a = p, dp = dpt[nt][j];
         if (threshold) {
           const bool keep = keep_elem(seed_bh, (uint32_t)(pos.q_off + q0 + qc),
@@ -419,11 +471,11 @@ flash_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
       for (int r = 0; r < 2; ++r)
-        *reinterpret_cast<uint32_t*>(dS_ptr + swz(r0 + g + 8 * r, nt) + t4 * 4) =
+        *reinterpret_cast<uint32_t*>(dS_ptr + swz(r0 + g + 8 * r, nt, kBK) + t4 * 4) =
             pack_bf16(dpt[nt][2 * r], dpt[nt][2 * r + 1]);
 
     // dV += A^T dO and dK += dS^T q: A^T and dS^T from registers, dO and q
-    // MN-major (k = queries, 16 rows a step)
+    // MN-major (k = queries, 16 rows a step), one product per column block
     uint32_t at[4][4], dst[4][4];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
@@ -432,50 +484,68 @@ flash_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     }
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs_n64<1>(dva, at[kk], gmma_desc(sD + kk * 16 * kRowBytes), 1);
+    for (int nb = 0; nb < kNB; ++nb)
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs_n64<1>(dka, dst[kk], gmma_desc(sQ + kk * 16 * kRowBytes), 1);
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_n64<1>(dva[nb], at[kk],
+                        gmma_desc(sD + nb * kBQ * kRowBytes + kk * 16 * kRowBytes), 1);
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_n64<1>(dka[nb], dst[kk],
+                        gmma_desc(sQ + nb * kBQ * kRowBytes + kk * 16 * kRowBytes), 1);
     wgmma_commit();
 
     fence_proxy_async();
     bar_sync(kBarCompute, kCompute);  // both warpgroups' dS^T rows written
 
     // this warpgroup's dQ share: dS (64 queries x 128 keys, MN-major from
-    // dS^T) . K (128 keys x columns 32wg..32wg+31, MN-major)
-    float dqa[4][4];
+    // dS^T) . K (128 keys x the warpgroup's kDqCols columns, MN-major):
+    // columns 32wg..32wg+31 of the one block at D = 64, block wg at D = 120
+    float dqa[kDqCols / 8][4];
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk)
-      wgmma_ss_n32<1, 1>(dqa, gmma_desc(sdS + kk * 16 * kRowBytes),
-                         gmma_desc(sK + kk * 16 * kRowBytes + wg * 64), kk);
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      if constexpr (kDqCols == 32)
+        wgmma_ss_n32<1, 1>(dqa, gmma_desc(sdS + kk * 16 * kRowBytes),
+                           gmma_desc(sK + kk * 16 * kRowBytes + wg * 64), kk);
+      else
+        wgmma_ss_n64<1, 1>(dqa, gmma_desc(sdS + kk * 16 * kRowBytes),
+                           gmma_desc(sK + wg * kBK * kRowBytes + kk * 16 * kRowBytes), kk);
+    }
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(dqa);
-    fence_acc(dka);
-    fence_acc(dva);
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb) {
+      fence_acc(dka[nb]);
+      fence_acc(dva[nb]);
+    }
 
     // hand the share to the writer warp
     const int buf = it % kDqBufs;
     if (it >= kDqBufs) bar_sync(kBarEmpty + buf, kHandoff);
-    float* share = dq_s + buf * kBQ * kD;
+    float* share = dq_s + buf * kBQ * kDP;
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+    for (int nt = 0; nt < kDqCols / 8; ++nt)
 #pragma unroll
       for (int r = 0; r < 2; ++r)
-        *reinterpret_cast<float2*>(share + (16 * wiw + g + 8 * r) * kD + 32 * wg + nt * 8 +
-                                   2 * t4) = make_float2(dqa[nt][2 * r], dqa[nt][2 * r + 1]);
+        *reinterpret_cast<float2*>(share + (16 * wiw + g + 8 * r) * kDP + kDqCols * wg +
+                                   nt * 8 + 2 * t4) = make_float2(dqa[nt][2 * r],
+                                                                  dqa[nt][2 * r + 1]);
     fence_proxy_async();  // the bulk copy reads the share through the async proxy
     bar_arrive(kBarFull + buf, kHandoff);
   }
-  store_rows(dk, dka, keys, b, h, Tk, H, scale * inv_keep, t4);
-  store_rows(dv, dva, keys, b, h, Tk, H, inv_keep, t4);
+  store_rows<D>(dk, dka, keys, b, h, Tk, H, scale * inv_keep, t4);
+  store_rows<D>(dv, dva, keys, b, h, Tk, H, inv_keep, t4);
 }
 
 // ---------------------------------------------------------------------------
 // fp32: 3xTF32 on wgmma, the dK/dV and dQ kernels
 // ---------------------------------------------------------------------------
+
+constexpr int kD = 64;  // the fp32 path's head dim (fp32 B2 refuses any other)
 
 // dK/dV: one block of 2 warpgroups per 128 keys (64 a warpgroup, 16 a warp)
 // walks 32-query tiles
@@ -789,17 +859,53 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
   }
 }
 
+// the bf16 path at head dim D: delta, the one-pass kernel, the dQ convert
+template <int D>
+int launch_bwd_bf16(const void* q, const void* k, const void* v, const int* km, const void* o,
+                    const void* dout, const float* lse_f, float* delta_f, void* dq_accum,
+                    void* dq_sem, void* dq, void* dk, void* dv, int B, int T, int Tk, int H,
+                    Strides qs, Strides ks, Strides vs, Strides os, Strides ds, float scale,
+                    uint32_t seed, uint32_t t_hash, uint32_t threshold, float inv_keep,
+                    HashPos pos, cudaStream_t st) {
+  using bf = __nv_bfloat16;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_bwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      BwdBf16<D>::kSmemBytes);
+  if (attr != cudaSuccess) return (int)attr;
+  const long long rows = (long long)B * H * T;
+  cudaError_t err;
+  // the element loop leaves inv_keep out: A, dP and delta carry 1/inv_keep,
+  // and dk, dv and dq take it back once at the end
+  flash_bwd_delta_kernel<bf, D><<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(
+      static_cast<const bf*>(o), static_cast<const bf*>(dout), delta_f, T, H, rows, os, ds,
+      1.f / inv_keep);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  flash_bwd_bf16_kernel<D>
+      <<<dim3((Tk + kBK - 1) / kBK, B * H), kThreads, BwdBf16<D>::kSmemBytes, st>>>(
+          static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v), km,
+          static_cast<const bf*>(dout), lse_f, delta_f, static_cast<float*>(dq_accum),
+          static_cast<int*>(dq_sem), static_cast<bf*>(dk), static_cast<bf*>(dv), T, Tk, H, qs,
+          ks, vs, ds, scale, seed, t_hash, threshold, inv_keep, pos);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const long long n8 = rows * (D / 8);
+  flash_bwd_dq_convert_kernel<D><<<(unsigned)((n8 + 255) / 256), 256, 0, st>>>(
+      static_cast<const float*>(dq_accum), static_cast<bf*>(dq), T, H, n8, scale * inv_keep);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Plain C entry point (bound with ctypes). dtype: 0 = float32, 1 = bfloat16.
-// T queries against Tk keys; b_offset, q_offset, h_offset and h_total place
-// the call's rows in the logical batch for the keep hash (HashPos,
-// flash_common.cuh). `lse` is B1's fp32 [B, H, T] output, `delta` an fp32 [B, H, T] scratch
-// buffer. For bf16, `dq_accum` is an fp32 [B*H, T, 64] scratch buffer (no
-// initial value needed) and `dq_sem` an int32 buffer of B*H*ceil(T/64)
-// ZEROS (the key-tile order counters); both are unused for fp32. Launches
-// three kernels on `stream`, does not synchronise, and returns the first
-// launch error (cudaGetLastError()), 0 on success.
+// Plain C entry point (bound with ctypes). dtype: 0 = float32, 1 = bfloat16;
+// D: the head dim, 64 or (bf16 only) 120; any other is refused with
+// cudaErrorInvalidValue. T queries against Tk keys; b_offset, q_offset,
+// h_offset and h_total place the call's rows in the logical batch for the
+// keep hash (HashPos, flash_common.cuh). `lse` is B1's fp32 [B, H, T]
+// output, `delta` an fp32 [B, H, T] scratch buffer. For bf16, `dq_accum` is
+// an fp32 [B*H, T, padded_dim(D)] scratch buffer (no initial value needed)
+// and `dq_sem` an int32 buffer of B*H*ceil(T/64) ZEROS (the key-tile order
+// counters); both are unused for fp32. Launches three kernels on `stream`,
+// does not synchronise, and returns the first launch error
+// (cudaGetLastError()), 0 on success.
 extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                          const void* key_mask, const void* o, const void* dout,
                          const void* lse, void* delta, void* dq_accum, void* dq_sem,
@@ -812,7 +918,7 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                          float scale, int seed, int t_hash,
                          unsigned int threshold, float inv_keep, int b_offset,
                          int q_offset, int h_offset, int h_total, void* stream) {
-  if (D != kD || B <= 0 || T <= 0 || Tk <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || T <= 0 || Tk <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   const HashPos pos{b_offset, q_offset, h_offset, h_total};
   const Strides qs{qsb, qst, qsh}, ks{ksb, kst, ksh}, vs{vsb, vst, vsh},
       os{osb, ost, osh}, ds{dsb, dst, dsh};
@@ -820,37 +926,22 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v,
   const float* lse_f = static_cast<const float*>(lse);
   float* delta_f = static_cast<float*>(delta);
   const int* km = static_cast<const int*>(key_mask);
-  const long long rows = (long long)B * H * T;
-  const unsigned delta_blocks = (unsigned)((rows + 7) / 8);
   cudaError_t err;
-  if (dtype == 1) {
-    using bf = __nv_bfloat16;
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        flash_bwd_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-    if (attr != cudaSuccess) return (int)attr;
-    // the element loop leaves inv_keep out: A, dP and delta carry 1/inv_keep,
-    // and dk, dv and dq take it back once at the end
-    flash_bwd_delta_kernel<<<delta_blocks, 256, 0, st>>>(
-        static_cast<const bf*>(o), static_cast<const bf*>(dout), delta_f, T, H, rows, os,
-        ds, 1.f / inv_keep);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    flash_bwd_bf16_kernel<<<dim3((Tk + kBK - 1) / kBK, B * H), kThreads, kSmemBytes, st>>>(
-        static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v), km,
-        static_cast<const bf*>(dout), lse_f, delta_f, static_cast<float*>(dq_accum),
-        static_cast<int*>(dq_sem), static_cast<bf*>(dk),
-        static_cast<bf*>(dv), T, Tk, H, qs, ks, vs, ds, scale, (uint32_t)seed,
-        (uint32_t)t_hash, threshold, inv_keep, pos);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    const long long n8 = rows * (kD / 8);
-    flash_bwd_dq_convert_kernel<<<(unsigned)((n8 + 255) / 256), 256, 0, st>>>(
-        static_cast<const float*>(dq_accum), static_cast<bf*>(dq), T, H, n8, scale * inv_keep);
-    return (int)cudaGetLastError();
-  }
-  if (dtype == 0) {
+  if (dtype == 1 && D == 64)
+    return launch_bwd_bf16<64>(q, k, v, km, o, dout, lse_f, delta_f, dq_accum, dq_sem, dq, dk,
+                               dv, B, T, Tk, H, qs, ks, vs, os, ds, scale, (uint32_t)seed,
+                               (uint32_t)t_hash, threshold, inv_keep, pos, st);
+  if (dtype == 1 && D == 120)
+    return launch_bwd_bf16<120>(q, k, v, km, o, dout, lse_f, delta_f, dq_accum, dq_sem, dq, dk,
+                                dv, B, T, Tk, H, qs, ks, vs, os, ds, scale, (uint32_t)seed,
+                                (uint32_t)t_hash, threshold, inv_keep, pos, st);
+  if (dtype == 0 && D == kD) {
+    const long long rows = (long long)B * H * T;
+    const unsigned delta_blocks = (unsigned)((rows + 7) / 8);
     const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
                 *vf = static_cast<const float*>(v), *df = static_cast<const float*>(dout);
-    flash_bwd_delta_kernel<<<delta_blocks, 256, 0, st>>>(static_cast<const float*>(o), df,
-                                                         delta_f, T, H, rows, os, ds, 1.f);
+    flash_bwd_delta_kernel<float, kD><<<delta_blocks, 256, 0, st>>>(
+        static_cast<const float*>(o), df, delta_f, T, H, rows, os, ds, 1.f);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     static const cudaError_t attr_dk = cudaFuncSetAttribute(
         flash_bwd_dkdv_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkSmemBytes);

@@ -1,15 +1,26 @@
 // What kernels B1 (flash_fwd.cu) and B2 (flash_bwd.cu) share, so that the
 // two cannot drift apart: the constants and the keep hash of the TPU
 // kernels, the swizzled shared-memory tile layout, the asynchronous tile
-// loaders (cp.async with zero fill past T), the wgmma descriptors,
-// instructions and fences, and the fp32 paths' 3xTF32 split, planes and
-// TF32 wgmma products (last section).
+// loaders (cp.async with zero fill past T and past the head dim), the wgmma
+// descriptors, instructions and fences, and the fp32 paths' 3xTF32 split,
+// planes and TF32 wgmma products (last section).
 //
-// Tile layout. A [rows, 64] bf16 tile is stored as 128-byte rows of eight
-// 16-byte chunks; chunk c of row r sits at chunk c ^ (r & 7). That is the
-// 128-byte swizzle of wgmma's shared-memory descriptors (layout type 1) when
-// the tile starts on a 1024-byte boundary, and it makes every 4-byte
-// accumulator store of 8 consecutive rows free of bank conflicts.
+// Head dims. The kernels are templates on the head dim D: 64 (every
+// encoder of 16 heads at 1024) and 120 (XLS-R's 1920 at 16 heads). A tile
+// holds DP = D rounded up to 64 columns (padded_dim); the columns from D to
+// DP are zero-filled on load, so every product over them adds exact zeros,
+// and are never stored. In global memory a row is D elements (240 bytes at
+// D = 120, still whole 16-byte chunks); in shared memory it is DP.
+//
+// Tile layout. A [rows, DP] bf16 tile is stored as DP / 64 column blocks,
+// each [rows, 64] of 128-byte rows of eight 16-byte chunks, the blocks
+// rows * 128 bytes apart; chunk c of row r of a block sits at chunk
+// c ^ (r & 7). That is the 128-byte swizzle of wgmma's shared-memory
+// descriptors (layout type 1) when the block starts on a 1024-byte boundary,
+// and it makes every 4-byte accumulator store of 8 consecutive rows free of
+// bank conflicts. A product over the head dim (K-major operands) steps k
+// through the blocks in turn; one whose n is the head dim runs once per
+// block, so no descriptor spans two blocks.
 
 #pragma once
 
@@ -20,10 +31,13 @@
 
 namespace flash {
 
-constexpr int kD = 64;               // head dim (the only one supported)
 constexpr float kMaskFill = -1e30f;  // NEG_INF of the TPU kernel
 constexpr uint32_t kGolden = 0x9E3779B9u;
-constexpr int kRowBytes = kD * 2;    // one bf16 tile row
+constexpr int kAtom = 64;            // bf16 columns of one swizzle atom (a column block)
+constexpr int kRowBytes = kAtom * 2; // one row of a column block
+
+// the head dim a tile holds: D rounded up to whole column blocks
+__host__ __device__ constexpr int padded_dim(int d) { return (d + kAtom - 1) / kAtom * kAtom; }
 
 struct Strides {
   long long b, t, h;  // in elements; the D stride is 1
@@ -88,9 +102,10 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// byte offset of 16-byte chunk `ch` of row `r` in a swizzled tile
-__device__ __forceinline__ uint32_t swz(int r, int ch) {
-  return (uint32_t)(r * kRowBytes + ((ch ^ (r & 7)) << 4));
+// byte offset of 16-byte chunk `ch` of row `r` in a swizzled tile of `rows`
+// rows (chunks 8 and up lie in the later column blocks)
+__device__ __forceinline__ uint32_t swz(int r, int ch, int rows) {
+  return (uint32_t)((ch >> 3) * rows * kRowBytes + r * kRowBytes + (((ch & 7) ^ (r & 7)) << 4));
 }
 
 // 16 bytes global -> shared; with `n` = 0 the destination is zero-filled
@@ -113,18 +128,21 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// rows [row0, row0 + R) of a [T, 64] bf16 slice with row stride `rs` ->
-// the swizzled tile at `dst`; rows past T are zero-filled
-template <int R, int NT>
+// rows [row0, row0 + R) of a [T, D] bf16 slice with row stride `rs` ->
+// the swizzled [R, padded_dim(D)] tile at `dst`; rows past T and the
+// columns past D are zero-filled
+template <int R, int NT, int D>
 __device__ __forceinline__ void load_tile_async(uint32_t dst, const __nv_bfloat16* base,
                                                 long long rs, int row0, int T, int tid) {
-  static_assert((R * 8) % NT == 0, "whole chunks per thread");
+  constexpr int kCh = padded_dim(D) / 8;  // 16-byte chunks of a tile row
+  static_assert(D % 8 == 0 && (R * kCh) % NT == 0, "whole chunks per thread");
 #pragma unroll
-  for (int i = 0; i < R * 8 / NT; ++i) {
-    const int c = tid + i * NT, r = c >> 3, ch = c & 7;
-    const bool in = row0 + r < T;
-    const __nv_bfloat16* src = base + (in ? (long long)(row0 + r) * rs : 0) + ch * 8;
-    cp_async16(dst + swz(r, ch), src, in ? 16 : 0);
+  for (int i = 0; i < R * kCh / NT; ++i) {
+    const unsigned c = tid + i * NT;  // unsigned: the divisions are shifts
+    const int r = c / kCh, ch = c % kCh;
+    const bool in = row0 + r < T && ch < D / 8;
+    const __nv_bfloat16* src = base + (in ? (long long)(row0 + r) * rs + ch * 8 : 0);
+    cp_async16(dst + swz(r, ch, R), src, in ? 16 : 0);
   }
 }
 
@@ -276,26 +294,31 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4], const uint32_t (&
 // (split_cols_sw), and an A operand is split into registers (frag_a, or
 // acc_as_frag_a from the accumulator of the product before).
 //
-// Tiles. A raw tile is fp32 as cp.async lands it, [rows, 64] with rows
-// kLdF = 68 floats apart: the 4-float pad puts the 8 rows x 4 columns of an
-// A fragment on distinct banks. A plane of R rows holds K = 64 (or R) tf32
-// columns as atoms of 32 columns (128-byte rows, 16-byte chunk c of row r at
-// c ^ (r & 7)), R * 128 bytes apart, each 1024-byte aligned.
+// Tiles. A raw tile is fp32 as cp.async lands it, [rows, DP] with rows
+// ldf(DP) = DP + 4 floats apart (68 at D = 64, 132 at D = 120): the 4-float
+// pad puts the 8 rows x 4 columns of an A fragment on distinct banks. A
+// plane of R rows holds K = DP (or R) tf32 columns as atoms of 32 columns
+// (128-byte rows, 16-byte chunk c of row r at c ^ (r & 7)), R * 128 bytes
+// apart, each 1024-byte aligned.
 
-constexpr int kLdF = kD + 4;  // floats per raw tile row
+__host__ __device__ constexpr int ldf(int dp) { return dp + 4; }  // floats per raw tile row
+constexpr int kLdF = ldf(64);  // the D = 64 tiles' (fp32 B2 runs at D = 64 only)
 
-// rows [row0, row0 + R) of a [T, 64] fp32 slice with row stride `rs` -> the
-// raw tile at `dst`; rows past T are zero-filled
-template <int R, int NT>
+// rows [row0, row0 + R) of a [T, D] fp32 slice with row stride `rs` -> the
+// raw [R, padded_dim(D)] tile at `dst`; rows past T and the columns past D
+// are zero-filled
+template <int R, int NT, int D = 64>
 __device__ __forceinline__ void load_tile_f32_async(float* dst, const float* base, long long rs,
                                                     int row0, int T, int tid) {
-  static_assert((R * 16) % NT == 0, "whole chunks per thread");
+  constexpr int kCh = padded_dim(D) / 4, kLd = ldf(padded_dim(D));
+  static_assert(D % 4 == 0 && (R * kCh) % NT == 0, "whole chunks per thread");
 #pragma unroll
-  for (int i = 0; i < R * 16 / NT; ++i) {
-    const int c = tid + i * NT, r = c >> 4, ch = c & 15;
-    const bool in = row0 + r < T;
-    const float* src = base + (in ? (long long)(row0 + r) * rs : 0) + ch * 4;
-    cp_async16(smem_u32(dst + r * kLdF + ch * 4), src, in ? 16 : 0);
+  for (int i = 0; i < R * kCh / NT; ++i) {
+    const unsigned c = tid + i * NT;
+    const int r = c / kCh, ch = c % kCh;
+    const bool in = row0 + r < T && ch < D / 4;
+    const float* src = base + (in ? (long long)(row0 + r) * rs + ch * 4 : 0);
+    cp_async16(smem_u32(dst + r * kLd + ch * 4), src, in ? 16 : 0);
   }
 }
 
@@ -335,36 +358,39 @@ __device__ __forceinline__ void st_split4(uint32_t hi, uint32_t lo, float4 x, fl
                "r"(p2.lo), "r"(p3.lo) : "memory");
 }
 
-// the raw tile (rows [0, R)) times f -> its hi plane at dst ([R rows, 64 k])
-// and its lo plane after it
-template <int R, int NT>
+// the raw tile (rows [0, R), DP columns) times f -> its hi plane at dst
+// ([R rows, DP k]) and its lo plane after it
+template <int R, int NT, int DP = 64>
 __device__ __forceinline__ void split_rows_sw(uint32_t dst, const float* raw, int tid,
                                               float f = 1.f) {
-  static_assert((R * 16) % NT == 0, "whole chunks per thread");
+  constexpr int kCh = DP / 4, kLd = ldf(DP);
+  static_assert((R * kCh) % NT == 0, "whole chunks per thread");
 #pragma unroll
-  for (int i = 0; i < R * 16 / NT; ++i) {
-    const int c = tid + i * NT, r = c >> 4, ch = c & 15;
+  for (int i = 0; i < R * kCh / NT; ++i) {
+    const unsigned c = tid + i * NT;
+    const int r = c / kCh, ch = c % kCh;
     const uint32_t at = dst + swz32(r, ch * 4, R);
-    st_split4(at, at + R * kD * 4, *reinterpret_cast<const float4*>(raw + r * kLdF + ch * 4), f);
+    st_split4(at, at + R * DP * 4, *reinterpret_cast<const float4*>(raw + r * kLd + ch * 4), f);
   }
 }
 
-// the transpose of the raw tile (rows [0, R)) times f -> hi plane at dst
-// ([64 rows, R k]) and lo after it, the R columns permuted within each 8:
-// source rows 8a + e + 2j (j = 0..3) land at k = 8a + 4e + j, the order in
-// which acc_as_frag_a holds them
-template <int R, int NT>
+// the transpose of the raw tile (rows [0, R), DP columns) times f -> hi
+// plane at dst ([DP rows, R k]) and lo after it, the R columns permuted
+// within each 8: source rows 8a + e + 2j (j = 0..3) land at k = 8a + 4e + j,
+// the order in which acc_as_frag_a holds them
+template <int R, int NT, int DP = 64>
 __device__ __forceinline__ void split_cols_sw(uint32_t dst, const float* raw, int tid,
                                               float f = 1.f) {
-  static_assert((R / 4 * kD) % NT == 0, "whole items per thread");
+  constexpr int kLd = ldf(DP);
+  static_assert((R / 4 * DP) % NT == 0, "whole items per thread");
 #pragma unroll
-  for (int i = 0; i < R / 4 * kD / NT; ++i) {
-    const int it = tid + i * NT, c = it & (kD - 1), grp = it / kD;
+  for (int i = 0; i < R / 4 * DP / NT; ++i) {
+    const int it = tid + i * NT, c = it & (DP - 1), grp = it / DP;
     const int r0 = (grp >> 1) * 8 + (grp & 1);
-    const float4 x = make_float4(raw[r0 * kLdF + c], raw[(r0 + 2) * kLdF + c],
-                                 raw[(r0 + 4) * kLdF + c], raw[(r0 + 6) * kLdF + c]);
-    const uint32_t at = dst + swz32(c, (grp >> 1) * 8 + (grp & 1) * 4, kD);
-    st_split4(at, at + kD * R * 4, x, f);
+    const float4 x = make_float4(raw[r0 * kLd + c], raw[(r0 + 2) * kLd + c],
+                                 raw[(r0 + 4) * kLd + c], raw[(r0 + 6) * kLd + c]);
+    const uint32_t at = dst + swz32(c, (grp >> 1) * 8 + (grp & 1) * 4, DP);
+    st_split4(at, at + DP * R * 4, x, f);
   }
 }
 
@@ -380,11 +406,13 @@ struct FragA {
   }
 };
 
-// A fragment from a raw tile: rows r, r + 8, columns c, c + 4, times f
+// A fragment from a raw tile of rows LD floats apart: rows r, r + 8,
+// columns c, c + 4, times f
+template <int LD = kLdF>
 __device__ __forceinline__ FragA frag_a(const float* tile, int r, int c, float f = 1.f) {
   FragA a;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) a.set(i, tile[(r + (i & 1) * 8) * kLdF + c + (i >> 1) * 4] * f);
+  for (int i = 0; i < 4; ++i) a.set(i, tile[(r + (i & 1) * 8) * LD + c + (i >> 1) * 4] * f);
   return a;
 }
 

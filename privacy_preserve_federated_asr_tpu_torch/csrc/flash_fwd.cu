@@ -66,6 +66,17 @@
 // products and the softmax run in turn in both warpgroups between two block
 // barriers, so the tensor cores idle outside the products; the q fragments
 // take 64 of a thread's registers, so one block runs per SM.
+//
+// Head dim 120 (XLS-R 2B: 1920 at 16 heads). Both kernels are templates on
+// D; at 120 each tile holds 128 columns in two 64-column blocks, the last
+// 8 zero-filled by cp.async and never stored, so q, k and v are still read
+// in place (rows of 240 bytes). S = Q K^T steps k through both blocks; the
+// O accumulator doubles to two 64-column blocks, one P V product each.
+// bf16: the tiles double (97 KB of shared memory) and the accumulator needs
+// more registers than two blocks per SM allow, so one block runs per SM.
+// fp32: the q fragments would take 128 registers beside the doubled
+// accumulator, so the raw q tile stays in shared memory and is split again
+// in each key tile, half the head dim at a time, over 32-key tiles.
 
 #include "flash_common.cuh"
 
@@ -89,12 +100,23 @@ constexpr int kThreads = 256;                 // 2 warpgroups
 constexpr int kBQ = 128;                      // queries per block (64 per warpgroup)
 constexpr int kBK = 64;                       // keys per tile
 constexpr int kStages = 2;                    // K/V ring depth
-constexpr int kQBytes = kBQ * kRowBytes;      // 16 KB
-constexpr int kTileBytes = kBK * kRowBytes;   // 8 KB
-constexpr int kSmemBytes =                    // + slack to align the tiles to 1 KB
-    1024 + kQBytes + kStages * (2 * kTileBytes + kBK * 4);
 
-__global__ void __launch_bounds__(kThreads, 2)
+// The bf16 kernel's sizes at head dim D: tiles of DP columns (DP / 64
+// column blocks). At D = 64 two blocks share an SM; at D = 120 the doubled
+// O accumulator and Q / K / V tiles take one SM each.
+template <int D>
+struct FwdBf16 {
+  static constexpr int kDP = padded_dim(D);
+  static constexpr int kNB = kDP / kAtom;               // column blocks
+  static constexpr int kQBytes = kBQ * kDP * 2;         // 16 KB at D = 64
+  static constexpr int kTileBytes = kBK * kDP * 2;      // 8 KB at D = 64
+  static constexpr int kSmemBytes =                     // + slack to align the tiles to 1 KB
+      1024 + kQBytes + kStages * (2 * kTileBytes + kBK * 4);
+  static constexpr int kMinBlocks = kNB == 1 ? 2 : 1;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, FwdBf16<D>::kMinBlocks)
 flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v,
@@ -104,6 +126,8 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                       Strides qs, Strides ks, Strides vs, float scale,
                       uint32_t seed, uint32_t t_hash, uint32_t threshold,
                       float inv_keep, HashPos pos) {
+  using C = FwdBf16<D>;
+  constexpr int kNB = C::kNB, kQBytes = C::kQBytes, kTileBytes = C::kTileBytes;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t sQ = smem_u32(smem);
@@ -127,21 +151,24 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
   auto load_kv = [&](int kt) {
     const int st = kt % kStages;
-    load_tile_async<kBK, kThreads>(sKV + 2 * st * kTileBytes, kb, ks.t, kt * kBK, Tk, tid);
-    load_tile_async<kBK, kThreads>(sKV + (2 * st + 1) * kTileBytes, vb, vs.t, kt * kBK, Tk,
-                                   tid);
+    load_tile_async<kBK, kThreads, D>(sKV + 2 * st * kTileBytes, kb, ks.t, kt * kBK, Tk, tid);
+    load_tile_async<kBK, kThreads, D>(sKV + (2 * st + 1) * kTileBytes, vb, vs.t, kt * kBK, Tk,
+                                      tid);
     load_vec_async<kBK>(mask_s + st * kBK, mb, kt * kBK, Tk, tid);
     cp_async_commit();
   };
 
-  load_tile_async<kBQ, kThreads>(sQ, qb, qs.t, q0, T, tid);  // rows past T zero
+  load_tile_async<kBQ, kThreads, D>(sQ, qb, qs.t, q0, T, tid);  // rows past T zero
   load_kv(0);
 
-  const uint64_t q_desc = gmma_desc(sQ + 64 * wg * kRowBytes);  // this warpgroup's rows
-  float oacc[kD / 8][4];
+  // this warpgroup's rows of column block 0; block cb lies cb * kBQ rows on
+  const uint32_t q_at = sQ + 64 * wg * kRowBytes;
+  float oacc[kNB][8][4];  // O's columns 64 nb + 8 dn + ...
 #pragma unroll
-  for (int i = 0; i < kD / 8; ++i)
-    oacc[i][0] = oacc[i][1] = oacc[i][2] = oacc[i][3] = 0.f;
+  for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      oacc[nb][i][0] = oacc[nb][i][1] = oacc[nb][i][2] = oacc[nb][i][3] = 0.f;
   float m[2] = {kMaskFill, kMaskFill};
   float l[2] = {0.f, 0.f};  // per-thread partial row sums (quad-reduced at the end)
   const uint32_t rows[2] = {(uint32_t)(q0 + warp * 16 + g),
@@ -156,12 +183,14 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     const int* mc = mask_s + st * kBK;
     const uint32_t sK = sKV + 2 * st * kTileBytes, sV = sK + kTileBytes;
 
-    // S = Q K^T: 64 rows x 64 keys per warpgroup, both operands K-major
+    // S = Q K^T: 64 rows x 64 keys per warpgroup, both operands K-major, k
+    // stepping 16 columns (32 B) through each column block in turn
     float s[kBK / 8][4];
     wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc)
-      wgmma_ss_n64<0, 0>(s, q_desc + 2 * kc, gmma_desc(sK) + 2 * kc, kc);
+    for (int kc = 0; kc < 4 * kNB; ++kc)
+      wgmma_ss_n64<0, 0>(s, gmma_desc(q_at + (kc >> 2) * kBQ * kRowBytes) + 2 * (kc & 3),
+                         gmma_desc(sK + (kc >> 2) * kBK * kRowBytes) + 2 * (kc & 3), kc);
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(s);
@@ -204,27 +233,35 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
 #pragma unroll
-    for (int dn = 0; dn < kD / 8; ++dn) {
-      oacc[dn][0] *= alpha[0];
-      oacc[dn][1] *= alpha[0];
-      oacc[dn][2] *= alpha[1];
-      oacc[dn][3] *= alpha[1];
-    }
+    for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+      for (int dn = 0; dn < 8; ++dn) {
+        oacc[nb][dn][0] *= alpha[0];
+        oacc[nb][dn][1] *= alpha[0];
+        oacc[nb][dn][2] *= alpha[1];
+        oacc[nb][dn][3] *= alpha[1];
+      }
 
-    // O += P V: P from registers, V MN-major (k = keys, 16 rows a step)
+    // O += P V: P from registers, V MN-major (k = keys, 16 rows a step), one
+    // product per column block of V
     uint32_t pa[kBK / 16][4];
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) acc_as_a(pa[kk], s, kk);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk)
-      wgmma_rs_n64<1>(oacc, pa[kk], gmma_desc(sV + kk * 16 * kRowBytes), 1);
+    for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        wgmma_rs_n64<1>(oacc[nb], pa[kk],
+                        gmma_desc(sV + nb * kBK * kRowBytes + kk * 16 * kRowBytes), 1);
     wgmma_commit();
     wgmma_wait<0>();
-    fence_acc(oacc);
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb) fence_acc(oacc[nb]);
   }
 
-  // epilogue: the full row sums, then acc * inv_keep / max(l, 1e-30)
+  // epilogue: the full row sums, then acc * inv_keep / max(l, 1e-30); the
+  // columns past D (zero) are not stored
   float f[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -235,17 +272,20 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     if (lse != nullptr && t4 == 0 && (int)rows[r] < T)
       lse[(long long)bh * T + rows[r]] = row_lse(m[r], lr);
   }
-  const long long ost = (long long)H * kD;
+  const long long ost = (long long)H * D;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = (int)rows[r];
     if (row >= T) continue;
-    __nv_bfloat16* orow = o + ((long long)b * T + row) * ost + (long long)h * kD;
+    __nv_bfloat16* orow = o + ((long long)b * T + row) * ost + (long long)h * D;
 #pragma unroll
-    for (int dn = 0; dn < kD / 8; ++dn) {
-      *reinterpret_cast<uint32_t*>(orow + dn * 8 + t4 * 2) =
-          pack_bf16(oacc[dn][2 * r] * f[r], oacc[dn][2 * r + 1] * f[r]);
-    }
+    for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+      for (int dn = 0; dn < 8; ++dn) {
+        if (nb * kAtom + dn * 8 >= D) continue;
+        *reinterpret_cast<uint32_t*>(orow + nb * kAtom + dn * 8 + t4 * 2) =
+            pack_bf16(oacc[nb][dn][2 * r] * f[r], oacc[nb][dn][2 * r + 1] * f[r]);
+      }
   }
 }
 
@@ -256,12 +296,27 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
 constexpr int kF32Threads = 256;                   // 2 warpgroups, 64 query rows each
 constexpr int kF32BQ = 128;                        // queries per block
-constexpr int kF32BK = 64;                         // keys per tile
-constexpr int kF32Raw = kF32BK * kLdF;             // floats of one raw K or V tile
-constexpr int kF32Plane = kF32BK * kD * 4;         // bytes of one plane of K or V^T
-constexpr int kF32SmemBytes =                      // + slack to align the planes to 1 KB
-    1024 + 4 * kF32Plane + (2 * kF32Raw + 2 * kF32BK) * 4;
 
+// The fp32 kernel's sizes at head dim D. At D = 64 each warp's split q rows
+// stay in registers for the whole key loop (64 registers) over 64-key
+// tiles. At D = 120 they would take 128 beside a doubled O accumulator, so
+// the raw q tile stays in shared memory, its fragments split again in each
+// key tile, in two halves of the head dim, over 32-key tiles (whose planes
+// then fit beside it).
+template <int D>
+struct FwdF32 {
+  static constexpr int kDP = padded_dim(D);
+  static constexpr int kNB = kDP / kAtom;            // column blocks of O
+  static constexpr int kLd = ldf(kDP);               // floats per raw row
+  static constexpr bool kQRegs = kNB == 1;           // q's fragments in registers
+  static constexpr int kBK = kQRegs ? 64 : 32;       // keys per tile
+  static constexpr int kRaw = kBK * kLd;             // floats of one raw K or V tile
+  static constexpr int kPlane = kBK * kDP * 4;       // bytes of one plane of K or V^T
+  static constexpr int kSmemBytes =                  // + slack to align the planes to 1 KB
+      1024 + 4 * kPlane + (2 * kRaw + 2 * kBK) * 4 + (kQRegs ? 0 : kF32BQ * kLd * 4);
+};
+
+template <int D>
 __global__ void __launch_bounds__(kF32Threads, 1)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
@@ -269,6 +324,9 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      float* __restrict__ lse, int T, int Tk, int H, Strides qs,
                      Strides ks, Strides vs, float scale, uint32_t seed, uint32_t t_hash,
                      uint32_t threshold, float inv_keep, HashPos pos) {
+  using C = FwdF32<D>;
+  constexpr int kDP = C::kDP, kNB = C::kNB, kF32BK = C::kBK, kF32Plane = C::kPlane;
+  constexpr int kF32Raw = C::kRaw;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t sK = smem_u32(smem);       // tile kt: K's planes (hi, lo)
@@ -277,6 +335,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* rawV = rawK + kF32Raw;
   int* rawM = reinterpret_cast<int*>(rawV + kF32Raw);
   int* mc = rawM + kF32BK;  // tile kt's key mask
+  float* rawQ = reinterpret_cast<float*>(mc + kF32BK);  // the block's q (D > 64 only)
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -292,51 +351,74 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int n_tiles = (Tk + kF32BK - 1) / kF32BK;
 
   auto load_kv = [&](int kt) {
-    load_tile_f32_async<kF32BK, kF32Threads>(rawK, kb, ks.t, kt * kF32BK, Tk, tid);
-    load_tile_f32_async<kF32BK, kF32Threads>(rawV, vb, vs.t, kt * kF32BK, Tk, tid);
+    load_tile_f32_async<kF32BK, kF32Threads, D>(rawK, kb, ks.t, kt * kF32BK, Tk, tid);
+    load_tile_f32_async<kF32BK, kF32Threads, D>(rawV, vb, vs.t, kt * kF32BK, Tk, tid);
     load_vec_async<kF32BK>(rawM, mb, kt * kF32BK, Tk, tid);
     cp_async_commit();
   };
+  if constexpr (!C::kQRegs)  // rows past T and columns past D zero
+    load_tile_f32_async<kF32BQ, kF32Threads, D>(rawQ, qb, qs.t, q0, T, tid);
   load_kv(0);
 
   // this warp's 16 query rows (of its warpgroup's 64), scaled in fp32 (as
   // the TPU kernel does) and split once: S's A operand for the whole loop
   const uint32_t rows[2] = {(uint32_t)(q0 + warp * 16 + g), (uint32_t)(q0 + warp * 16 + g + 8)};
-  FragA qa[kD / 8];
+  FragA qa[C::kQRegs ? kDP / 8 : 1];
+  if constexpr (C::kQRegs) {
 #pragma unroll
-  for (int kc = 0; kc < kD / 8; ++kc)
+    for (int kc = 0; kc < kDP / 8; ++kc)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = (int)rows[i & 1], col = kc * 8 + t4 + (i >> 1) * 4;
-      qa[kc].set(i, row < T ? qb[(long long)row * qs.t + col] * scale : 0.f);
-    }
+      for (int i = 0; i < 4; ++i) {
+        const int row = (int)rows[i & 1], col = kc * 8 + t4 + (i >> 1) * 4;
+        qa[kc].set(i, row < T ? qb[(long long)row * qs.t + col] * scale : 0.f);
+      }
+  }
 
-  float oacc[kD / 8][4];
+  float oacc[kNB][8][4];
 #pragma unroll
-  for (int i = 0; i < kD / 8; ++i)
-    oacc[i][0] = oacc[i][1] = oacc[i][2] = oacc[i][3] = 0.f;
+  for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      oacc[nb][i][0] = oacc[nb][i][1] = oacc[nb][i][2] = oacc[nb][i][3] = 0.f;
   float m[2] = {kMaskFill, kMaskFill};
   float l[2] = {0.f, 0.f};  // per-thread partial row sums (quad-reduced at the end)
 
   for (int kt = 0; kt < n_tiles; ++kt) {
     cp_async_wait<0>();
     __syncthreads();  // raw tile kt landed; tile kt-1's planes are free
-    split_rows_sw<kF32BK, kF32Threads>(sK, rawK, tid);
-    split_cols_sw<kF32BK, kF32Threads>(sVt, rawV, tid);
+    split_rows_sw<kF32BK, kF32Threads, kDP>(sK, rawK, tid);
+    split_cols_sw<kF32BK, kF32Threads, kDP>(sVt, rawV, tid);
     if (tid < kF32BK) mc[tid] = rawM[tid];
     fence_proxy_async();
     __syncthreads();  // planes written; the raw stage is free
     if (kt + 1 < n_tiles) load_kv(kt + 1);  // in flight while tile kt computes
     const int k0 = kt * kF32BK;
 
-    // S = (q * scale) K^T: 64 rows x 64 keys per warpgroup
+    // S = (q * scale) K^T: 64 rows x kF32BK keys per warpgroup
     float s[kF32BK / 8][4];
-    wgmma_fence();
+    if constexpr (C::kQRegs) {
+      wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < kD / 8; ++kc)
-      wgmma_3xtf32(s, qa[kc], sK, kF32Plane, kc, kF32BK, kc == 0);
-    wgmma_commit();
-    wgmma_wait<0>();
+      for (int kc = 0; kc < kDP / 8; ++kc)
+        wgmma_3xtf32(s, qa[kc], sK, kF32Plane, kc, kF32BK, kc == 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+    } else {
+      // q's fragments split from the raw tile, half the head dim at a time
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        FragA xa[kDP / 16];
+#pragma unroll
+        for (int i = 0; i < kDP / 16; ++i)
+          xa[i] = frag_a<C::kLd>(rawQ, warp * 16 + g, (half * kDP / 16 + i) * 8 + t4, scale);
+        wgmma_fence();
+#pragma unroll
+        for (int i = 0; i < kDP / 16; ++i)
+          wgmma_3xtf32(s, xa[i], sK, kF32Plane, half * kDP / 16 + i, kF32BK, half + i == 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+      }
+    }
     fence_acc(s);
 
     // mask, then the online-softmax statistics (precise expf, as fp32 wants)
@@ -377,27 +459,34 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
 #pragma unroll
-    for (int dn = 0; dn < kD / 8; ++dn) {
-      oacc[dn][0] *= alpha[0];
-      oacc[dn][1] *= alpha[0];
-      oacc[dn][2] *= alpha[1];
-      oacc[dn][3] *= alpha[1];
-    }
+    for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+      for (int dn = 0; dn < 8; ++dn) {
+        oacc[nb][dn][0] *= alpha[0];
+        oacc[nb][dn][1] *= alpha[0];
+        oacc[nb][dn][2] *= alpha[1];
+        oacc[nb][dn][3] *= alpha[1];
+      }
 
-    // O += P V: P from the S accumulators (keys permuted), V^T's planes
+    // O += P V: P from the S accumulators (keys permuted), V^T's planes, one
+    // product per 64 rows of V^T (a column block of O)
     FragA pa[kF32BK / 8];
 #pragma unroll
     for (int kc = 0; kc < kF32BK / 8; ++kc) pa[kc] = acc_as_frag_a(s[kc]);
     wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < kF32BK / 8; ++kc)
-      wgmma_3xtf32(oacc, pa[kc], sVt, kF32Plane, kc, kD, false);
+    for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+      for (int kc = 0; kc < kF32BK / 8; ++kc)
+        wgmma_3xtf32(oacc[nb], pa[kc], sVt + nb * kAtom * 128, kF32Plane, kc, kDP, false);
     wgmma_commit();
     wgmma_wait<0>();
-    fence_acc(oacc);
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb) fence_acc(oacc[nb]);
   }
 
-  // epilogue: the full row sums, then acc * inv_keep / max(l, 1e-30)
+  // epilogue: the full row sums, then acc * inv_keep / max(l, 1e-30); the
+  // columns past D (zero) are not stored
   float f[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -408,25 +497,62 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (lse != nullptr && t4 == 0 && (int)rows[r] < T)
       lse[(long long)bh * T + rows[r]] = row_lse(m[r], lr);
   }
-  const long long ost = (long long)H * kD;
+  const long long ost = (long long)H * D;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = (int)rows[r];
     if (row >= T) continue;
-    float* orow = o + ((long long)b * T + row) * ost + (long long)h * kD;
+    float* orow = o + ((long long)b * T + row) * ost + (long long)h * D;
 #pragma unroll
-    for (int dn = 0; dn < kD / 8; ++dn)
-      *reinterpret_cast<float2*>(orow + dn * 8 + t4 * 2) =
-          make_float2(oacc[dn][2 * r] * f[r], oacc[dn][2 * r + 1] * f[r]);
+    for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+      for (int dn = 0; dn < 8; ++dn) {
+        if (nb * kAtom + dn * 8 >= D) continue;
+        *reinterpret_cast<float2*>(orow + nb * kAtom + dn * 8 + t4 * 2) =
+            make_float2(oacc[nb][dn][2 * r] * f[r], oacc[nb][dn][2 * r + 1] * f[r]);
+      }
   }
+}
+
+// one launch of either kernel at head dim D
+template <int D>
+int launch_fwd(const void* q, const void* k, const void* v, const int* key_mask, void* o,
+               float* lse, int dtype, int B, int T, int Tk, int H, Strides qs, Strides ks,
+               Strides vs, float scale, uint32_t seed, uint32_t t_hash, uint32_t threshold,
+               float inv_keep, HashPos pos, cudaStream_t st) {
+  if (dtype == 1) {
+    static const cudaError_t attr =
+        cudaFuncSetAttribute(flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             FwdBf16<D>::kSmemBytes);
+    if (attr != cudaSuccess) return (int)attr;
+    const dim3 grid((T + kBQ - 1) / kBQ, B * H);
+    flash_fwd_bf16_kernel<D><<<grid, kThreads, FwdBf16<D>::kSmemBytes, st>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), key_mask, static_cast<__nv_bfloat16*>(o), lse, T,
+        Tk, H, qs, ks, vs, scale, seed, t_hash, threshold, inv_keep, pos);
+  } else if (dtype == 0) {
+    static const cudaError_t attr =
+        cudaFuncSetAttribute(flash_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             FwdF32<D>::kSmemBytes);
+    if (attr != cudaSuccess) return (int)attr;
+    const dim3 grid((T + kF32BQ - 1) / kF32BQ, B * H);
+    flash_fwd_f32_kernel<D><<<grid, kF32Threads, FwdF32<D>::kSmemBytes, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        key_mask, static_cast<float*>(o), lse, T, Tk, H, qs, ks, vs, scale, seed, t_hash,
+        threshold, inv_keep, pos);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes). dtype: 0 = float32, 1 = bfloat16.
-// `lse` is null (serving) or an fp32 [B, H, T] buffer that receives each
-// row's log-sum-exp m + log(l) of the scaled, mask-replaced scores, which
-// the backward (flash_bwd.cu) reads. Launches on `stream`, does not
+// Plain C entry point (bound with ctypes). dtype: 0 = float32, 1 = bfloat16;
+// D: the head dim, 64 or 120 (any other is refused). `lse` is null
+// (serving) or an fp32 [B, H, T] buffer that receives each row's
+// log-sum-exp m + log(l) of the scaled, mask-replaced scores, which the
+// backward (flash_bwd.cu) reads. Launches on `stream`, does not
 // synchronise, and returns cudaGetLastError().
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const void* key_mask, void* o, int dtype, int B,
@@ -437,32 +563,17 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          unsigned int threshold, float inv_keep, int b_offset,
                          int q_offset, int h_offset, int h_total, void* lse,
                          void* stream) {
-  if (D != kD || B <= 0 || T <= 0 || Tk <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || T <= 0 || Tk <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   const HashPos pos{b_offset, q_offset, h_offset, h_total};
   const Strides qs{qsb, qst, qsh}, ks{ksb, kst, ksh}, vs{vsb, vst, vsh};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        flash_fwd_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-    if (attr != cudaSuccess) return (int)attr;
-    const dim3 grid((T + kBQ - 1) / kBQ, B * H);
-    flash_fwd_bf16_kernel<<<grid, kThreads, kSmemBytes, st>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(key_mask),
-        static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), T, Tk, H, qs, ks,
-        vs, scale, (uint32_t)seed, (uint32_t)t_hash, threshold, inv_keep, pos);
-  } else if (dtype == 0) {
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        flash_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kF32SmemBytes);
-    if (attr != cudaSuccess) return (int)attr;
-    const dim3 grid((T + kF32BQ - 1) / kF32BQ, B * H);
-    flash_fwd_f32_kernel<<<grid, kF32Threads, kF32SmemBytes, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const int*>(key_mask),
-        static_cast<float*>(o), static_cast<float*>(lse), T, Tk, H, qs, ks, vs,
-        scale, (uint32_t)seed, (uint32_t)t_hash, threshold, inv_keep, pos);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  const int* km = static_cast<const int*>(key_mask);
+  float* lf = static_cast<float*>(lse);
+  if (D == 64)
+    return launch_fwd<64>(q, k, v, km, o, lf, dtype, B, T, Tk, H, qs, ks, vs, scale,
+                          (uint32_t)seed, (uint32_t)t_hash, threshold, inv_keep, pos, st);
+  if (D == 120)
+    return launch_fwd<120>(q, k, v, km, o, lf, dtype, B, T, Tk, H, qs, ks, vs, scale,
+                           (uint32_t)seed, (uint32_t)t_hash, threshold, inv_keep, pos, st);
+  return (int)cudaErrorInvalidValue;
 }

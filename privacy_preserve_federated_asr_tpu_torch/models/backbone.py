@@ -29,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import dropout_seed, hash_stride, multihead_attention
 from ..ops.quant import int8_linear, int8_train_linear
+from ..utils.profiling import span
 from .config import BackboneConfig
 
 ACT2FN = {
@@ -202,16 +203,17 @@ class PositionalConvEmbedding(nn.Module):
                                param_dtype=param_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, T, D]
-        x = x.transpose(1, 2)
-        if self.cfg.pos_conv_type == "stacked":
-            for layer in self.layers:
-                x = layer(x)
-        else:
-            x = self.conv(x)
-            if self.cfg.num_conv_pos_embeddings % 2 == 0:
-                x = x[:, :, :-1]
-            x = ACT2FN[self.cfg.feat_extract_activation](x)
-        return x.transpose(1, 2)
+        with span("dacs.encoder.pos_conv"):
+            x = x.transpose(1, 2)
+            if self.cfg.pos_conv_type == "stacked":
+                for layer in self.layers:
+                    x = layer(x)
+            else:
+                x = self.conv(x)
+                if self.cfg.num_conv_pos_embeddings % 2 == 0:
+                    x = x[:, :, :-1]
+                x = ACT2FN[self.cfg.feat_extract_activation](x)
+            return x.transpose(1, 2)
 
 
 class Attention(nn.Module):

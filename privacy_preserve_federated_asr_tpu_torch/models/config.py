@@ -124,6 +124,17 @@ class BackboneConfig:
                    num_conv_pos_embeddings=128, do_stable_layer_norm=False)
 
     @classmethod
+    def wav2vec2_xls_r_2b(cls) -> "BackboneConfig":
+        """facebook/wav2vec2-xls-r-2b (XLS-R, Babu et al. 2021, Table 1): 48
+        pre-LN blocks at 1920 (16 heads of 120, FFN 7680) behind the
+        wav2vec2-large-lv60 frontend and positional conv; ~2.16B parameters
+        train at stage 0."""
+        return cls(model_type="wav2vec2", hidden_size=1920, num_hidden_layers=48,
+                   num_attention_heads=16, intermediate_size=7680, conv_bias=True,
+                   feat_extract_norm="layer", pos_conv_type="single",
+                   num_conv_pos_embeddings=128, do_stable_layer_norm=True)
+
+    @classmethod
     def hubert_large_ls960(cls) -> "BackboneConfig":
         return cls(model_type="hubert", conv_bias=True, feat_extract_norm="layer",
                    pos_conv_type="single", num_conv_pos_embeddings=128,

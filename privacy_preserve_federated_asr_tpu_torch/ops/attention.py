@@ -38,6 +38,12 @@ computed before they existed. JAX forces its XLA attention under tensor and
 sequence parallelism only because GSPMD cannot slice a Pallas call; here
 each rank's heads and query rows are a plain local batch for the kernels,
 which run under every layout.
+
+The kernels take the head dims in ``HEAD_DIMS``: 64 (every encoder of 16
+heads at 1024) and 120 (XLS-R 2B's 1920 at 16 heads), both in bf16 and, for
+kernel B1, in fp32; kernel B2 takes fp32 at 64 only. At 120 the kernels pad
+each row to 128 columns in shared memory (zeros, never stored); q, k and v
+are read in place, 240-byte rows included.
 """
 
 from __future__ import annotations
@@ -250,6 +256,7 @@ _BWD_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_uint,
                     ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (64, 120)  # the head dims the kernels are built for
 
 
 def _aligned(x: torch.Tensor) -> bool:
@@ -268,7 +275,7 @@ def _check_strided(name: str, *xs: torch.Tensor) -> None:
                              f"data, got strides {x.stride()}")
 
 
-def _check_inputs(name: str, q, k, v, key_mask) -> None:
+def _check_inputs(name: str, q, k, v, key_mask, backward: bool = False) -> None:
     if not (q.is_cuda and k.device == q.device and v.device == q.device
             and key_mask.device == q.device):
         raise ValueError(f"{name} needs q, k, v and key_mask on one CUDA device")
@@ -280,8 +287,11 @@ def _check_inputs(name: str, q, k, v, key_mask) -> None:
         raise ValueError(f"q must be [B, Tq, H, D] and k, v [B, Tk, H, D], got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, t, h, d = q.shape
-    if d != 64:
-        raise ValueError(f"{name} supports head_dim 64, got {d}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name} supports head_dim 64 or 120, got {d}")
+    if backward and d != 64 and q.dtype == torch.float32:
+        raise ValueError(f"{name}: the fp32 kernel B2 supports head_dim 64 only, got {d} "
+                         f"(bf16 takes {d})")
     if key_mask.shape != (b, k.shape[1]) or key_mask.dtype != torch.int32 \
             or not key_mask.is_contiguous():
         raise ValueError("key_mask must be a contiguous int32 [B, Tk] tensor")
@@ -310,14 +320,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch kernel B1 (``csrc/flash_fwd.cu``) on CUDA tensors.
 
     q: ``[B, Tq, H, D]``, k and v ``[B, Tk, H, D]``, bf16 or fp32 on one CUDA
-    device, D = 64, the D axis contiguous and every other stride a multiple
-    of 8 elements (views of a projection's ``[B, T, H*D]`` output qualify).
+    device, D in ``HEAD_DIMS``, the D axis contiguous and every other stride
+    a whole 16-byte vector of elements (views of a projection's
+    ``[B, T, H*D]`` output qualify).
     ``key_mask``: int32 ``[B, Tk]`` (> 0 = valid); the offsets as in the
     module docstring. Returns a new contiguous ``[B, Tq, H, D]``, and with
     ``return_lse`` also each row's fp32 log-sum-exp ``[B, H, Tq]`` of the
     scaled, mask-replaced scores (what kernel B2 reads). Counts each launch
-    in ``flash_attention_fwd.launches`` and, by dtype name, in
-    ``flash_attention_fwd.dtype_launches``."""
+    in ``flash_attention_fwd.launches`` and, by dtype name and by head dim,
+    in ``flash_attention_fwd.dtype_launches`` and ``.head_dim_launches``."""
     _check_inputs("flash_attention_fwd", q, k, v, key_mask)
     b, t, h, d = q.shape
     t_k = k.shape[1]
@@ -337,11 +348,13 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {rc}")
     flash_attention_fwd.launches += 1
     flash_attention_fwd.dtype_launches[str(q.dtype)[6:]] += 1
+    flash_attention_fwd.head_dim_launches[d] += 1
     return (out, lse) if return_lse else out
 
 
 flash_attention_fwd.launches = 0
 flash_attention_fwd.dtype_launches = {"float32": 0, "bfloat16": 0}
+flash_attention_fwd.head_dim_launches = dict.fromkeys(HEAD_DIMS, 0)
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -356,12 +369,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v, key_mask, rate, seed, t_hash and the offsets are the forward's;
     ``lse`` is the forward's ``return_lse`` output. Counts each call (one per layer
     backward, three CUDA launches) in ``flash_attention_bwd.launches`` and,
-    by dtype name, in ``flash_attention_bwd.dtype_launches``. Two calls on
+    by dtype name and by head dim, in ``flash_attention_bwd.dtype_launches``
+    and ``.head_dim_launches``; fp32 takes head dim 64 only. Two calls on
     the same inputs give bit-equal gradients in either dtype: the bf16
     kernel sums dQ over its key tiles in a fixed order, and the fp32 path
     (3xTF32 on the tensor cores) gives each of dq, dk and dv one owner that
     sums in a fixed order."""
-    _check_inputs("flash_attention_bwd", q, k, v, key_mask)
+    _check_inputs("flash_attention_bwd", q, k, v, key_mask, backward=True)
     b, t, h, d = q.shape
     t_k = k.shape[1]
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype:
@@ -375,9 +389,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     dq_accum = dq_sem = None
     if q.dtype == torch.bfloat16:
-        # dQ's fp32 partial sums, and one zeroed counter per (b*h, 64-query
-        # tile) that orders the key tiles' adds (csrc/flash_bwd.cu)
-        dq_accum = torch.empty((b * h, t, d), dtype=torch.float32, device=q.device)
+        # dQ's fp32 partial sums (rows padded to whole 64-column blocks), and
+        # one zeroed counter per (b*h, 64-query tile) that orders the key
+        # tiles' adds (csrc/flash_bwd.cu)
+        dq_accum = torch.empty((b * h, t, -(-d // 64) * 64), dtype=torch.float32,
+                               device=q.device)
         dq_sem = torch.zeros(b * h * -(-t // 64), dtype=torch.int32, device=q.device)
     dq = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     dk, dv = (torch.empty((b, t_k, h, d), dtype=q.dtype, device=q.device)
@@ -398,11 +414,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_bwd kernel launch failed: CUDA error {rc}")
     flash_attention_bwd.launches += 1
     flash_attention_bwd.dtype_launches[str(q.dtype)[6:]] += 1
+    flash_attention_bwd.head_dim_launches[d] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
 flash_attention_bwd.dtype_launches = {"float32": 0, "bfloat16": 0}
+flash_attention_bwd.head_dim_launches = dict.fromkeys(HEAD_DIMS, 0)
 
 
 class FlashAttention(torch.autograd.Function):

@@ -35,14 +35,14 @@ T, H, BATCH = 1499, 16, 8
 VARIANTS = [
     ("flash_fwd", "as built", []),
     ("flash_fwd", "no split pass",
-     [("    split_rows_sw<kF32BK, kF32Threads>(sK, rawK, tid);\n"
-       "    split_cols_sw<kF32BK, kF32Threads>(sVt, rawV, tid);\n", "")]),
+     [("    split_rows_sw<kF32BK, kF32Threads, kDP>(sK, rawK, tid);\n"
+       "    split_cols_sw<kF32BK, kF32Threads, kDP>(sVt, rawV, tid);\n", "")]),
     ("flash_fwd", "no S = q K^T",
-     [("      wgmma_3xtf32(s, qa[kc], sK, kF32Plane, kc, kF32BK, kc == 0);",
-       "      s[kc][0] = s[kc][1] = s[kc][2] = s[kc][3] = __uint_as_float(qa[kc].hi[0]);")]),
+     [("        wgmma_3xtf32(s, qa[kc], sK, kF32Plane, kc, kF32BK, kc == 0);",
+       "        s[kc][0] = s[kc][1] = s[kc][2] = s[kc][3] = __uint_as_float(qa[kc].hi[0]);")]),
     ("flash_fwd", "no O += P V",
-     [("      wgmma_3xtf32(oacc, pa[kc], sVt, kF32Plane, kc, kD, false);",
-       "      oacc[kc][0] += __uint_as_float(pa[kc].hi[0]);")]),
+     [("        wgmma_3xtf32(oacc[nb], pa[kc], sVt + nb * kAtom * 128, kF32Plane, kc, kDP, false);",
+       "        oacc[nb][kc][0] += __uint_as_float(pa[kc].hi[0]);")]),
     ("flash_fwd", "fast exp (__expf)", [("= expf(", "= __expf(")]),
     ("flash_bwd", "as built", []),
     ("flash_bwd", "dK/dV: no split pass",

@@ -22,6 +22,12 @@ The spans of one train step (``train/trainer.py``, ``train/steps.py``,
     autograd's thread,
   * ``dacs.train.optim``: gradient norm, clipping, AdamW and the schedule.
 
+And of the encoder's positional convolution (``models/backbone.py``), in
+every forward that runs it:
+
+  * ``dacs.encoder.pos_conv``: ``PositionalConvEmbedding.forward``, the
+    stacked and the single kind.
+
 The JAX module's ``enable_tpu_fast_rng`` (switch JAX's PRNG to the TPU's
 hardware RBG) has no meaning in torch and has no counterpart here.
 """

@@ -342,13 +342,12 @@ def test_cuda_bwd_kernel_matches_ref(dtype):
                     assert (a - w).abs().max() <= 2e-2 * w.abs().max()
 
 
-def _card_inputs(b, t, h, dtype, seed, lengths, qkv_views=False):
+def _card_inputs(b, t, h, dtype, seed, lengths, qkv_views=False, d=64):
     """q, k, v, a cotangent g and the int32 key mask on the card; with
-    ``qkv_views`` q, k and v are strided views of one [b, t, 3*h*64]
+    ``qkv_views`` q, k and v are strided views of one [b, t, 3*h*d]
     projection, as the encoder hands them over."""
     rng = np.random.default_rng(seed)
     dt = getattr(torch, dtype)
-    d = 64
 
     def card(*shape):
         return torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to("cuda", dt)
@@ -427,3 +426,80 @@ def test_cuda_bwd_kernel_is_deterministic():
         again = port.flash_attention_bwd(q, k, v, mask, o, g, lse, 0.1, 1, 768)
         for a, b in zip(first, again):
             assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [1, 65, 129, 300])
+def test_cuda_kernels_head_dim_120(t, dtype):
+    """Head dim 120 (XLS-R 2B) on q, k, v views of one [B, T, 3*H*120]
+    projection (240-byte rows read in place), ragged key masks (one row
+    with no key), dropout 0 and 0.1: B1 in both dtypes against
+    attention_ref, B2 in bf16 against attention_bwd_ref and twice
+    bit-equal; fp32 B2 refused by name. Runs on a card only."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: kernels B1 and B2 run only on the card")
+    q, k, v, g, mask = _card_inputs(3, t, 2, dtype, t, [t, t // 2 + 1, 0], qkv_views=True,
+                                    d=120)
+    assert q.stride()[2] == 120 and (t == 1 or q.stride()[1] == 3 * 2 * 120)
+    t_hash = -(-t // 128) * 128
+    fwd0 = port.flash_attention_fwd.head_dim_launches[120]
+    for rate in (0.0, 0.1):
+        if dtype == "bfloat16":
+            _check_both_kernels(dtype, q, k, v, g, mask, rate, t_hash)
+            o, lse = port.flash_attention_fwd(q, k, v, mask, rate, 7, t_hash, return_lse=True)
+            first = port.flash_attention_bwd(q, k, v, mask, o, g, lse, rate, 7, t_hash)
+            again = port.flash_attention_bwd(q, k, v, mask, o, g, lse, rate, 7, t_hash)
+            assert all(torch.equal(a, b) for a, b in zip(first, again))
+            continue
+        got = port.flash_attention_fwd(q, k, v, mask, rate, 7, t_hash).float()
+        ref = port.attention_ref(q, k, v, mask, rate, 7, t_hash).float()
+        valid = mask.bool()
+        torch.testing.assert_close(got[valid], ref[valid], **CUDA_TOL[dtype])
+        o, lse = port.flash_attention_fwd(q, k, v, mask, rate, 7, t_hash, return_lse=True)
+        with pytest.raises(ValueError, match="fp32 kernel B2 supports head_dim 64 only"):
+            port.flash_attention_bwd(q, k, v, mask, o, g, lse, rate, 7, t_hash)
+    assert port.flash_attention_fwd.head_dim_launches[120] > fwd0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernels_head_dim_120_offsets(dtype):
+    """Head dim 120 with fewer queries than keys (a sequence-parallel
+    rank's rows) and every offset of the keep hash set: B1 (and in bf16 B2)
+    against the plain versions with the same offsets; runs on a card only."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: kernels B1 and B2 run only on the card")
+    _, k, v, _, mask = _card_inputs(2, 257, 3, dtype, 21, [257, 100], d=120)
+    q, _, _, g, _ = _card_inputs(2, 130, 3, dtype, 22, [130, 130], d=120)
+    place = dict(b_offset=3, q_offset=127, h_offset=3, h_total=8)
+    got = port.flash_attention_fwd(q, k, v, mask, 0.1, 5, 384, **place).float()
+    ref = port.attention_ref(q, k, v, mask, 0.1, 5, 384, **place).float()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, **CUDA_TOL[dtype])
+    if dtype == "float32":
+        return
+    o, lse = port.flash_attention_fwd(q, k, v, mask, 0.1, 5, 384, return_lse=True, **place)
+    grads = port.flash_attention_bwd(q, k, v, mask, o, g, lse, 0.1, 5, 384, **place)
+    want = port.attention_bwd_ref(q, k, v, mask, o, g, 0.1, 5, 384, **place)
+    torch.cuda.synchronize()
+    for a, w in zip(grads, want):
+        a, w = a.float(), w.float()
+        assert torch.isfinite(a).all() and (a - w).abs().max() <= 2e-2 * w.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [72, 256])
+def test_cuda_kernels_refuse_other_head_dims(d):
+    """Head dims the kernels are not built for are refused by name, before
+    any launch; runs on a card only."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: kernels B1 and B2 run only on the card")
+    q, k, v, g, mask = _card_inputs(1, 16, 2, "bfloat16", 1, [16], d=d)
+    n0 = port.flash_attention_fwd.launches
+    with pytest.raises(ValueError, match=f"supports head_dim 64 or 120, got {d}"):
+        port.flash_attention_fwd(q, k, v, mask)
+    lse = torch.zeros(1, 2, 16, device="cuda")
+    with pytest.raises(ValueError, match=f"supports head_dim 64 or 120, got {d}"):
+        port.flash_attention_bwd(q, k, v, mask, q, g, lse)
+    assert port.flash_attention_fwd.launches == n0

@@ -456,7 +456,9 @@ def test_parsers_match_jax(tmp_path):
     with the same defaults and choices; only ``--device`` is the port's own
     (with ``transcribe``'s shallow-fusion LM flags, which it shares with
     ``serve`` and ``extract``) and ``--no_fast_rng`` (the TPU's RNG switch)
-    JAX's own. ``--num_lms``
+    JAX's own; ``--model_type`` also takes the port's own ``xlsr-2b``
+    (XLS-R 2B, a preset the JAX package does not have).
+    ``--num_lms``
     and ``serve --int8`` take JAX's effect: the method's model gets the
     N-best heads (and ``export-hf`` writes them), and W8A8 Dense layers."""
     from privacy_preserve_federated_asr_tpu import cli as jax_cli
@@ -468,6 +470,10 @@ def test_parsers_match_jax(tmp_path):
         a = {k: v for k, v in ours[sub].items()
              if k not in (port_only if sub == "transcribe" else {("--device",)})}
         b = {k: v for k, v in theirs[sub].items() if k != ("--no_fast_rng",)}
+        if ("--model_type",) in a:
+            default, choices = a[("--model_type",)]
+            assert "xlsr-2b" in choices, sub
+            a[("--model_type",)] = (default, [c for c in choices if c != "xlsr-2b"])
         assert a == b, (sub, set(a) ^ set(b))
     parse = cli.build_parser().parse_args
     assert cli._dacs_cfg(parse(["serve", "--int8"])).backbone.dense_impl == "int8_train"

@@ -37,10 +37,11 @@ PARENT = {"dacs.train.gather": "dacs.train.step", "dacs.train.forward": "dacs.tr
           "dacs.ctc.backward": "dacs.train.backward"}
 
 
-def _trainer(stage: int) -> Trainer:
+def _trainer(stage: int, **backbone) -> Trainer:
     """The tiny Trainer of test_torch_train.py on two utterances of ~0.07 s
-    (~100 frames: the CTC recursions loop over frames in Python)."""
-    cfg = DACSConfig(backbone=BackboneConfig.tiny_for_tests(), stage=stage)
+    (~100 frames: the CTC recursions loop over frames in Python);
+    ``backbone``: fields of the tiny backbone replaced."""
+    cfg = DACSConfig(backbone=BackboneConfig.tiny_for_tests(**backbone), stage=stage)
     sd = init_dacs_state_dict(cfg, torch.Generator().manual_seed(0))
     rng = np.random.default_rng(0)
     examples = prepare_examples(
@@ -116,3 +117,25 @@ def test_profiled_step_is_bit_equal():
     want = traced.state.model.state_dict()
     for k, v in plain.state.model.state_dict().items():
         assert torch.equal(v, want[k]), k
+
+
+@pytest.mark.parametrize("pos_conv_type", ["stacked", "single"])
+def test_pos_conv_spans(pos_conv_type):
+    """The positional conv's span in one stage-0 step: once, inside
+    ``dacs.train.forward``, around every convolution of the forward; the
+    backward's convolutions lie outside it."""
+    tr = (_trainer(0) if pos_conv_type == "stacked" else
+          _trainer(0, pos_conv_type="single", num_conv_pos_embeddings=4,
+                   do_stable_layer_norm=True))
+    _, events = _one_step(tr, profiled=True, all_threads=True)
+
+    def one(name):
+        [(a, b)] = [(e.time_range.start, e.time_range.end) for e in events if e.name == name]
+        return a, b
+
+    (a, b), (pa, pb) = one("dacs.encoder.pos_conv"), one("dacs.train.forward")
+    assert pa <= a and b <= pb
+    inside = [e for e in events if e.name == "aten::convolution"]
+    assert inside and all(a <= e.time_range.start and e.time_range.end <= b for e in inside)
+    after = [e for e in events if e.name == "aten::convolution_backward"]
+    assert after and all(e.time_range.start >= b for e in after)
