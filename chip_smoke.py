@@ -2,7 +2,7 @@
 """On-card smoke test of the PyTorch/CUDA port (one NVIDIA H100).
 
     python3 chip_smoke.py                  # every phase (the contract's run)
-    python3 chip_smoke.py --kernels-only   # phases 1, 2 and 5: build and check
+    python3 chip_smoke.py --kernels-only   # phases 1, 2, 5 and 39: build and check
 
 Drives the port's serving path (also streaming through the hub and
 standalone sessions, int16 transport and int8 W8A8 compute), its stage-0
@@ -252,6 +252,14 @@ non-zero exit:
    --model_type xlsr-2b -st 2`` (fp32) of its final model, their B1 / B2
    launches held per head dim (all at 120) and the train's peak memory
    printed; ``--xlsr-only`` runs phases 1 and 38;
+39. (run after 5) the positional-conv kernels (csrc/pos_conv.cu: the
+   forward, the input gradient and the weight gradient, and the weight's
+   bf16 tiles) against the plain version in fp32 at XLS-R 2B's B=8, T=499
+   and 749 (16 groups of 120, kernel 128) and at D=1024 (16 groups of 64),
+   two backward passes bit-equal; then each kernel's time beside its bound
+   (2 B T D Cg K operations at 989 TFLOP/s), the plain version's (forward;
+   backward, both gradients) and cuDNN's ``F.conv1d`` forward + backward
+   (``library_ms``: the port no longer calls it);
 37. the CTC kernels' launches of every phase that drives a main path, held
    to one alpha per CTC term a forward computes and one beta per term the
    backward reaches: the steps each phase trains on the card by their
@@ -270,8 +278,8 @@ non-zero exit:
    text paths (30-33) launch neither kernel: they run as torch ops, as their
    JAX counterparts run as XLA einsums.
 
-``--kernels-only`` runs phases 1, 2 and 5 and prints neither of the last
-two lines.
+``--kernels-only`` runs phases 1, 2, 5 and 39 and prints neither of the
+last two lines.
 """
 
 from __future__ import annotations
@@ -372,17 +380,21 @@ def _wrappers():
     from privacy_preserve_federated_asr_tpu_torch.ops.attention import (
         flash_attention_bwd, flash_attention_fwd)
     from privacy_preserve_federated_asr_tpu_torch.ops.ctc import ctc_alpha_cuda, ctc_beta_cuda
+    from privacy_preserve_federated_asr_tpu_torch.ops.pos_conv import (
+        pos_conv_dgrad_cuda, pos_conv_fwd_cuda, pos_conv_wgrad_cuda)
 
     return {"flash_fwd": flash_attention_fwd, "flash_bwd": flash_attention_bwd,
-            "ctc_alpha": ctc_alpha_cuda, "ctc_beta": ctc_beta_cuda}
+            "ctc_alpha": ctc_alpha_cuda, "ctc_beta": ctc_beta_cuda,
+            "pos_conv_fwd": pos_conv_fwd_cuda, "pos_conv_dgrad": pos_conv_dgrad_cuda,
+            "pos_conv_wgrad": pos_conv_wgrad_cuda}
 
 
 def _by_dtype(fn) -> dict[str, int]:
-    """A wrapper's launches by dtype; the CTC kernels take fp32 alone and
-    count launches only."""
+    """A wrapper's launches by dtype; the CTC kernels take fp32 alone, the
+    positional-conv kernels bf16 alone, and count launches only."""
     if hasattr(fn, "dtype_launches"):
         return dict(fn.dtype_launches)
-    return {"float32": fn.launches}
+    return {"bfloat16" if fn.__name__.startswith("pos_conv") else "float32": fn.launches}
 
 
 def reset_counts() -> None:
@@ -526,6 +538,19 @@ def header() -> None:
             kernel = m and f"{m[1]}<{m[2]}>"
         elif kernel and ("spill" in line or "registers" in line):
             log(f"[build]   {kernel}: {line.strip()}")
+    # the positional-conv kernels' registers and spills by padded channels
+    # (and, for the convolution, forward or input gradient), none spilling
+    kernel, spills = None, {}
+    for line in cuda_build.build_logs["pos_conv"].splitlines():
+        if "Function properties for" in line:
+            m = re.search(r"(pos_conv_(?:wgrad_|weight_)?kernel)ILi(\d+)E(?:Lb([01])E)?", line)
+            kernel = m and f"{m[1]}<{m[2]}{', dgrad' if m[3] == '1' else ''}>"
+        elif kernel and ("spill" in line or "registers" in line):
+            log(f"[build]   {kernel}: {line.strip()}")
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                spills[kernel] = (int(m[1]), int(m[2]))
+    assert len(spills) == 8 and all(v == (0, 0) for v in spills.values()), spills
 
 
 # ---------------------------------------------------------------------------
@@ -1252,6 +1277,120 @@ def check_ctc_kernels() -> dict:
                 f"{n} {v['ms']:.4f} ms, loop {v['plain_ms']:.3f} ms, bound {v['bound_ms']:.4f} "
                 f"ms ({v['bound_by']}; bytes {v['bytes_ms']:.4f} ms)" for n, v in times.items())
             + f"  [{card_line()}]")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 39. the positional-conv kernels against their plain version
+# ---------------------------------------------------------------------------
+
+# (B, T, D) with 16 groups and kernel 128: XLS-R 2B's 10 and 15 s buckets,
+# then the 1024-wide encoders (wav2vec2-large, HuBERT-large: 64 a group)
+POS_CONV_SHAPES = ((8, 499, 1920), (8, 749, 1920), (8, 749, 1024))
+POS_CONV_G, POS_CONV_K = 16, 128
+
+
+def _pos_conv_case(b: int, t: int, d: int, seed: int) -> tuple:
+    """Seeded bf16 x and cotangent [B, T, D], an fp32 weight of std 1 /
+    sqrt(fan-in) and an fp32 bias, on the card."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    cg = d // POS_CONV_G
+    x = torch.randn((b, t, d), generator=g, device="cuda").bfloat16()
+    dy = torch.randn((b, t, d), generator=g, device="cuda").bfloat16()
+    w = torch.randn((d, cg, POS_CONV_K), generator=g, device="cuda") * (cg * POS_CONV_K) ** -0.5
+    return x, dy, w, 0.1 * torch.randn(d, generator=g, device="cuda")
+
+
+def check_pos_conv_kernels() -> dict:
+    """Phase 39: ``csrc/pos_conv.cu`` through ``pos_conv_gelu`` against the
+    plain version in fp32 (TF32 off) on the same bf16 inputs, the weight
+    and bias rounded to bf16 as the kernels read them: y, dx, dW and db
+    each within 1e-2 of its norm (the bf16 roundings of pre, y, dz and dx
+    are 2^-9 each), and two backward passes bit-equal (no atomics). Then
+    each kernel alone (CUDA events, L2 warm) beside its bound, the plain
+    version in bf16 (forward; backward with both gradients) and cuDNN's
+    ``F.conv1d`` forward + backward (``library_ms``)."""
+    import torch.nn.functional as F
+
+    from privacy_preserve_federated_asr_tpu_torch.ops import pos_conv as pc
+
+    out = {"times": {}, "max_rel_err": 0.0}
+    g, k = POS_CONV_G, POS_CONV_K
+    for b, t, d in POS_CONV_SHAPES:
+        x, dy, w, bias = _pos_conv_case(b, t, d, 3900 + t + d)
+        runs = []
+        for _ in range(2):
+            xk, wk, bk = (v.clone().requires_grad_() for v in (x, w, bias))
+            y = pc.pos_conv_gelu(xk, wk, bk, g)
+            y.backward(dy)
+            runs.append((y.detach(), xk.grad, wk.grad, bk.grad))
+        xf, wf, bf = (v.float().requires_grad_() for v in (x, w.bfloat16(), bias.bfloat16()))
+        allow = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            yf = pc.pos_conv_gelu_plain(xf, wf, bf, g)
+            yf.backward(dy.float())
+        finally:
+            torch.backends.cudnn.allow_tf32 = allow
+        torch.cuda.synchronize()
+        errs = {}
+        for name, got, again, ref in zip(("y", "dx", "dw", "db"), runs[0], runs[1],
+                                         (yf.detach(), xf.grad, wf.grad, bf.grad)):
+            errs[name] = float((got.float() - ref).norm() / ref.norm())
+            assert errs[name] < 1e-2, (name, b, t, d, errs)
+            if name in ("dw", "db"):
+                assert got.dtype == torch.float32 and torch.equal(got, again), (name, b, t, d)
+        out["max_rel_err"] = max(out["max_rel_err"], *errs.values())
+        del runs, xf, wf, bf, yf
+
+        cg = d // g
+        shape = pc._shape(x, w, g)
+        wp = pc.pos_conv_weight_cuda(w, g)
+        y, pre = pc.pos_conv_fwd_cuda(x, wp, bias, shape)
+        dx, dz = pc.pos_conv_dgrad_cuda(dy, pre, wp, shape)
+        act = b * t * d * 2  # bytes of one [B, T, D] bf16 tensor
+        tiles = g * k * pc.padded_channels(cg) ** 2 * 2
+        ops = 2.0 * b * t * d * cg * k
+        # plain (bf16) and cuDNN: forward alone, then the backward alone
+        xr, wr, br = (v.clone().requires_grad_() for v in (x, w, bias))
+        yp = pc.pos_conv_gelu_plain(xr, wr, br, g)
+        xt = x.transpose(1, 2).clone().requires_grad_()
+        wl, bl = w.bfloat16().requires_grad_(), bias.bfloat16().requires_grad_()
+        yl = F.conv1d(xt, wl, bl, padding=k // 2, groups=g)
+        gl = torch.randn_like(yl)
+        plain_fwd = cuda_ms(lambda: pc.pos_conv_gelu_plain(x, w, bias, g), 2, 1, 3)
+        plain_bwd = cuda_ms(lambda: torch.autograd.grad(yp, (xr, wr, br), dy,
+                                                        retain_graph=True), 2, 1, 3)
+        lib = (cuda_ms(lambda: F.conv1d(xt, wl, bl, padding=k // 2, groups=g), 2, 1, 3)
+               + cuda_ms(lambda: torch.autograd.grad(yl, (xt, wl, bl), gl, retain_graph=True),
+                         2, 1, 3))
+        calls = {
+            "weight": (lambda: pc.pos_conv_weight_cuda(w, g), 0.0, d * cg * k * 4 + tiles,
+                       None),
+            "fwd": (lambda: pc.pos_conv_fwd_cuda(x, wp, bias, shape), ops, 3 * act + tiles,
+                    plain_fwd),
+            "dgrad": (lambda: pc.pos_conv_dgrad_cuda(dy, pre, wp, shape), ops, 4 * act + tiles,
+                      plain_bwd),
+            "wgrad": (lambda: pc.pos_conv_wgrad_cuda(dz, x, shape, True), ops,
+                      2 * act + d * cg * k * 4 + d * 4, plain_bwd)}
+        times = {}
+        for name, (fn, flops, nbytes, plain_ms) in calls.items():
+            ms = cuda_ms(fn, 20)
+            bound, by = _bound(flops, nbytes, torch.bfloat16)
+            times[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                           "library_ms": lib if name != "weight" else None}
+            log(f"[pos-conv-time] {name} B={b} T={t} D={d} ({g} x {cg}, K={k}): kernel "
+                f"{ms:.4f} ms, bound {bound:.4f} ms ({by}; {100 * bound / ms:.1f}% of it)"
+                + (f", plain {plain_ms:.3f} ms" if plain_ms is not None else "")
+                + f"  [{card_line()}]")
+        out["times"][(b, t, d)] = times
+        log(f"[pos-conv] B={b} T={t} D={d} ({g} x {cg}, K={k}): error norms against fp32 "
+            + ", ".join(f"{n} {v:.2e}" for n, v in errs.items())
+            + f"; dW and db bit-equal across two calls; plain bf16 forward {plain_fwd:.3f} ms, "
+            f"backward {plain_bwd:.3f} ms; cuDNN F.conv1d forward + backward {lib:.3f} ms, "
+            f"kernels {sum(v['ms'] for v in times.values()):.4f} ms  [{card_line()}]")
+        del x, dy, w, bias, wp, y, pre, dx, dz, xr, wr, br, yp, xt, wl, bl, yl, gl
+        torch.cuda.empty_cache()
     return out
 
 
@@ -5014,11 +5153,14 @@ def xlsr_full_width() -> dict:
     train --model_type xlsr-2b -st 0`` (bf16, 48 x 1920, B=8 of 4-5 s, a
     few steps and the evaluation) and ``cli extract --model_type xlsr-2b
     -st 2`` of its final model at fp32, each held to its B1 / B2 launches,
-    all at head dim 120."""
+    all at head dim 120, and to its positional-conv kernel launches (none
+    in fp32)."""
     from privacy_preserve_federated_asr_tpu_torch import cli
     from privacy_preserve_federated_asr_tpu_torch.evaluation import read_records
     from privacy_preserve_federated_asr_tpu_torch.ops.attention import (
         flash_attention_bwd, flash_attention_fwd)
+    from privacy_preserve_federated_asr_tpu_torch.ops.pos_conv import (
+        pos_conv_dgrad_cuda, pos_conv_fwd_cuda, pos_conv_wgrad_cuda)
 
     kern = xlsr_kernels()
     with tempfile.TemporaryDirectory() as tmp:
@@ -5038,6 +5180,8 @@ def xlsr_full_width() -> dict:
         b1, b2 = flash_attention_fwd.launches, flash_attention_bwd.launches
         by_d = (dict(flash_attention_fwd.head_dim_launches),
                 dict(flash_attention_bwd.head_dim_launches))
+        pc = tuple(fn.launches for fn in (pos_conv_fwd_cuda, pos_conv_dgrad_cuda,
+                                          pos_conv_wgrad_cuda))
         tally("cli train xlsr-2b")
         steps, n_eval = tr.state.step, len(tr.eval_batcher)
         ctc_steps("cli train xlsr-2b", steps)
@@ -5047,12 +5191,16 @@ def xlsr_full_width() -> dict:
         assert steps == XLSR_STEPS and all(np.isfinite(v) for v in ev.values()), (steps, ev)
         assert b1 == XLSR_LAYERS * (steps + n_eval) and b2 == XLSR_LAYERS * steps, (b1, b2)
         assert by_d == ({64: 0, 120: b1}, {64: 0, 120: b2}), by_d
+        # the kernel-128 conv: a forward per step and per eval batch, both
+        # gradients per step
+        assert pc == (steps + n_eval, steps, steps), pc
         assert all(torch.isfinite(p).all() for p in tr.state.tx.params)
         log(f"[xlsr] cli train --model_type xlsr-2b -st 0 (48 x 1920, 16 heads of 120, "
             f"{n_trained / 1e9:.3f}B trained, bf16, B={XLSR_BATCH} of 4-5 s): {steps} steps + "
             f"evaluate() in {wall:.1f} s (init, frontend cache and data included); eval {ev}; "
             f"B1 {b1} = 48 x ({steps} + {n_eval}), B2 {b2} = 48 x {steps}, by head dim "
-            f"{by_d}; peak memory {peak} B  [{card_line()}]")
+            f"{by_d}; positional-conv kernels (fwd, dgrad, wgrad) {pc}; peak memory {peak} B"
+            f"  [{card_line()}]")
         del tr
         gc.collect()
         torch.cuda.empty_cache()
@@ -5069,6 +5217,7 @@ def xlsr_full_width() -> dict:
         e1 = flash_attention_fwd.launches
         e_by = (dict(flash_attention_fwd.dtype_launches),
                 dict(flash_attention_fwd.head_dim_launches))
+        assert pos_conv_fwd_cuda.launches == 0  # fp32: the plain version
         tally("cli extract xlsr-2b")
         n_batches = 1 + XLSR_STEPS
         assert e1 == XLSR_LAYERS * n_batches and e_by[0]["float32"] == e1 \
@@ -5093,7 +5242,7 @@ def _shape_times(row: dict, **shape) -> dict:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
-                    help="phases 1, 2 and 5 only: build the kernels and hold them "
+                    help="phases 1, 2, 5 and 39 only: build the kernels and hold them "
                          "against their plain versions")
     ap.add_argument("--xlsr-only", action="store_true",
                     help="phases 1 and 38 only: build the kernels, then XLS-R 2B (the "
@@ -5115,8 +5264,9 @@ def main(argv=None) -> None:
     bwd = check_bwd_kernel()
     sp_kern = check_offset_kernels()
     ctc_kern = check_ctc_kernels()
+    pc_kern = check_pos_conv_kernels()
     if args.kernels_only:
-        log(f"[done] phases 1, 2 and 5 passed  [{card_line()}]")
+        log(f"[done] phases 1, 2, 5 and 39 passed  [{card_line()}]")
         return
     serving = serve_full_width()
     end_to_end_vs_cpu()
@@ -5156,7 +5306,8 @@ def main(argv=None) -> None:
                 + sweep["b1"])
     by_dtype = {name: {dt: sum(c.get(name, {}).get(dt, 0) for c in COUNTS.values())
                        for dt in ("bfloat16", "float32")}
-                for name in ("flash_fwd", "flash_bwd", "ctc_alpha", "ctc_beta")}
+                for name in ("flash_fwd", "flash_bwd", "ctc_alpha", "ctc_beta",
+                             "pos_conv_fwd", "pos_conv_dgrad", "pos_conv_wgrad")}
     check_ctc_counts()
     # the tallies hold the counts that each phase asserted, and the card's
     # launches of the fp32 card-vs-CPU phases besides
@@ -5229,8 +5380,23 @@ def main(argv=None) -> None:
         **{n: tc[k][n] for n in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "times": [_shape_times(ctc_kern["times"][shape][k], B=shape[0], T=shape[1],
                                L=shape[2], dtype="float32") for shape in CTC_SHAPES],
-    } for k, line in (("alpha", 140), ("beta", 181))]}
-    for name in ("flash_fwd", "flash_bwd", "ctc_alpha", "ctc_beta"):
+    } for k, line in (("alpha", 140), ("beta", 181))] + [{
+        "name": f"pos_conv_{k}",
+        "route": "cuda",
+        "source": "privacy_preserve_federated_asr_tpu_torch/csrc/pos_conv.cu",
+        "replaces": "none: privacy_preserve_federated_asr_tpu/models/backbone.py:173 "
+                    "(lax.conv_general_dilated through nn.Conv)",
+        "launches": sum(by_dtype[f"pos_conv_{k}"].values()),
+        "launches_by_dtype": by_dtype[f"pos_conv_{k}"],
+        "max_rel_err": pc_kern["max_rel_err"],
+        **{n: pc_kern["times"][POS_CONV_SHAPES[1]][k][n]
+           for n in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "times": [_shape_times(pc_kern["times"][shape][k], B=shape[0], T=shape[1], D=shape[2],
+                               groups=POS_CONV_G, K=POS_CONV_K, dtype="bfloat16")
+                  for shape in POS_CONV_SHAPES],
+    } for k in ("fwd", "dgrad", "wgrad")]}
+    for name in ("flash_fwd", "flash_bwd", "ctc_alpha", "ctc_beta", "pos_conv_fwd",
+                 "pos_conv_dgrad", "pos_conv_wgrad"):
         log(f"[kernels] {name} launches by dtype {by_dtype[name]}; by phase "
             + "; ".join(f"{p} {c[name]}" for p, c in COUNTS.items()
                         if any(c.get(name, {}).values())))

@@ -28,6 +28,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import dropout_seed, hash_stride, multihead_attention
+from ..ops.pos_conv import pos_conv_gelu
 from ..ops.quant import int8_linear, int8_train_linear
 from ..utils.profiling import span
 from .config import BackboneConfig
@@ -187,8 +188,9 @@ class StackedPosConvLayer(nn.Module):
 
 class PositionalConvEmbedding(nn.Module):
     """``stacked`` = data2vec's N small grouped conv+LN+GELU layers;
-    ``single`` = wav2vec2/hubert's one wide grouped conv (its weight norm is
-    merged into a plain weight at load time, models/port.py)."""
+    ``single`` = wav2vec2/hubert's one wide grouped conv and GELU
+    (``ops/pos_conv.py``: the hand-written kernels on bf16 CUDA tensors; its
+    weight norm is merged into a plain weight at load time, models/port.py)."""
 
     def __init__(self, cfg: BackboneConfig, dtype: torch.dtype, param_dtype: torch.dtype):
         super().__init__()
@@ -197,6 +199,9 @@ class PositionalConvEmbedding(nn.Module):
             self.layers = nn.ModuleList(StackedPosConvLayer(cfg, dtype, param_dtype)
                                         for _ in range(cfg.num_conv_pos_embeddings))
         else:
+            if cfg.feat_extract_activation not in ("gelu", "gelu_python"):
+                raise ValueError("the single positional conv computes GELU, not "
+                                 f"{cfg.feat_extract_activation!r}")
             k = cfg.num_conv_pos_embeddings
             self.conv = Conv1d(cfg.hidden_size, cfg.hidden_size, k, padding=k // 2,
                                groups=cfg.num_conv_pos_embedding_groups, dtype=dtype,
@@ -204,15 +209,12 @@ class PositionalConvEmbedding(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, T, D]
         with span("dacs.encoder.pos_conv"):
+            if self.cfg.pos_conv_type == "single":
+                return pos_conv_gelu(x.to(self.conv.compute_dtype), self.conv.weight,
+                                     self.conv.bias, self.conv.groups)
             x = x.transpose(1, 2)
-            if self.cfg.pos_conv_type == "stacked":
-                for layer in self.layers:
-                    x = layer(x)
-            else:
-                x = self.conv(x)
-                if self.cfg.num_conv_pos_embeddings % 2 == 0:
-                    x = x[:, :, :-1]
-                x = ACT2FN[self.cfg.feat_extract_activation](x)
+            for layer in self.layers:
+                x = layer(x)
             return x.transpose(1, 2)
 
 

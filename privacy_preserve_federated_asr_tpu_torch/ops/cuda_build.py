@@ -53,7 +53,7 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-SOURCES = ("flash_fwd", "flash_bwd", "ctc")  # every csrc/*.cu of the port
+SOURCES = ("flash_fwd", "flash_bwd", "ctc", "pos_conv")  # every csrc/*.cu of the port
 
 
 def _build(names) -> None:
